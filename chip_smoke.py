@@ -7,15 +7,15 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and PyTorch built for CUDA;
 imports nothing of JAX or of the JAX package ``src/repro``. In order:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the paged-attention kernel from ``src/repro_torch/kernels/
-   paged_attention/csrc`` (reused when already built) and prints the
-   compiler's resource report;
-3. kernel phase: holds the CUDA kernel against its plain PyTorch version on
-   the card, on the reference's test cases in float32 and bfloat16 and at
-   granite-3-2b's decode shape (8 slots, 32 query / 8 KV heads, head dim 64,
-   16-token pages, ragged lengths up to 1024, bf16 pool, with and without a
-   ring-table window), then times kernel, plain version and
-   ``scaled_dot_product_attention`` (the yardstick, never called by the
+2. builds the paged-attention kernel and the flash-attention kernels from
+   ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, started together;
+   reused when already built) and prints the compiler's resource reports;
+3. kernel phase: holds the paged CUDA kernel against its plain PyTorch
+   version on the card, on the reference's test cases in float32 and
+   bfloat16 and at granite-3-2b's decode shape (8 slots, 32 query / 8 KV
+   heads, head dim 64, 16-token pages, ragged lengths up to 1024, bf16 pool,
+   with and without a ring-table window), then times kernel, plain version
+   and ``scaled_dot_product_attention`` (the yardstick, never called by the
    port) with CUDA events;
 4. serve phase: full-width, full-depth granite-3-2b with random weights
    made on the card from a seed, served by ``ContinuousBatchingEngine``
@@ -33,7 +33,24 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
    the card and on the CPU's plain path gives equal completions, after a
    check that its greedy margins are clear, and its teacher-forced logits
    agree between the kernel path and the plain path on the card;
-6. checks that ``torch.argmax`` on the card takes the first maximal index.
+6. checks that ``torch.argmax`` on the card takes the first maximal index;
+7. flash kernel phase: the CUDA flash forward (o and lse) and backward (dq,
+   dk, dv) against their plain versions on the reference's attention cases
+   in float32 and bfloat16, against float64 at one small shape, and at
+   granite's training shape (B 2, S 4096, H 32, K 8, D 64, bf16, causal),
+   each tensor at a bound scaled to its size (``close_scaled``); times
+   kernels, plain versions and SDPA forward and backward there;
+8. train phase: full-width, full-depth granite-3-2b, 4 AdamW steps (lr
+   3e-4, global batch 4 in 2 microbatches, seq 4096, remat full) through
+   the training entry point ``repro_torch.launch.train`` (``--init
+   true-fan-in``) on ``LMPipeline`` batches. Checks finite and falling
+   loss and grad norms, 160 forward and 80 backward flash launches per step
+   (every attention call went through the kernels), holds every attention
+   call of one microbatch to the plain version on its own inputs, prints
+   step time, tokens/s, mfu and peak memory, and profiles one step;
+9. small train reference: the granite smoke config in float32, 2 steps on
+   the card through the kernels and on the CPU through the plain path from
+   the same params and batches: losses, grad norms and params agree.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
@@ -78,14 +95,42 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def close(got, want, tol: float) -> float:
-    """Max abs error; raises unless |got - want| <= tol + tol * |want|."""
+def close_at(got, want, atol: float, rtol: float) -> float:
+    """Max abs error; raises unless |got - want| <= atol + rtol * |want|."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    if not bool((err <= tol + tol * want.abs()).all()):
+    if not bool((err <= atol + rtol * want.abs()).all()):
         raise AssertionError(f"max abs err {err.max().item():.3e} over "
-                             f"tolerance {tol} + {tol} * |want|")
+                             f"tolerance {atol} + {rtol} * |want|")
     return err.max().item()
+
+
+def close(got, want, tol: float) -> float:
+    """:func:`close_at` with ``atol = rtol = tol``."""
+    return close_at(got, want, tol, tol)
+
+
+def close_scaled(got, want, atol: float, rtol: float) -> tuple[float, float]:
+    """Max abs error and the tensor's scale ``s = min(1, rms|want|)``;
+    raises unless |got - want| <= atol * s + rtol * |want|.
+
+    The reference's tolerance in ``assert_allclose``'s meaning, with atol
+    scaled down to the size of the tensor compared, so never looser than
+    :func:`close_at`. Flash outputs at long sequences (|o| about 0.02-0.05
+    at S 4096 on unit inputs) and the gradients of a mean loss (orders of
+    magnitude below 1) are the size of a fixed atol or far smaller, so a
+    fixed atol would pass a kernel that drops or doubles a KV tile, or
+    returns zeros. The root mean square rather than the max: the first rows
+    of a causal call attend to one or two keys, so their o is as large as
+    v itself and would set the scale for every longer row."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    scale = min(1.0, want.square().mean().sqrt().item())
+    if not bool((err <= atol * scale + rtol * want.abs()).all()):
+        raise AssertionError(f"max abs err {err.max().item():.3e} over "
+                             f"tolerance {atol} * {scale:.3e} + {rtol} * "
+                             f"|want|")
+    return err.max().item(), scale
 
 
 def attention_f64(torch, q, k_pool, v_pool, tables, lengths):
@@ -368,6 +413,12 @@ def serve_phase(torch, np, kernel, ref, card: str) -> int:
     return launches
 
 
+def dev_us(event) -> float:
+    """Device time (us) of a profiler event, across torch versions."""
+    return (getattr(event, "self_device_time_total", None)
+            or event.self_cuda_time_total)
+
+
 def profile_phase(torch, np, cfg, params, card: str) -> None:
     """Where a decode step's time goes: three engine-shaped one-token steps
     (8 lanes at 100 cached positions) under ``torch.profiler``."""
@@ -391,10 +442,6 @@ def profile_phase(torch, np, cfg, params, card: str) -> None:
             step(params, pool_k, pool_v, *args).cpu()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
@@ -465,6 +512,402 @@ def small_reference_phase(torch, np) -> None:
           f"{TOL['bfloat16']}, the bf16 pool's)")
 
 
+# ---------------------------------------------------------------------------
+# Flash attention (the training path)
+# ---------------------------------------------------------------------------
+
+# B, S, H, K, D, window, causal (tests/test_kernels.py:21-27)
+ATTN_CASES = [
+    (2, 64, 4, 2, 16, None, True),
+    (1, 48, 4, 4, 48, None, True),
+    (2, 40, 8, 2, 16, 24, True),
+    (1, 96, 4, 1, 64, None, False),
+    (2, 64, 4, 2, 120, None, True),
+]
+GRANITE_TRAIN = (2, 4096, 32, 8, 64)      # B, S, H, K, D: granite's training shape
+BF16_OPS_PER_S = 989e12                   # H100 SXM dense bf16 tensor cores
+# the backward's float32 tolerance: the reference's own for gradients of the
+# flash path (tests/test_kernels.py:61, atol 2e-4), with the forward's rtol;
+# dk and dv sum G * S products in another order than the plain version
+GRAD_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (3e-2, 3e-2)}
+
+
+def grouped(torch, fn, q, k, v, *rest, n_out):
+    """Run a plain flash function one KV head (and its query heads) at a
+    time, so a full-size score matrix is never formed: at granite's training
+    shape one KV group's float32 scores are 0.5 GB, all of them 4.3 GB.
+    ``rest`` are (B, S, H, D) tensors (o, do) and (B, H, S) ones (lse)."""
+    kh = k.shape[2]
+    g = q.shape[2] // kh
+    outs = []
+    for j in range(kh):
+        heads = slice(j * g, (j + 1) * g)
+        extra = [x[:, heads] if x.dim() == 3 else x[:, :, heads] for x in rest]
+        outs.append(fn(q[:, :, heads], k[:, :, j:j + 1], v[:, :, j:j + 1],
+                       *extra))
+    cat = []
+    for i in range(n_out):
+        parts = [o[i] for o in outs]
+        dim = 1 if parts[0].dim() == 3 else 2
+        cat.append(torch.cat(parts, dim=dim))
+    return cat
+
+
+def flash_inputs(torch, gen, b, s, h, kh, d, dtype):
+    mk = lambda n: torch.randn((b, s, n, d), generator=gen,
+                               device="cuda").to(dtype)
+    return mk(h), mk(kh), mk(kh), mk(h)      # q, k, v, do
+
+
+def flash_check(torch, fkernel, fref, q, k, v, do, causal, window,
+                dtype_name) -> dict:
+    """Kernel forward and backward against the plain versions (grouped by
+    KV head) on the same inputs, each tensor at :func:`close_scaled`'s
+    bound; returns ``{name: (max abs err, scale)}`` for o, lse, dq, dk, dv."""
+    o, lse = fkernel.flash_attention_fwd_cuda(q, k, v, causal=causal,
+                                              window=window)
+    wo, wlse = grouped(torch, lambda *a: fref.flash_attention_ref(
+        *a, causal=causal, window=window), q, k, v, n_out=2)
+    tol = TOL[dtype_name]
+    out = {"o": close_scaled(o, wo, tol, tol),
+           "lse": (close(lse, wlse, TOL["float32"]), 1.0)}
+    grads = fkernel.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                             causal=causal, window=window)
+    want = grouped(torch, lambda *a: fref.flash_attention_bwd_ref(
+        *a, causal=causal, window=window), q, k, v, o, lse, do, n_out=3)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        out[name] = close_scaled(g, w, *GRAD_TOL[dtype_name])
+    return out
+
+
+def fmt_errs(errs: dict) -> str:
+    return ", ".join(f"{k} {e:.3e}" + ("" if k == "lse" else f" (scale {s:.3e})")
+                     for k, (e, s) in errs.items())
+
+
+def flash_bound_ms(b, s, h, kh, d, elt, pairs, backward: bool):
+    """Least time for the call on the card: the larger of its FLOPs over the
+    bf16 tensor-core peak and its bytes (each input read once, each output
+    written once) over the memory rate. ``pairs`` is the number of visible
+    (query, key) pairs per (batch, head)."""
+    per_pair = 10 * d if backward else 4 * d        # 5 products vs 2
+    flops = per_pair * b * h * pairs
+    q_bytes, kv_bytes, row = b * s * h * d * elt, b * s * kh * d * elt, b * h * s * 4
+    if backward:   # q, k, v, o, do, lse in; dq, dk, dv out (delta in between)
+        moved = 4 * q_bytes + 4 * kv_bytes + row
+    else:          # q, k, v in; o, lse out
+        moved = 2 * q_bytes + 2 * kv_bytes + row
+    t_ops, t_bytes = flops / BF16_OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_phase(torch, fkernel, fref) -> list[dict]:
+    """The flash kernels against their plain versions on the reference's
+    cases (float32 and bfloat16), against float64 at one small shape, and
+    at granite's training shape; then times kernel, plain version and SDPA
+    at that shape. Returns the two kernels' JSON entries (no launches)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    for case in ATTN_CASES:
+        b, s, h, kh, d, win, causal = case
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            q, k, v, do = flash_inputs(torch, gen, b, s, h, kh, d, dt)
+            errs = flash_check(torch, fkernel, fref, q, k, v, do, causal, win,
+                               name)
+            print(f"flash case B,S,H,K,D,window,causal={case} {name}: max abs "
+                  f"err {fmt_errs(errs)}")
+
+    # float64 yardstick at one small shape: both float32 versions against it
+    q, k, v, do = flash_inputs(torch, gen, 2, 96, 8, 2, 64, torch.float32)
+    o, lse = fkernel.flash_attention_fwd_cuda(q, k, v, causal=True, window=None)
+    g = fkernel.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    po, plse = fref.flash_attention_ref(q, k, v, causal=True)
+    pg = fref.flash_attention_bwd_ref(q, k, v, po, plse, do, causal=True)
+    x64 = [t.double() for t in (q, k, v, do)]
+    eo, else_ = fref.flash_attention_ref(*x64[:3], causal=True)
+    eg = fref.flash_attention_bwd_ref(*x64[:3], eo, else_, x64[3], causal=True)
+    err = lambda a, b: max((x.double() - y).abs().max().item()
+                           for x, y in zip(a, b))
+    e_kernel, e_plain = err([o, *g], [eo, *eg]), err([po, *pg], [eo, *eg])
+    assert e_kernel <= GRAD_TOL["float32"][0], e_kernel
+    print(f"flash against float64 (B 2, S 96, H 8, K 2, D 64, causal): max abs "
+          f"err of o, dq, dk, dv: kernel {e_kernel:.3e}, plain {e_plain:.3e}")
+
+    b, s, h, kh, d = GRANITE_TRAIN
+    q, k, v, do = flash_inputs(torch, gen, b, s, h, kh, d, torch.bfloat16)
+    errs = flash_check(torch, fkernel, fref, q, k, v, do, True, None, "bfloat16")
+    print(f"flash at granite's training shape B={b} S={s} H={h} K={kh} D={d} "
+          f"bf16 causal: max abs err {fmt_errs(errs)} (bound tol * scale + "
+          f"tol * |plain|, tol {TOL['bfloat16']}; lse {TOL['float32']} + "
+          f"{TOL['float32']} * |plain|)")
+    o, lse = fkernel.flash_attention_fwd_cuda(q, k, v, causal=True)
+    ms_fwd = time_ms(torch, lambda i: fkernel.flash_attention_fwd_cuda(
+        q, k, v, causal=True), 1, inner=3, reps=7)
+    ms_bwd = time_ms(torch, lambda i: fkernel.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, causal=True), 1, inner=2, reps=5)
+    plain_fwd = time_ms(torch, lambda i: grouped(
+        torch, lambda *a: fref.flash_attention_ref(*a, causal=True), q, k, v,
+        n_out=2), 1, inner=1, reps=3)
+    plain_bwd = time_ms(torch, lambda i: grouped(
+        torch, lambda *a: fref.flash_attention_bwd_ref(*a, causal=True), q, k, v, o,
+        lse, do, n_out=3), 1, inner=1, reps=3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    if tuple(int(x) for x in torch.__version__.split(".")[:2]) < (2, 5):
+        rep = h // kh
+        sdpa_fn = lambda: sdpa(qs, ks.repeat_interleave(rep, 1),
+                               vs.repeat_interleave(rep, 1), is_causal=True)
+    else:
+        sdpa_fn = lambda: sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+    with torch.no_grad():
+        lib_fwd = time_ms(torch, lambda i: sdpa_fn(), 1, inner=10, reps=11)
+    so = sdpa_fn()
+    dos = do.transpose(1, 2)
+    lib_bwd = time_ms(torch, lambda i: torch.autograd.grad(
+        so, (qs, ks, vs), dos, retain_graph=True), 1, inner=10, reps=11)
+    lib_both = time_ms(torch, lambda i: torch.autograd.grad(
+        sdpa_fn(), (qs, ks, vs), dos), 1, inner=10, reps=11)
+    pairs = s * (s + 1) // 2
+    bound_f, by_f = flash_bound_ms(b, s, h, kh, d, 2, pairs, False)
+    bound_b, by_b = flash_bound_ms(b, s, h, kh, d, 2, pairs, True)
+    print(f"flash times at the training shape: forward kernel {ms_fwd:.3f} ms, "
+          f"plain {plain_fwd:.3f} ms, sdpa {lib_fwd:.3f} ms, bound "
+          f"{bound_f:.4f} ms ({by_f}); backward kernel {ms_bwd:.3f} ms, plain "
+          f"{plain_bwd:.3f} ms, sdpa backward {lib_bwd:.3f} ms, bound "
+          f"{bound_b:.4f} ms ({by_b}); sdpa forward+backward {lib_both:.3f} ms, "
+          f"kernels forward+backward {ms_fwd + ms_bwd:.3f} ms")
+    src = "src/repro_torch/kernels/attention/csrc/flash_attention.cu"
+    return [
+        {"name": "flash_attention_fwd", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/attention/kernel.py:69",
+         "max_abs_err": max(errs["o"][0], errs["lse"][0]), "ms": ms_fwd,
+         "plain_ms": plain_fwd,
+         "bound_ms": bound_f, "bound_by": by_f, "library_ms": lib_fwd},
+        {"name": "flash_attention_bwd", "route": "cuda", "source": src,
+         "replaces": "src/repro/models/layers.py:170",
+         "max_abs_err": max(errs[n][0] for n in ("dq", "dk", "dv")),
+         "ms": ms_bwd, "plain_ms": plain_bwd,
+         "bound_ms": bound_b, "bound_by": by_b, "library_ms": lib_bwd},
+    ]
+
+
+def train_phase(torch, np, fkernel, fref, card: str) -> tuple[int, int]:
+    """Full-width, full-depth granite-3-2b trained by the training entry
+    point (``repro_torch.launch.train``, ``--init true-fan-in``): 4 AdamW
+    steps (global batch 4 in 2 microbatches, seq 4096, remat full) on
+    ``LMPipeline`` batches. Checks finite, falling loss and the launch
+    counts (every attention call went through the kernels), then holds
+    every attention call of one microbatch to the plain version on that
+    call's inputs, and profiles one step. Returns the forward and backward
+    launch counts of the 4 steps."""
+    from repro_torch import configs
+    from repro_torch.data.lm import LMDataConfig, LMPipeline
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry, transformer
+    from repro_torch.sharding.params import cast_tree, count_params, init_tree
+    from repro_torch.train.trainer import TrainConfig, make_loss_fn
+
+    cfg = configs.get("granite_3_2b")
+    n_params = cfg.param_count()
+    seq, global_batch, accum, steps, lr = 4096, 4, 2, 4, 3e-4
+    argv = ["--arch", "granite-3-2b", "--init", "true-fan-in",
+            "--steps", str(steps), "--global-batch", str(global_batch),
+            "--accum", str(accum), "--seq", str(seq), "--lr", str(lr),
+            "--optimizer", "adamw", "--seed", str(SEED)]
+    # the launcher's init, loss and first batch, for the control and the
+    # before/after loss on one fixed microbatch
+    params = cast_tree(init_tree(registry.decls(cfg), SEED, "cuda"),
+                       torch.bfloat16)
+    assert count_params(params) == n_params == 2_533_531_648
+    loss_fn = make_loss_fn(cfg, TrainConfig(optimizer="adamw", lr=lr,
+                                            accum=accum))
+    mb = {k: v[0] for k, v in LMPipeline(LMDataConfig(
+        vocab=cfg.vocab, seq=seq, global_batch=global_batch, accum=accum,
+        seed=SEED)).batch_at(0).items()}
+
+    # control: at the reference's own init the gradients of this 40-layer
+    # model overflow (see transformer.true_fan_in; the launcher's default
+    # init raises on its first step); printed, not asserted
+    embed = params["embed"].detach().requires_grad_()
+    grads = torch.autograd.grad(loss_fn(dict(params, embed=embed), mb)[0],
+                                [embed])
+    norm = torch.linalg.vector_norm(grads[0].float()).item()
+    del grads, embed
+    print(f"train control: at the reference's init, the embedding's gradient "
+          f"norm on one microbatch is {norm:.4e}")
+    with torch.no_grad():
+        loss_before = loss_fn(transformer.true_fan_in(params, cfg),
+                              mb)[0].item()
+    del params
+    torch.cuda.empty_cache()
+
+    tokens = global_batch * seq
+    # model FLOPs per step: 6 N T for the matmuls, and the causal attention
+    # products (2 of them, 2 FLOPs per multiply-add) forward and twice that
+    # backward; the remat recompute is not counted, as usual for mfu
+    attn_flops = 3 * cfg.n_layers * global_batch * 4 * cfg.n_heads * \
+        cfg.resolved_head_dim * (seq * (seq + 1) // 2)
+    step_flops = 6 * n_params * tokens + attn_flops
+    print(f"train: python -m repro_torch.launch.train {' '.join(argv)} "
+          f"(granite-3-2b, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters in bf16, remat {cfg.remat})", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    fkernel.launches_fwd = fkernel.launches_bwd = 0
+    run = launch_train.main(argv)
+    launches_fwd, launches_bwd = fkernel.launches_fwd, fkernel.launches_bwd
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, times = run.losses, run.seconds
+    for i, dt in enumerate(times):
+        print(f"train step {i + 1}: {tokens / dt:.0f} tokens/s, mfu "
+              f"{step_flops / (dt * BF16_OPS_PER_S):.4f}")
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    assert all(np.isfinite(run.grad_norms)), run.grad_norms
+    assert losses[-1] < losses[0], losses
+    assert torch.equal(run.data.batch_at(0)["tokens"][0], mb["tokens"])
+    want = (steps * cfg.n_layers * accum * 2, steps * cfg.n_layers * accum)
+    assert (launches_fwd, launches_bwd) == want, ((launches_fwd,
+                                                   launches_bwd), want)
+    steady = statistics.median(times[1:])
+    print(f"train on {card}: step {steady:.3f} s (median of steps 2-{steps}; "
+          f"step 1, the warm-up, {times[0]:.3f} s), {tokens / steady:.0f} "
+          f"tokens/s, mfu {step_flops / (steady * BF16_OPS_PER_S):.4f} "
+          f"({step_flops:.4e} FLOPs per step at 989 TFLOP/s), peak memory "
+          f"{peak_gb:.2f} GB; flash launches {launches_fwd} forward = "
+          f"{steps} steps x {cfg.n_layers} layers x {accum} microbatches x 2 "
+          f"(forward and remat recompute), {launches_bwd} backward; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; grad norms "
+          f"{' '.join(f'{x:.4f}' for x in run.grad_norms)}")
+
+    # every attention call of one microbatch against the plain version on
+    # that call's own inputs (one KV-head group at a time), at bounds scaled
+    # to each tensor (close_scaled): the gradients of this mean loss are
+    # orders of magnitude below 1
+    errs = {"fwd": [], "bwd": []}
+    kernel_fwd, kernel_bwd = attn_ops._forward, attn_ops._backward
+
+    def checked_fwd(q, k, v, causal, window):
+        o, lse = kernel_fwd(q, k, v, causal, window)
+        wo, wlse = grouped(torch, lambda *a: fref.flash_attention_ref(
+            *a, causal=causal, window=window), q, k, v, n_out=2)
+        close(lse, wlse, TOL["float32"])
+        errs["fwd"].append(close_scaled(o, wo, TOL["bfloat16"],
+                                        TOL["bfloat16"]))
+        return o, lse
+
+    def checked_bwd(q, k, v, o, lse, do, causal, window):
+        got = kernel_bwd(q, k, v, o, lse, do, causal, window)
+        want = grouped(torch, lambda *a: fref.flash_attention_bwd_ref(
+            *a, causal=causal, window=window), q, k, v, o, lse, do, n_out=3)
+        errs["bwd"] += [close_scaled(g, w, *GRAD_TOL["bfloat16"])
+                        for g, w in zip(got, want)]
+        return got
+
+    embed = run.params["embed"].detach().requires_grad_()  # the gradient's way in
+    with mock.patch.object(attn_ops, "_forward", checked_fwd), \
+            mock.patch.object(attn_ops, "_backward", checked_bwd):
+        loss, _ = loss_fn(dict(run.params, embed=embed), mb)
+        torch.autograd.grad(loss, [embed])
+    # the same microbatch before and after the 4 steps: a learning check
+    # free of the batch-to-batch noise of the per-step losses
+    assert loss.item() < loss_before, (loss.item(), loss_before)
+    print(f"train: loss on the first microbatch {loss_before:.4f} before the "
+          f"{steps} steps, {loss.item():.4f} after")
+    assert len(errs["fwd"]) == 2 * cfg.n_layers, len(errs["fwd"])
+    assert len(errs["bwd"]) == 3 * cfg.n_layers, len(errs["bwd"])
+    span = lambda xs: (f"max abs err {max(e for e, _ in xs):.3e}, scales "
+                       f"{min(s for _, s in xs):.3e} to "
+                       f"{max(s for _, s in xs):.3e}")
+    print(f"train: every attention call of one microbatch held to the plain "
+          f"version on its own inputs: {len(errs['fwd'])} forward calls, o "
+          f"{span(errs['fwd'])} (bound {TOL['bfloat16']} * scale + "
+          f"{TOL['bfloat16']} * |plain|; lse {TOL['float32']} + "
+          f"{TOL['float32']} * |plain|), {len(errs['bwd']) // 3} backward "
+          f"calls, dq/dk/dv {span(errs['bwd'])} (bound "
+          f"{GRAD_TOL['bfloat16'][0]} * scale + {GRAD_TOL['bfloat16'][1]} * "
+          f"|plain|)")
+    del errs
+    train_profile(torch, run.train_step, run.params, run.opt_state,
+                  run.data.batch_at(steps), card)
+    return launches_fwd, launches_bwd
+
+
+def train_profile(torch, train_step, params, state, batch, card: str) -> None:
+    """One train step under ``torch.profiler``: the device's busy share and
+    the top device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(params, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    top = "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.1f} ms x{e.count}"
+                    for e in kernels[:8])
+    print(f"train profile on {card}, one step: wall {wall_ms:.1f} ms (under "
+          f"the profiler), device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {launches} kernel launches; top "
+          f"device time: {top}")
+
+
+def small_train_reference_phase(torch, np) -> None:
+    """The card's training path against the CPU's plain path on a small
+    input: the granite smoke config in float32, the same params and the
+    same numpy batches (attention projections at their true fan-in, which
+    keeps the gradients well conditioned in float32), 2 AdamW steps. Loss
+    and grad norm agree to 1e-5; AdamW's first steps move each element by
+    about lr whatever its gradient's size, so an element whose gradient is
+    below float32 noise may step either way: params agree to 2e-6 in all
+    but 0.1% of the elements and within 4 lr in every one."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import registry, transformer
+    from repro_torch.sharding.params import init_tree, tree_leaves, tree_map
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+
+    cfg = dataclasses.replace(configs.smoke("granite_3_2b"), dtype="float32",
+                              remat="full")
+    params = transformer.true_fan_in(
+        init_tree(registry.decls(cfg), SEED, "cpu"), cfg)
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab, size=(2, 2, 2, 97))
+    batches = [{"tokens": torch.from_numpy(t[..., :-1]),
+                "labels": torch.from_numpy(t[..., 1:])} for t in toks]
+    tc = TrainConfig(accum=2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        step, opt = make_train_step(cfg, tc)
+        state = opt.init(p)
+        ms = [step(p, state, b)[2] for b in batches]
+        out[dev] = ([float(m["loss"]) for m in ms],
+                    [float(m["grad_norm"]) for m in ms],
+                    [t.cpu() for t in tree_leaves(p)])
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    np.testing.assert_allclose(gg, gc, rtol=1e-5)
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
+    # each AdamW step moves an element by at most about lr (|update| <= 1.3
+    # lr in the first two steps), so two steps stay within 4 lr
+    assert diffs.max().item() <= 4 * tc.lr, diffs.max().item()
+    share = (diffs > 2e-6).float().mean().item()
+    assert share < 1e-3, share
+    print(f"small train reference (smoke granite, float32, 2 steps of 2 x 2 x "
+          f"96 tokens) on the card vs the CPU's plain path: losses "
+          f"{lg} vs {lc}, grad norms {gg} vs {gc}; params max abs diff "
+          f"{diffs.max().item():.3e}, {100 * share:.3f}% of elements above "
+          f"2e-6")
+
+
 def argmax_tie(torch) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -479,6 +922,20 @@ def argmax_tie(torch) -> None:
     print("torch.argmax on the card takes the first maximal index")
 
 
+def build_all(kernel, fkernel) -> None:
+    """Build both kernels at once, one ``nvcc`` each, and print the
+    compiler's resource reports."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda m: m.build(), (kernel, fkernel)))
+    print(f"built {', '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        print(lib.with_suffix(".log").read_text().strip())
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -486,6 +943,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch.kernels.attention import kernel as fkernel
+    from repro_torch.kernels.attention import ref as fref
     from repro_torch.kernels.paged_attention import kernel, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
@@ -494,16 +953,23 @@ def main() -> int:
     print(card)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    lib = kernel.build()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.2f} s")
-    print(lib.with_suffix(".log").read_text().strip())
+    t_start = time.perf_counter()
+    build_all(kernel, fkernel)
 
-    entry = kernel_phase(torch, kernel, ref)
-    entry["launches"] = serve_phase(torch, np, kernel, ref, card)
+    paged = kernel_phase(torch, kernel, ref)
+    paged["launches"] = serve_phase(torch, np, kernel, ref, card)
     small_reference_phase(torch, np)
     argmax_tie(torch)
-    print(json.dumps({"kernels": [entry]}))
+    torch.cuda.empty_cache()
+    fwd, bwd = flash_phase(torch, fkernel, fref)
+    torch.cuda.empty_cache()
+    fwd["launches"], bwd["launches"] = train_phase(torch, np, fkernel, fref,
+                                                   card)
+    torch.cuda.empty_cache()
+    small_train_reference_phase(torch, np)
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [paged, fwd, bwd]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

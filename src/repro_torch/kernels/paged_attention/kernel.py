@@ -5,8 +5,9 @@ Replaces the Pallas TPU kernel ``paged_attention_kernel``
 The kernel is CUDA C++ in ``csrc/paged_attention.cu`` (its header comment
 gives the design and what bounds it). It is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C entry on first use, into
-the ``build/`` directory beside this file (ignored by git), and bound with
-``ctypes``. Nothing is built or loaded when this module is imported.
+the ``build/`` directory beside this file (ignored by git; the shared
+recipe is :mod:`repro_torch.kernels.build`), and bound with ``ctypes``.
+Nothing is built or loaded when this module is imported.
 
 :func:`paged_attention_cuda` is the launching wrapper: it checks device,
 dtype, shape and contiguity, allocates the output, launches on PyTorch's
@@ -17,20 +18,16 @@ the module-level integer :data:`launches`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
 import pathlib
-import shutil
-import subprocess
 import threading
 
 import torch
 
+from repro_torch.kernels import build as _build
+
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches of the CUDA kernel since the count was last set to 0
 launches = 0
@@ -40,34 +37,10 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the paged-attention kernel is built "
-                       "from csrc/ with the CUDA toolkit on the card's machine")
-
-
 def build() -> pathlib.Path:
     """Compile the kernel (once per source content) and return the library
-    path. The compiler's resource report (``-Xptxas -v``) is kept beside
-    the library as ``.log``."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"libpaged_attention_{digest}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    out = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(out.stdout + out.stderr)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({out.returncode}):\n{out.stderr}")
-    os.replace(tmp, lib)        # atomic: a concurrent build sees all or none
-    return lib
+    path; see :func:`repro_torch.kernels.build.build`."""
+    return _build.build(_SRC, "paged_attention", _BUILD_DIR)
 
 
 def _load():

@@ -1,0 +1,113 @@
+"""Training entry point of the port, on one device.
+
+  python -m repro_torch.launch.train --arch granite-3-2b --init true-fan-in \\
+      --steps 4 --global-batch 4 --accum 2 --seq 4096
+  python -m repro_torch.launch.train --arch granite-3-2b --smoke --device cpu \\
+      --steps 20 --global-batch 8 --seq 64
+
+Port of ``src/repro/launch/train.py`` without the mesh, the checkpoints and
+the fault-tolerance controller (later slices of the port). Runs on the card
+unless ``--device cpu`` is given; without a card and without ``--device``
+it raises. Random weights from ``--seed``, batches from
+:class:`repro_torch.data.lm.LMPipeline`; prints one line per step with the
+loss, the gradient norm and the step time, and raises when either is not
+finite. ``--init reference`` (the default) is the reference's init, whose
+gradients overflow at full depth (granite-3-2b's 40 layers: a gradient
+norm of inf on the first step); ``--init true-fan-in`` rescales the
+attention projections to their true fan-in
+(:func:`repro_torch.models.transformer.true_fan_in`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+import time
+from typing import Any, Callable
+
+import torch
+
+from repro_torch import configs
+from repro_torch import device as device_mod
+from repro_torch.data.lm import LMDataConfig, LMPipeline
+from repro_torch.models import registry, transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.params import cast_tree, init_tree
+from repro_torch.train.trainer import TrainConfig, make_train_step
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What a run leaves: the trained params and optimizer state, the step
+    function and the data, and per step its loss, grad norm and seconds."""
+    cfg: ModelConfig
+    params: Any
+    opt_state: Any
+    train_step: Callable
+    data: LMPipeline
+    losses: list[float]
+    grad_norms: list[float]
+    seconds: list[float]
+
+
+def main(argv=None) -> TrainRun:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced same-family config")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--accum", type=int, default=2)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["adamw", "adafactor", "lion"])
+    ap.add_argument("--init", default="reference",
+                    choices=["reference", "true-fan-in"],
+                    help="true-fan-in rescales the attention projections "
+                         "(needed at granite-3-2b's full depth)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    dev = device_mod.resolve(args.device)
+    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    tc = TrainConfig(optimizer=args.optimizer, lr=args.lr, accum=args.accum)
+    train_step, optimizer = make_train_step(cfg, tc)
+    data = LMPipeline(LMDataConfig(
+        vocab=cfg.vocab, seq=args.seq, global_batch=args.global_batch,
+        accum=args.accum, seed=args.seed))
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    params = cast_tree(init_tree(registry.decls(cfg), args.seed, dev), dtype)
+    if args.init == "true-fan-in":
+        params = transformer.true_fan_in(params, cfg)
+    opt_state = optimizer.init(params)
+
+    run = TrainRun(cfg, params, opt_state, train_step, data, [], [], [])
+    for step in range(args.steps):
+        t0 = time.perf_counter()
+        batch = data.batch_at(step)
+        run.params, run.opt_state, metrics = train_step(run.params,
+                                                        run.opt_state, batch)
+        loss = float(metrics["loss"])          # waits for the step to end
+        dt = time.perf_counter() - t0
+        norm = float(metrics["grad_norm"])
+        run.losses.append(loss)
+        run.grad_norms.append(norm)
+        run.seconds.append(dt)
+        print(f"step {step:5d} loss {loss:.4f} grad_norm {norm:.4f} "
+              f"({dt:.2f}s)", flush=True)
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            hint = (" (at full depth the reference's init overflows: try "
+                    "--init true-fan-in)" if args.init == "reference" else "")
+            raise FloatingPointError(f"step {step}: loss {loss}, grad norm "
+                                     f"{norm}: the update is not training"
+                                     f"{hint}")
+    print("done; final loss", run.losses[-1] if run.losses else math.nan)
+    return run
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,1 @@
-"""Model families of the port (transformer decode path so far)."""
+"""Model families of the port (the dense transformer: training and decode)."""

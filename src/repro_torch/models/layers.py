@@ -1,9 +1,11 @@
-"""Shared neural layers of the decode path, as plain functions on tensors.
+"""Shared neural layers, as plain functions on tensors.
 
-Port of the decode subset of ``src/repro/models/layers.py``: norms,
-positional encodings, the four MLP kinds, the LM head and the naive
-attention oracle, with the reference's dtype boundaries (norm and rope in
-float32, cast back to the input dtype) and mask constant (``-1e30``).
+Port of ``src/repro/models/layers.py`` for the dense decode and training
+paths: norms, positional encodings, the multi-token attention entry, the
+four MLP kinds, the LM head, the cross-entropy loss and the naive attention
+oracle, with the reference's dtype boundaries (norm and rope in float32,
+cast back to the input dtype; the loss in float32) and mask constant
+(``-1e30``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.sharding import axes as lx
 from repro_torch.sharding.params import Axes, ParamDecl
 
@@ -105,6 +108,21 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     return o.reshape(b, sq, h, d).to(q.dtype)
 
 
+def attention(q, k, v, *, causal: bool = True,
+              window: int | None = None) -> torch.Tensor:
+    """Multi-token attention of the training path: q (B,S,H,D), k/v
+    (B,S,K,D) -> (B,S,H,D), differentiable.
+
+    Every call goes through :func:`repro_torch.kernels.attention.ops.
+    flash_attention` (the CUDA kernels on the card, the plain versions on
+    the CPU). Unlike the reference (``layers.py:293-298``) it does not
+    repeat KV to the full head count: the kernels read KV head ``h // G``
+    for query head ``h``, and sum dk/dv over each group in float32, which
+    is what the transpose of the repeat computes.
+    """
+    return attn_ops.flash_attention(q, k, v, causal=causal, window=window)
+
+
 # ---------------------------------------------------------------------------
 # MLP variants
 # ---------------------------------------------------------------------------
@@ -165,3 +183,23 @@ def lm_head(x: torch.Tensor, params, cfg) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab:
         logits[..., cfg.vocab:] = NEG_INF
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Per-token cross entropy in float32, with the max detached and an
+    optional z-loss ``z_loss * lse**2`` (``layers.py:526-540``)."""
+    logits = logits.to(F32)
+    m = logits.amax(-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(-1)) + m[..., 0]
+    picked = shifted.gather(-1, labels[..., None].long())[..., 0] + m[..., 0]
+    loss = lse - picked
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss

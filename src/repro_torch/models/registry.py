@@ -23,6 +23,17 @@ def decls(cfg: ModelConfig):
     return _mod(cfg).decls(cfg)
 
 
+def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
+    """Training forward ``(logits, aux)``; see :func:`transformer.forward`.
+    Dense family only: the audio family's ``embeds`` inputs are not yet
+    ported."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): training "
+                                  f"forward not yet ported")
+    return transformer.forward(params, cfg, tokens, positions=positions,
+                               embeds=embeds)
+
+
 def supports_paged(cfg: ModelConfig) -> bool:
     """True when ``cfg`` can decode against a global KV page pool."""
     return _mod(cfg).supports_paged(cfg)

@@ -1,13 +1,13 @@
-"""Decoder-only transformer: the paged decode subset.
+"""Decoder-only transformer: the training forward and paged decode.
 
-Port of ``src/repro/models/transformer.py`` (``decls``, ``supports_paged``,
-``paged_pool_init``, ``decode_step_paged`` without tensor parallelism, and
-the helpers they use). The parameter tree keeps the reference's stacked
-layout, so weights map one to one: ``blocks[...]["l0"]`` with a leading
-``n_super`` axis, ``wq (d,h,hd)``, ``wk/wv (d,k,hd)``, ``wo (h,hd,d)``. The
-reference's ``lax.scan`` over that axis is a Python loop here, and the KV
-page pool is written **in place** (the reference donates it and returns a
-new one).
+Port of ``src/repro/models/transformer.py`` (``decls``, ``forward`` for the
+dense family, ``supports_paged``, ``paged_pool_init``, ``decode_step_paged``
+without tensor parallelism, and the helpers they use). The parameter tree
+keeps the reference's stacked layout, so weights map one to one:
+``blocks[...]["l0"]`` with a leading ``n_super`` axis, ``wq (d,h,hd)``,
+``wk/wv (d,k,hd)``, ``wo (h,hd,d)``. The reference's ``lax.scan`` over that
+axis is a Python loop here, and the KV page pool is written **in place**
+(the reference donates it and returns a new one).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -22,7 +23,7 @@ from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import axes as lx
-from repro_torch.sharding.params import Axes, ParamDecl, stack_tree
+from repro_torch.sharding.params import Axes, ParamDecl, stack_tree, tree_map
 
 
 def _is_moe_layer(cfg: ModelConfig, layer_idx: int) -> bool:
@@ -65,6 +66,29 @@ def decls(cfg: ModelConfig) -> dict[str, Any]:
     return tree
 
 
+def true_fan_in(params, cfg: ModelConfig):
+    """``params`` with the attention projections rescaled to the std of
+    their true fan-in: d_model for wq, wk and wv, heads * head_dim for wo.
+
+    The reference's ``ParamDecl`` takes ``shape[-2]`` as the fan-in, which
+    for these 3-d weights is the head count (wq), the KV head count (wk,
+    wv) or the head dim (wo). At granite-3-2b's full width q and k come out
+    8 times too large, and the gradients grow 5-10x per layer towards the
+    input, past bf16's range at depth 40. Returns a new tree (leaves
+    multiplied by a Python float, so numpy and torch leaves alike); the
+    other leaves are shared. Dense family only.
+    """
+    if cfg.moe_experts >= 2:
+        raise NotImplementedError("MoE layers are not yet ported")
+    d, h, kh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    a = dict(params["blocks"]["l0"]["attn"])
+    for name, fan_ratio in (("wq", h / d), ("wk", kh / d), ("wv", kh / d),
+                            ("wo", 1 / h)):
+        a[name] = a[name] * fan_ratio ** 0.5
+    layer = dict(params["blocks"]["l0"], attn=a)
+    return dict(params, blocks=dict(params["blocks"], l0=layer))
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -103,6 +127,80 @@ def _embed(params, cfg: ModelConfig, tokens, positions):
     if cfg.pos_emb == "sinusoidal":
         x = x + L.sinusoidal(positions, cfg.d_model).to(x.dtype)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def superblocks(blocks, n_super: int) -> list:
+    """The per-superblock parameter trees of ``params["blocks"]``.
+
+    ``blocks`` is the stacked tree (every leaf with a leading ``n_super``
+    axis), indexed here, or already a list of per-superblock trees. A
+    trainer passes the list: each layer then owns its leaf tensors, and
+    autograd does not write a stack-sized zero gradient for every index
+    into a stacked leaf.
+    """
+    if isinstance(blocks, (list, tuple)):
+        if len(blocks) != n_super:
+            raise ValueError(f"{len(blocks)} superblocks, want {n_super}")
+        return list(blocks)
+    return [tree_map(lambda t, s=s: t[s], blocks) for s in range(n_super)]
+
+
+def _attn_train(x, p, cfg: ModelConfig, rope_cs):
+    h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
+    q, k, v = _project_qkv(h, p, cfg, rope_cs)
+    o = L.attention(q, k, v, causal=True, window=cfg.sliding_window)
+    wo = p["wo"]
+    return x + o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _layer_train(x, lp, cfg: ModelConfig, rope_cs):
+    x = _attn_train(x, _cast(lp["attn"], x.dtype), cfg, rope_cs)
+    return _ffn(x, lp, cfg)
+
+
+def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
+    """Training/prefill forward: tokens (B, S) -> ``(logits (B, S, V),
+    aux)``, ``aux`` being the MoE load-balance loss (0 for dense layers).
+
+    Runs where the params are. Every attention call goes through
+    :func:`repro_torch.models.layers.attention` (the CUDA flash kernels on
+    the card). Remat ``"full"`` checkpoints each layer
+    (``torch.utils.checkpoint``, non-reentrant: its forward, attention
+    included, runs again in the backward); ``"none"`` keeps every
+    activation. ``params["blocks"]`` may be stacked or a list of
+    per-superblock trees (:func:`superblocks`).
+    """
+    if embeds is not None:
+        raise NotImplementedError("embeds inputs are not yet ported")
+    if cfg.remat == "dots":
+        raise NotImplementedError("remat 'dots' is not yet ported")
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    dev = params["embed"].device
+    tokens = tokens.to(dev)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=dev)[None]
+    positions = positions.to(dev)
+    x = _embed(params, cfg, tokens, positions)
+    rope_cs = (L.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+               if cfg.pos_emb == "rope" else None)
+    il = cfg.moe_interleave if cfg.moe_experts >= 2 else 1
+    for blk in superblocks(params["blocks"], cfg.n_layers // il):
+        for j in range(il):
+            if _is_moe_layer(cfg, j):
+                raise NotImplementedError("MoE layers are not yet ported")
+            if cfg.remat == "full":
+                x = checkpoint(_layer_train, x, blk[f"l{j}"], cfg, rope_cs,
+                               use_reentrant=False)
+            else:
+                x = _layer_train(x, blk[f"l{j}"], cfg, rope_cs)
+    x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return L.lm_head(x, params, cfg), torch.zeros((), device=dev)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,319 @@
+"""The port's flash attention against ``repro.kernels.attention`` and the
+reference training path's custom VJP (``repro.models.layers``).
+
+The plain forward is held to both JAX impls (the naive ``ref.attention`` and
+the Pallas kernel in interpret mode, as the JAX tests run it) on the
+reference's ``ATTN_CASES`` (``tests/test_kernels.py:21-27``), at the
+reference's tolerances: float32 2e-5, bfloat16 3e-2. ``lse`` is held to
+``layers._flash_fwd_impl``; the plain backward, and the autograd function
+around both, to ``jax.grad`` through ``layers.attention_chunked`` at atol
+2e-4 (``tests/test_kernels.py:61``); the autograd function to
+``torch.autograd.gradcheck`` in float64. The CUDA kernels are held to the
+plain versions on the card by the tests that skip here and by
+``chip_smoke.py``.
+"""
+
+import os
+import stat
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.kernels.attention import ops as jops
+from repro.kernels.attention import ref as jref
+from repro.models import layers as JL
+
+torch = build_mod = kernel = ops = ref = None  # bound by _port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port():
+    """Import torch and the port when these tests run, not when pytest
+    collects this file: every xdist worker collects every test file, and a
+    worker that has loaded torch (and its OpenMP thread pool) runs the JAX
+    package's async-dispatch engine tests under other thread timing."""
+    global torch, build_mod, kernel, ops, ref
+    torch = pytest.importorskip("torch")
+    from repro_torch.kernels import build as build_mod
+    from repro_torch.kernels.attention import kernel, ops, ref
+    torch.set_num_threads(1)
+
+
+# B, S, H, K, D, window, causal (tests/test_kernels.py:21-27)
+ATTN_CASES = [
+    (2, 64, 4, 2, 16, None, True),
+    (1, 48, 4, 4, 48, None, True),     # MHA, unaligned D
+    (2, 40, 8, 2, 16, 24, True),       # SWA, ragged S
+    (1, 96, 4, 1, 64, None, False),    # MQA, non-causal
+    (2, 64, 4, 2, 120, None, True),    # danube-style head_dim 120
+]
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+GRAD_ATOL = 2e-4
+
+
+def _inputs(b, s, h, k, d, seed=7):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    kk = rng.normal(size=(b, s, k, d)).astype(np.float32)
+    vv = rng.normal(size=(b, s, k, d)).astype(np.float32)
+    do = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    return q, kk, vv, do
+
+
+def _torch(a, dtype="float32"):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,k,d,win,causal", ATTN_CASES)
+def test_plain_forward_matches_jax(b, s, h, k, d, win, causal, dtype, impl):
+    q, kk, vv, _ = _inputs(b, s, h, k, d)
+    jd = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, kk, vv))
+    if impl == "ref":
+        want = jref.attention(jq, jk, jv, causal=causal, window=win)
+    else:
+        want = jops.flash_attention(jq, jk, jv, causal=causal, window=win,
+                                    q_block=16, kv_block=16)
+    got = ops.flash_attention(_torch(q, dtype), _torch(kk, dtype),
+                              _torch(vv, dtype), causal=causal, window=win)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, s, h, d)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,h,k,d,win,causal", ATTN_CASES)
+def test_lse_matches_flash_fwd_impl(b, s, h, k, d, win, causal):
+    q, kk, vv, _ = _inputs(b, s, h, k, d)
+    _, jlse = JL._flash_fwd_impl(jnp.asarray(q), jnp.asarray(kk),
+                                 jnp.asarray(vv), jnp.asarray(s, jnp.int32),
+                                 causal, win, 0, 16, 16)
+    want = np.asarray(jlse).reshape(b, h, -1)[:, :, :s]   # (B,K,G,Sq_pad)
+    _, lse = ref.flash_attention_ref(_torch(q), _torch(kk), _torch(vv),
+                                     causal=causal, window=win)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    np.testing.assert_allclose(lse.numpy(), want, atol=TOL["float32"],
+                               rtol=TOL["float32"])
+
+
+def _jax_grads(q, kk, vv, do, causal, win):
+    def loss(q, k, v):
+        o = JL.attention_chunked(q, k, v, causal=causal, window=win,
+                                 q_block=16, kv_block=16)
+        return jnp.sum(o * jnp.asarray(do))
+
+    return jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(kk), jnp.asarray(vv))
+
+
+@pytest.mark.parametrize("b,s,h,k,d,win,causal", ATTN_CASES)
+def test_plain_backward_matches_jax_grad(b, s, h, k, d, win, causal):
+    q, kk, vv, do = _inputs(b, s, h, k, d)
+    tq, tk, tv = _torch(q), _torch(kk), _torch(vv)
+    o, lse = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=win)
+    got = ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, _torch(do),
+                                      causal=causal, window=win)
+    for name, g, w in zip("qkv", got, _jax_grads(q, kk, vv, do, causal, win)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_ATOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", [ATTN_CASES[0], ATTN_CASES[2]],
+                         ids=["gqa_causal", "gqa_window"])
+def test_autograd_matches_jax_grad(case):
+    """The autograd function (forward saving lse, backward from it) gives
+    the reference's gradients through ``Tensor.backward``."""
+    b, s, h, k, d, win, causal = case
+    q, kk, vv, do = _inputs(b, s, h, k, d, seed=3)
+    tq, tk, tv = (_torch(a).requires_grad_() for a in (q, kk, vv))
+    o = ops.flash_attention(tq, tk, tv, causal=causal, window=win)
+    (o * _torch(do)).sum().backward()
+    for name, t, w in zip("qkv", (tq, tk, tv),
+                          _jax_grads(q, kk, vv, do, causal, win)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   atol=GRAD_ATOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("s,h,k,d,win,causal", [
+    (12, 4, 2, 8, None, True),
+    (12, 4, 2, 8, 5, True),
+    (10, 2, 1, 8, None, False),
+], ids=["gqa_causal", "gqa_window", "mqa_noncausal"])
+def test_gradcheck_float64(s, h, k, d, win, causal):
+    gen = torch.Generator().manual_seed(0)
+    args = [torch.randn((1, s, n, d), generator=gen, dtype=torch.float64,
+                        requires_grad=True) for n in (h, k, k)]
+    assert torch.autograd.gradcheck(
+        lambda q, kk, vv: ops.flash_attention(q, kk, vv, causal=causal,
+                                              window=win), args)
+
+
+def test_dispatch_raises_off_cuda_and_cpu():
+    meta = [torch.empty((1, 8, 2, 8), device="meta") for _ in range(3)]
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        ops.flash_attention(*meta)
+    cpu = [torch.randn(1, 8, 2, 8) for _ in range(3)]
+    before = (kernel.launches_fwd, kernel.launches_bwd)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kernel.flash_attention_fwd_cuda(*cpu)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kernel.flash_attention_bwd_cuda(*cpu, cpu[0], torch.zeros(1, 2, 8),
+                                        cpu[0])
+    assert (kernel.launches_fwd, kernel.launches_bwd) == before
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("the card's machine has nvcc")
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(kernel, "_BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernel.build()
+
+
+def test_shared_build_keys_the_library_by_source_hash(monkeypatch, tmp_path):
+    """The shared recipe: one library per source content, the compiler's
+    report kept as ``.log``, an unchanged source not rebuilt."""
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    fake = bindir / "nvcc"
+    calls = tmp_path / "calls"
+    fake.write_text('#!/bin/sh\necho call >> "%s"\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\necho "ptxas info: 0 bytes spill"\n' % calls)
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", str(bindir) + os.pathsep + os.environ["PATH"])
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    lib = build_mod.build(src, "k", tmp_path / "build")
+    assert lib.exists() and lib.name.startswith("libk_")
+    assert "ptxas info" in lib.with_suffix(".log").read_text()
+    assert build_mod.build(src, "k", tmp_path / "build") == lib
+    src.write_text("// two\n")
+    lib2 = build_mod.build(src, "k", tmp_path / "build")
+    assert lib2 != lib and lib2.exists()
+    assert calls.read_text().count("call") == 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,k,d,win,causal", ATTN_CASES)
+def test_cuda_kernels_match_plain(b, s, h, k, d, win, causal, dtype):
+    """The CUDA forward and backward against the plain versions on the
+    card (skips here). The backward's tolerance is the forward's for
+    float32; in bfloat16 each gradient rounds once more."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, kk, vv, do = (_torch(a, dtype).cuda() for a in _inputs(b, s, h, k, d))
+    o, lse = kernel.flash_attention_fwd_cuda(q, kk, vv, causal=causal,
+                                             window=win)
+    wo, wlse = ref.flash_attention_ref(q, kk, vv, causal=causal, window=win)
+    tol = TOL[dtype]
+    torch.testing.assert_close(o.float(), wo.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, wlse, atol=2e-5, rtol=2e-5)
+    got = kernel.flash_attention_bwd_cuda(q, kk, vv, wo, wlse, do,
+                                          causal=causal, window=win)
+    want = ref.flash_attention_bwd_ref(q, kk, vv, wo, wlse, do, causal=causal,
+                                       window=win)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=GRAD_ATOL
+                                   if dtype == "float32" else tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# The bound chip_smoke.py holds the CUDA kernels to
+# ---------------------------------------------------------------------------
+
+LONG = (1, 1024, 4, 2, 64)      # B, S, H, K, D: 16 KV tiles of 64, causal
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _scores64(q, kk, weight):
+    """Causal float64 scores (B, H, Sq, Sk) with log(weight) added per key."""
+    g = q.shape[2] // kk.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(),
+                     kk.double().repeat_interleave(g, 2))
+    s = s / q.shape[-1] ** 0.5 + weight.log()
+    n = s.shape[-1]
+    return s.masked_fill(torch.ones(n, n, dtype=torch.bool).triu(1),
+                         float("-inf"))
+
+
+def _kernel64(q, kk, vv, o, lse, do, weight):
+    """What a kernel computes, in float64 and rounded to bf16, when it
+    weighs each key's softmax term by ``weight``: all ones is a right
+    kernel (another summation order, more precision), a tile of zeros one
+    that drops that KV tile, a tile of twos one that adds it twice. The
+    backward takes the forward's ``o`` and ``lse``, as the kernel does."""
+    b, n, h, d = q.shape
+    kh = kk.shape[2]
+    g = h // kh
+    s = _scores64(q, kk, weight)
+    vr, kr = (x.double().repeat_interleave(g, 2) for x in (vv, kk))
+    o64 = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), vr)
+    p = (s - lse.double()[..., None]).exp()
+    do, o = do.double(), o.double()
+    delta = (do * o).sum(-1).transpose(1, 2)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, vr) - delta[..., None])
+    ds = ds / d ** 0.5
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.double())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dk, dv = (x.reshape(b, n, kh, g, d).sum(3) for x in (dk, dv))
+    return [x.to(torch.bfloat16) for x in (o64, dq, dk, dv)]
+
+
+@pytest.fixture(scope="module")
+def long_case():
+    """bf16 unit inputs at S 1024 with ``do`` at a mean loss's scale (1 /
+    8192), their plain forward and backward, and chip_smoke's bounds."""
+    b, s, h, k, d = LONG
+    q, kk, vv, do = (_torch(a, "bfloat16") for a in _inputs(b, s, h, k, d))
+    do = (do.float() / 8192).to(torch.bfloat16)
+    o, lse = ref.flash_attention_ref(q, kk, vv, causal=True)
+    want = [o, *ref.flash_attention_bwd_ref(q, kk, vv, o, lse, do,
+                                            causal=True)]
+    cs = _chip_smoke()
+    tols = [(cs.TOL["bfloat16"],) * 2] + [cs.GRAD_TOL["bfloat16"]] * 3
+    return (q, kk, vv, o, lse, do), want, tols, cs
+
+
+def test_scaled_bound_passes_a_right_kernel(long_case):
+    inputs, want, tols, cs = long_case
+    got = _kernel64(*inputs, torch.ones(LONG[1], dtype=torch.float64))
+    for g, w, (atol, rtol) in zip(got, want, tols):
+        err, scale = cs.close_scaled(g, w, atol, rtol)
+        assert scale < 1 and err <= atol * scale + rtol * w.float().abs().max()
+
+
+@pytest.mark.parametrize("tile", [1, 8, 15])
+@pytest.mark.parametrize("weight", [0.0, 2.0], ids=["dropped", "doubled"])
+def test_scaled_bound_rejects_a_wrong_kv_tile(long_case, tile, weight):
+    """A kernel that drops one KV tile, or adds it twice, fails the bound in
+    o and in each gradient, early, middle or last tile alike."""
+    inputs, want, tols, cs = long_case
+    w64 = torch.ones(LONG[1], dtype=torch.float64)
+    w64[tile * 64:(tile + 1) * 64] = weight
+    got = _kernel64(*inputs, w64)
+    for g, w, (atol, rtol) in zip(got, want, tols):
+        with pytest.raises(AssertionError, match="max abs err"):
+            cs.close_scaled(g, w, atol, rtol)
+
+
+def test_scaled_bound_rejects_zero_gradients(long_case):
+    _, want, tols, cs = long_case
+    for w, (atol, rtol) in zip(want[1:], tols[1:]):
+        with pytest.raises(AssertionError, match="max abs err"):
+            cs.close_scaled(torch.zeros_like(w), w, atol, rtol)
