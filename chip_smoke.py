@@ -7,9 +7,10 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and PyTorch built for CUDA;
 imports nothing of JAX or of the JAX package ``src/repro``. In order:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the paged-attention kernel and the flash-attention kernels from
-   ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, started together;
-   reused when already built) and prints the compiler's resource reports;
+2. builds the paged-attention, flash-attention and RG-LRU scan kernels
+   from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, started
+   together; reused when already built) and prints the compiler's resource
+   reports;
 3. kernel phase: holds the paged CUDA kernel against its plain PyTorch
    version on the card, on the reference's test cases in float32 and
    bfloat16 and at granite-3-2b's decode shape (8 slots, 32 query / 8 KV
@@ -50,7 +51,24 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
    step time, tokens/s, mfu and peak memory, and profiles one step;
 9. small train reference: the granite smoke config in float32, 2 steps on
    the card through the kernels and on the CPU through the plain path from
-   the same params and batches: losses, grad norms and params agree.
+   the same params and batches: losses, grad norms and params agree;
+10. RG-LRU phase: the CUDA scan against its plain version on the
+    reference's cases, a ragged S and W, against float64, and at
+    recurrentgemma-2b's prefill shape (B 8, S 4096, W 2560), timed there;
+11. flash D 256 phase: the flash forward at head dim 256 (MQA, a window)
+    against its plain version on a small case, against float64, and at
+    recurrentgemma-2b's prefill shape (B 8, S 4096, H 10, K 1, window 2048,
+    bf16); timed there against the plain version and windowed SDPA;
+12. hybrid serve phase: full-width recurrentgemma-2b through the serve
+    driver ``repro_torch.launch.serve`` (batch 8, a 4096-token prompt, 64
+    greedy steps). Checks 18 scan and 8 flash-forward launches in the
+    prefill and none in a decode step, holds every scan and flash call of
+    one prompt's prefill to the plain versions, prints prefill time,
+    decode-step time, tokens/s and peak memory, and profiles a prefill and
+    a decode step;
+13. small hybrid reference: the recurrentgemma smoke config served on the
+    card (through the kernels) and on the CPU's plain path: logits, caches
+    and clear-margin greedy tokens agree.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
@@ -65,6 +83,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -419,12 +438,30 @@ def dev_us(event) -> float:
             or event.self_cuda_time_total)
 
 
-def profile_phase(torch, np, cfg, params, card: str) -> None:
-    """Where a decode step's time goes: three engine-shaped one-token steps
-    (8 lanes at 100 cached positions) under ``torch.profiler``."""
+def device_profile(torch, fn, n: int = 1):
+    """Wall ms, device-busy ms and launches per call of ``fn`` under
+    ``torch.profiler`` (``n`` calls), and the device kernels by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in events
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    return wall_ms, busy_ms, launches / n, kernels
+
+
+def profile_phase(torch, np, cfg, params, card: str) -> None:
+    """Where a decode step's time goes: three engine-shaped one-token steps
+    (8 lanes at 100 cached positions) under ``torch.profiler``."""
     from repro_torch.models import registry
     from repro_torch.serve.paged import paged_step_fn
 
@@ -436,24 +473,15 @@ def profile_phase(torch, np, cfg, params, card: str) -> None:
     for _ in range(3):
         step(params, pool_k, pool_v, *args).cpu()
     n = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step(params, pool_k, pool_v, *args).cpu()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    events = prof.key_averages()
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
-    launches = sum(e.count for e in events
-                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    wall_ms, busy_ms, launches, kernels = device_profile(
+        torch, lambda: step(params, pool_k, pool_v, *args).cpu(), n)
     paged = [e for e in kernels if "paged_attention_kernel" in e.key]
     top = "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3 / n:.3f} ms"
                     for e in kernels[:5])
     print(f"profile on {card}, one-token step, 8 lanes x 100 positions: "
           f"wall {wall_ms:.3f} ms (under the profiler), device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-          f"{launches / n:.0f} kernel launches per step; paged attention "
+          f"{launches:.0f} kernel launches per step; paged attention "
           f"{dev_us(paged[0]) / paged[0].count:.2f} us per call x "
           f"{paged[0].count // n} calls; top device time: {top}")
 
@@ -836,26 +864,14 @@ def train_phase(torch, np, fkernel, fref, card: str) -> tuple[int, int]:
 def train_profile(torch, train_step, params, state, batch, card: str) -> None:
     """One train step under ``torch.profiler``: the device's busy share and
     the top device kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(params, state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    launches = sum(e.count for e in events
-                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    wall_ms, busy_ms, launches, kernels = device_profile(
+        torch, lambda: train_step(params, state, batch))
     top = "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.1f} ms x{e.count}"
                     for e in kernels[:8])
     print(f"train profile on {card}, one step: wall {wall_ms:.1f} ms (under "
           f"the profiler), device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), {launches} kernel launches; top "
-          f"device time: {top}")
+          f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} kernel launches; "
+          f"top device time: {top}")
 
 
 def small_train_reference_phase(torch, np) -> None:
@@ -908,6 +924,361 @@ def small_train_reference_phase(torch, np) -> None:
           f"2e-6")
 
 
+# ---------------------------------------------------------------------------
+# RG-LRU scan and the hybrid family's serving (the serve driver's path)
+# ---------------------------------------------------------------------------
+
+# B, S, W (tests/test_kernels.py:110), then a ragged S and W and one step
+RGLRU_CASES = [(2, 64, 32), (1, 128, 128), (3, 32, 64), (2, 200, 48), (1, 1, 3)]
+RG_PREFILL = (8, 4096, 2560)              # B, S, W: recurrentgemma's prefill scans
+RG_ATTN = (8, 4096, 10, 1, 256, 2048)     # B, S, H, K, D, window: its attention
+RG_SERVE = {"batch": 8, "prompt_len": 4096, "steps": 64}
+
+
+def rglru_inputs(torch, gen, b, s, w):
+    """a in [0, 0.95) as a gate's decay, b ~ N(0, 0.5^2), float32."""
+    a = torch.rand((b, s, w), generator=gen, device="cuda") * 0.95
+    bb = torch.randn((b, s, w), generator=gen, device="cuda") * 0.5
+    return a, bb
+
+
+def rglru_phase(torch, rkernel, rref) -> dict:
+    """The CUDA scan against its plain version on the reference's cases, a
+    ragged S and W, one step, against float64, and at recurrentgemma-2b's
+    prefill shape, each tensor at :func:`close_scaled`'s bound with the
+    reference's atol 1e-5; then times kernel and plain version there.
+    Returns the kernel's JSON entry (no launches)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    tol = 1e-5                              # tests/test_kernels.py:118
+    for case in RGLRU_CASES:
+        a, bb = rglru_inputs(torch, gen, *case)
+        y, h = rkernel.rglru_scan_cuda(a, bb)
+        wy, wh = rref.rglru(a, bb)
+        ey, eh = close_scaled(y, wy, tol, tol), close_scaled(h, wh, tol, tol)
+        print(f"rglru case B,S,W={case}: max abs err y {ey[0]:.3e}, h_final "
+              f"{eh[0]:.3e}; bitwise equal {torch.equal(y, wy)}")
+    a, bb = rglru_inputs(torch, gen, 2, 512, 256)
+    y, h = rkernel.rglru_scan_cuda(a, bb)
+    py, ph = rref.rglru(a, bb)
+    ey, eh = rref.rglru(a.double(), bb.double())
+    e_kernel = max((y.double() - ey).abs().max().item(),
+                   (h.double() - eh).abs().max().item())
+    e_plain = max((py.double() - ey).abs().max().item(),
+                  (ph.double() - eh).abs().max().item())
+    assert e_kernel <= tol, e_kernel
+    print(f"rglru against float64 (B 2, S 512, W 256): max abs err kernel "
+          f"{e_kernel:.3e}, plain {e_plain:.3e}")
+
+    b, s, w = RG_PREFILL
+    a, bb = rglru_inputs(torch, gen, b, s, w)
+    y, h = rkernel.rglru_scan_cuda(a, bb)
+    wy, wh = rref.rglru(a, bb)
+    ey, eh = close_scaled(y, wy, tol, tol), close_scaled(h, wh, tol, tol)
+    exact = torch.equal(y, wy) and torch.equal(h, wh)
+    del wy, wh
+    ms = time_ms(torch, lambda i: rkernel.rglru_scan_cuda(a, bb), 1, inner=10,
+                 reps=11)
+    plain_ms = time_ms(torch, lambda i: rref.rglru(a, bb), 1, inner=1, reps=3)
+    moved = 3 * b * s * w * 4 + b * w * 4      # a, b in; y, h_final out
+    ops = 2 * b * s * w                        # a multiply and an add a step
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    print(f"rglru at recurrentgemma's prefill shape B={b} S={s} W={w}: max "
+          f"abs err y {ey[0]:.3e} (scale {ey[1]:.3e}), h_final {eh[0]:.3e}; "
+          f"bitwise equal {exact}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {max(t_bytes, t_ops):.4f} ms ({moved} bytes); no single "
+          f"PyTorch call computes a linear recurrence")
+    return {"name": "rglru_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru/kernel.py:46",
+            "max_abs_err": max(ey[0], eh[0]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def window_pairs(s: int, window: int) -> int:
+    """Visible (query, key) pairs of a causal call with a window."""
+    return sum(min(qpos + 1, window) for qpos in range(s))
+
+
+def per_row(torch, fn, *xs):
+    """A plain flash function one batch row at a time (at the prefill shape
+    one row's float32 scores are 0.7 GB), outputs concatenated."""
+    outs = [fn(*(x[i:i + 1] for x in xs)) for i in range(xs[0].shape[0])]
+    return [torch.cat(parts) for parts in zip(*outs)]
+
+
+def sdpa_windowed(torch, q, k, v, window):
+    """SDPA (the yardstick, never called by the port) on (B, S, H, D)
+    inputs with the window as a boolean mask; the first backend that takes
+    it, tried in PyTorch's own order. Returns (fn, backend name)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h = q.shape[2]
+    qs = q.transpose(1, 2)
+    ks, vs = (x.transpose(1, 2).repeat_interleave(h // x.shape[2], dim=1)
+              for x in (k, v))
+    s = q.shape[1]
+    qpos = torch.arange(s, device=q.device)
+    mask = (qpos[:, None] >= qpos[None, :]) & (qpos[:, None] - qpos[None, :] < window)
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+
+        def fn(backend=backend):
+            with sdpa_kernel(backend):
+                return sdpa(qs, ks, vs, attn_mask=mask)
+        try:                 # the yardstick only: a backend that refuses
+            with warnings.catch_warnings():     # the mask or D 256 is skipped
+                warnings.simplefilter("ignore")
+                fn()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return fn, name
+    raise RuntimeError("no SDPA backend takes the windowed call")
+
+
+def flash256_phase(torch, fkernel, fref) -> dict:
+    """The CUDA flash forward at head dim 256 (MQA, a window) against its
+    plain version on a small case in float32 and bfloat16, against float64,
+    and at recurrentgemma-2b's prefill shape (B 8, S 4096, H 10, K 1, D 256,
+    window 2048, bf16); times kernel, plain version and windowed SDPA
+    there. Returns the JSON entry (no launches)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        q, k, v, _ = flash_inputs(torch, gen, 2, 80, 4, 1, 256, dt)
+        o, lse = fkernel.flash_attention_fwd_cuda(q, k, v, causal=True, window=24)
+        wo, wlse = fref.flash_attention_ref(q, k, v, causal=True, window=24)
+        eo = close_scaled(o, wo, TOL[name], TOL[name])
+        el = close(lse, wlse, TOL["float32"])
+        print(f"flash D 256 case B 2, S 80, H 4, K 1, window 24, {name}: max "
+              f"abs err o {eo[0]:.3e} (scale {eo[1]:.3e}), lse {el:.3e}")
+    q, k, v, _ = flash_inputs(torch, gen, 1, 96, 4, 1, 256, torch.float32)
+    o, _ = fkernel.flash_attention_fwd_cuda(q, k, v, causal=True, window=40)
+    po, _ = fref.flash_attention_ref(q, k, v, causal=True, window=40)
+    eo, _ = fref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                     causal=True, window=40)
+    e_kernel = (o.double() - eo).abs().max().item()
+    e_plain = (po.double() - eo).abs().max().item()
+    assert e_kernel <= TOL["float32"], e_kernel
+    print(f"flash D 256 against float64 (B 1, S 96, H 4, K 1, window 40): max "
+          f"abs err of o: kernel {e_kernel:.3e}, plain {e_plain:.3e}")
+
+    b, s, h, kh, d, win = RG_ATTN
+    q, k, v, _ = flash_inputs(torch, gen, b, s, h, kh, d, torch.bfloat16)
+    o, lse = fkernel.flash_attention_fwd_cuda(q, k, v, causal=True, window=win)
+    plain = lambda: per_row(torch, lambda *x: fref.flash_attention_ref(
+        *x, causal=True, window=win), q, k, v)
+    wo, wlse = plain()
+    eo = close_scaled(o, wo, TOL["bfloat16"], TOL["bfloat16"])
+    el = close(lse, wlse, TOL["float32"])
+    del wo, wlse
+    ms = time_ms(torch, lambda i: fkernel.flash_attention_fwd_cuda(
+        q, k, v, causal=True, window=win), 1, inner=3, reps=5)
+    plain_ms = time_ms(torch, lambda i: plain(), 1, inner=1, reps=3)
+    sdpa_fn, backend = sdpa_windowed(torch, q, k, v, win)
+    lib_ms = time_ms(torch, lambda i: sdpa_fn(), 1, inner=3, reps=5)
+    pairs = window_pairs(s, win)
+    bound, by = flash_bound_ms(b, s, h, kh, d, 2, pairs, False)
+    print(f"flash D 256 at recurrentgemma's prefill shape B={b} S={s} H={h} "
+          f"K={kh} D={d} window {win} bf16 ({pairs} visible pairs per head): "
+          f"max abs err o {eo[0]:.3e} (scale {eo[1]:.3e}), lse {el:.3e}; "
+          f"kernel {ms:.3f} ms ({4 * b * h * d * pairs / ms / 1e9:.1f} "
+          f"TFLOP/s), plain {plain_ms:.3f} ms (one batch row at a time), "
+          f"sdpa with the window as a mask {lib_ms:.3f} ms (backend "
+          f"{backend}), bound {bound:.4f} ms ({by})")
+    return {"name": "flash_attention_fwd_d256", "route": "cuda",
+            "source": "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/attention/kernel.py:69",
+            "max_abs_err": max(eo[0], el), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+def hybrid_serve_phase(torch, np, rkernel, rref, fkernel, fref,
+                       card: str) -> tuple[int, int]:
+    """Full-width recurrentgemma-2b served by the serve driver
+    (``repro_torch.launch.serve``): batch 8, a 4096-token prompt, 64 greedy
+    steps, random bf16 weights from the seed. Checks the launch counts of
+    every call (18 scans and 8 flash forwards in the prefill, none in a
+    decode step), then holds every scan and flash call of one prompt's
+    prefill to the plain versions on that call's own inputs, and profiles
+    a prefill and a decode step. Returns the run's scan and flash-forward
+    launch counts."""
+    import dataclasses
+
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import griffin, registry
+
+    argv = ["--arch", "recurrentgemma-2b", "--batch", str(RG_SERVE["batch"]),
+            "--prompt-len", str(RG_SERVE["prompt_len"]),
+            "--steps", str(RG_SERVE["steps"]), "--seed", str(SEED)]
+    calls = []                      # (fn, scan launches, flash launches)
+    real_build = launch_serve.build_serve
+
+    def counting_build(*a, **kw):
+        sv = real_build(*a, **kw)
+
+        def counted(name, fn):
+            def run(*args):
+                r0, f0 = rkernel.launches, fkernel.launches_fwd
+                out = fn(*args)
+                calls.append((name, rkernel.launches - r0,
+                              fkernel.launches_fwd - f0))
+                return out
+            return run
+        return dataclasses.replace(sv, prefill_fn=counted("prefill", sv.prefill_fn),
+                                   decode_fn=counted("decode", sv.decode_fn))
+
+    print(f"hybrid serve: python -m repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    rkernel.launches = fkernel.launches_fwd = 0
+    with mock.patch.object(launch_serve, "build_serve", counting_build):
+        run = launch_serve.main(argv)
+    launches = (rkernel.launches, fkernel.launches_fwd)
+    cfg = run.cfg
+    n_rec = griffin._pattern(cfg).count("rec")
+    n_attn = cfg.n_layers - n_rec
+    assert (n_rec, n_attn) == (18, 8)
+    assert cfg.param_count() == 2_682_191_360
+    assert calls[0] == ("prefill", n_rec, n_attn), calls[0]
+    assert calls[1:] == [("decode", 0, 0)] * RG_SERVE["steps"], calls[1:4]
+    assert launches == (n_rec, n_attn), launches
+    b, steps = RG_SERVE["batch"], RG_SERVE["steps"]
+    assert tuple(run.tokens.shape) == (b, steps)
+    assert bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all())
+    assert bool(torch.isfinite(run.logits.float()).all())
+    assert int(run.cache.pos) == RG_SERVE["prompt_len"] + steps
+    step_ms = statistics.median(run.decode_s) * 1e3
+    print(f"hybrid serve on {card}: recurrentgemma-2b, {cfg.n_layers} layers "
+          f"({n_rec} RG-LRU, {n_attn} local attention), "
+          f"{cfg.param_count()} parameters in bf16; prefill {b} x "
+          f"{RG_SERVE['prompt_len']} tokens {run.prefill_s:.3f} s "
+          f"({b * RG_SERVE['prompt_len'] / run.prefill_s:.0f} tokens/s); "
+          f"decode step {step_ms:.3f} ms (median of {steps}; first "
+          f"{run.decode_s[0] * 1e3:.3f} ms), {b * steps / sum(run.decode_s):.1f} "
+          f"tokens/s; peak memory {run.peak_bytes / 1e9:.2f} GB; launches "
+          f"{launches[0]} scans and {launches[1]} flash forwards in the "
+          f"prefill, 0 in each of the {steps} decode steps")
+
+    # every scan and flash call of one prompt's prefill against the plain
+    # versions on that call's own inputs
+    errs = {"scan": [], "flash": []}
+    kernel_scan, kernel_fwd = rglru_ops._scan, attn_ops._forward
+
+    def checked_scan(a, bb):
+        y, h = kernel_scan(a, bb)
+        wy, wh = rref.rglru(a, bb)
+        errs["scan"].append(max(close_scaled(y, wy, 1e-5, 1e-5),
+                                close_scaled(h, wh, 1e-5, 1e-5)))
+        return y, h
+
+    def checked_fwd(q, k, v, causal, window):
+        o, lse = kernel_fwd(q, k, v, causal, window)
+        wo, wlse = fref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window)
+        close(lse, wlse, TOL["float32"])
+        errs["flash"].append(close_scaled(o, wo, TOL["bfloat16"],
+                                          TOL["bfloat16"]))
+        return o, lse
+
+    with mock.patch.object(rglru_ops, "_scan", checked_scan),             mock.patch.object(attn_ops, "_forward", checked_fwd),             torch.inference_mode():
+        one, _ = registry.prefill(run.params, cfg, run.prompt[:1],
+                                  max_len=run.serve.max_len)
+    assert bool(torch.isfinite(one.float()).all())
+    assert (len(errs["scan"]), len(errs["flash"])) == (n_rec, n_attn)
+    span = lambda xs: (f"max abs err {max(e for e, _ in xs):.3e}, scales "
+                       f"{min(s for _, s in xs):.3e} to "
+                       f"{max(s for _, s in xs):.3e}")
+    print(f"hybrid serve: every call of one prompt's prefill held to the "
+          f"plain version on its own inputs: {n_rec} scans, "
+          f"{span(errs['scan'])} (bound 1e-5 * scale + 1e-5 * |plain|); "
+          f"{n_attn} flash forwards, o {span(errs['flash'])} (bound "
+          f"{TOL['bfloat16']} * scale + {TOL['bfloat16']} * |plain|; lse "
+          f"{TOL['float32']} + {TOL['float32']} * |plain|)")
+    del errs
+    hybrid_profile(torch, run, card)
+    return launches
+
+
+def hybrid_profile(torch, run, card: str) -> None:
+    """One batch-8 prefill and three decode steps of the run under
+    ``torch.profiler``: device busy share and the top device kernels."""
+    sv, params = run.serve, run.params
+    for name, fn, n in (
+            ("prefill", lambda: sv.prefill_fn(params, run.prompt), 1),
+            ("decode step", lambda: sv.decode_fn(
+                params, run.cache, run.tokens[:, -1:]), 3)):
+        fn()
+        wall_ms, busy_ms, launches, kernels = device_profile(torch, fn, n)
+        top = "; ".join(f"{e.key[:44]} {dev_us(e) / 1e3 / n:.3f} ms x"
+                        f"{e.count // n}" for e in kernels[:6])
+        print(f"hybrid {name} profile on {card}: wall {wall_ms:.3f} ms (under "
+              f"the profiler), device busy {busy_ms:.3f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} kernel "
+              f"launches; top device time: {top}")
+
+
+def small_hybrid_reference_phase(torch, np) -> None:
+    """The card's serve path against the CPU's plain path on a small input:
+    the recurrentgemma smoke config, the same bf16 params (attention at its
+    true fan-in and the embedding x 10, as tests/test_torch_griffin.py
+    holds the port to JAX), a 40-token prompt (past the 16-token window)
+    and 12 teacher-forced decode steps. Logits and the caches agree at the
+    bf16 bound, greedy tokens wherever the margin is clear, and the card's
+    prefill went through the kernels."""
+    from repro_torch import configs
+    from repro_torch.kernels.attention import kernel as fkernel
+    from repro_torch.kernels.rglru import kernel as rkernel
+    from repro_torch.models import griffin, registry
+    from repro_torch.serve.engine import build_serve
+    from repro_torch.sharding.params import cast_tree, init_tree, tree_map
+
+    cfg = configs.smoke("recurrentgemma_2b")
+    params = griffin.true_fan_in(
+        cast_tree(init_tree(registry.decls(cfg), SEED, "cpu"), torch.bfloat16),
+        cfg)
+    params["embed"] = params["embed"] * 10.0
+    s, steps, tol = 40, 12, 6e-2
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, s + steps)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        sv = build_serve(cfg, 2, s + steps, prefill_len=s, device=dev)
+        r0, f0 = rkernel.launches, fkernel.launches_fwd
+        logits, cache = sv.prefill_fn(p, toks[:, :s])
+        launched = (rkernel.launches - r0, fkernel.launches_fwd - f0)
+        seq = [logits.float().cpu()]
+        for t in range(steps):
+            logits, cache = sv.decode_fn(p, cache, toks[:, s + t:s + t + 1])
+            seq.append(logits.float().cpu())
+        out[dev] = (torch.stack(seq), cache, launched)
+    (want, wcache, _), (got, gcache, launched) = out["cpu"], out["cuda"]
+    assert launched == (4, 1), launched
+    err = close(got, want, tol)
+    for f in ("conv", "h", "k", "v"):
+        close(getattr(gcache, f).cpu(), getattr(wcache, f), tol)
+    top2 = want.topk(2, dim=-1).values
+    clear = top2[..., 0] - top2[..., 1] > 2 * tol * (1 + top2[..., 0].abs())
+    same = got.argmax(-1)[clear] == want.argmax(-1)[clear]
+    assert bool(same.all()) and int(clear.sum()) > steps, int(clear.sum())
+    print(f"smoke recurrentgemma on the card (kernels: 4 scans, 1 flash "
+          f"forward in the prefill) vs the CPU's plain path: prefill of 40 "
+          f"tokens and {steps} decode steps, logits max abs err {err:.3e} "
+          f"(tolerance {tol} + {tol} * |plain|), caches within it; greedy "
+          f"tokens equal at all {int(clear.sum())} of {clear.numel()} steps "
+          f"with a clear margin")
+
+
 def argmax_tie(torch) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -922,14 +1293,14 @@ def argmax_tie(torch) -> None:
     print("torch.argmax on the card takes the first maximal index")
 
 
-def build_all(kernel, fkernel) -> None:
-    """Build both kernels at once, one ``nvcc`` each, and print the
+def build_all(*modules) -> None:
+    """Build every kernel at once, one ``nvcc`` each, and print the
     compiler's resource reports."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (kernel, fkernel)))
+    with ThreadPoolExecutor(len(modules)) as pool:
+        libs = list(pool.map(lambda m: m.build(), modules))
     print(f"built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -946,6 +1317,8 @@ def main() -> int:
     from repro_torch.kernels.attention import kernel as fkernel
     from repro_torch.kernels.attention import ref as fref
     from repro_torch.kernels.paged_attention import kernel, ref
+    from repro_torch.kernels.rglru import kernel as rkernel
+    from repro_torch.kernels.rglru import ref as rref
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
@@ -954,7 +1327,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    build_all(kernel, fkernel)
+    build_all(kernel, fkernel, rkernel)
 
     paged = kernel_phase(torch, kernel, ref)
     paged["launches"] = serve_phase(torch, np, kernel, ref, card)
@@ -967,9 +1340,18 @@ def main() -> int:
                                                    card)
     torch.cuda.empty_cache()
     small_train_reference_phase(torch, np)
+    torch.cuda.empty_cache()
+    scan = rglru_phase(torch, rkernel, rref)
+    torch.cuda.empty_cache()
+    fwd256 = flash256_phase(torch, fkernel, fref)
+    torch.cuda.empty_cache()
+    scan["launches"], fwd256["launches"] = hybrid_serve_phase(
+        torch, np, rkernel, rref, fkernel, fref, card)
+    torch.cuda.empty_cache()
+    small_hybrid_reference_phase(torch, np)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [paged, fwd, bwd]}))
+    print(json.dumps({"kernels": [paged, fwd, bwd, scan, fwd256]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,17 +31,27 @@
 // bound by the CUDA cores' float32 rate and shared-memory traffic, far from
 // the tensor-core bound. A block of 256 threads owns a 64-row tile; tiles
 // of 64 rows of Q, K, V (and dO) are staged in shared memory as float32,
-// zero-padded to DMAX (64 or 128) columns, rows strided DMAX + 1 so that
-// the 16 lanes of a half-warp reading 16 rows hit 16 banks. Each thread
-// holds a 4 x 4 block of the 64 x 64 score tile (rows ty + 16 i, keys
-// tx + 16 j, with ty = tid / 16 and tx = tid % 16), so row reductions are
-// four xor-shuffles inside a half-warp. The forward keeps the running
-// max, normaliser and output accumulator of its 4 rows in registers, skips
-// the KV tiles the mask hides (causal: it stops at the diagonal tile;
-// window: it starts at the first tile inside the window) and starts the
-// heaviest causal query tiles first. Still to do for speed (a later
-// change): bf16 mma.sync / wgmma tiles with TMA loads, and a
+// zero-padded to DMAX (64 or 128; the forward also 256) columns, rows
+// strided DMAX + 1 so that the 16 lanes of a half-warp reading 16 rows hit
+// 16 banks. Each thread holds a 4 x 4 block of the 64 x 64 score tile (rows
+// ty + 16 i, keys tx + 16 j, with ty = tid / 16 and tx = tid % 16), so row
+// reductions are four xor-shuffles inside a half-warp. The forward keeps
+// the running max, normaliser and output accumulator of its 4 rows in
+// registers, skips the KV tiles the mask hides (causal: it stops at the
+// diagonal tile; window: it starts at the first tile inside the window) and
+// starts the heaviest causal query tiles first. Still to do for speed (a
+// later change): bf16 mma.sync / wgmma tiles with TMA loads, and a
 // warp-specialised pipeline.
+//
+// Head dim 256 (RecurrentGemma-2B: H 10, K 1, window 2048), forward only.
+// Q, K and V tiles of 64 x 257 floats and the score tile would take 214 KB
+// of the 227 KB a block may have. So at DMAX 256 the V tile reuses the K
+// tile's buffer: a KV step loads K, forms the scores and P, then loads V
+// over K and applies P (one more barrier per KV tile), and the block holds
+// 148 KB. The D <= 128 instantiations keep their separate K and V buffers
+// and their code. At RecurrentGemma's prefill shape (B 8, S 4096, bf16)
+// the forward does 5.15e11 FLOPs: 0.52 ms on the tensor cores. The backward
+// keeps D <= 128 (the hybrid family's training is a later slice).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,10 +129,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ lse, int Sq, int Sk, int H, int K, int D,
                  int causal, int window, float scale) {
   constexpr int DS = DMAX + 1, CPT = DMAX / 16;
+  // at DMAX 256 the V tile reuses the K tile's buffer (see the header)
+  constexpr bool kShareKV = DMAX > 128;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + kTile * DS;
-  float* Vs = Ks + kTile * DS;
+  float* Vs = kShareKV ? Ks : Ks + kTile * DS;
   float* Ps = Vs + kTile * DS;
 
   const int n_qt = (Sq + kTile - 1) / kTile;
@@ -150,7 +162,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = (k_lo / kTile) * kTile; k0 < k_hi; k0 += kTile) {
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, DMAX>(Ks, kb, k0, Sk, kv_stride, D);
-    load_tile<T, DMAX>(Vs, vb, k0, Sk, kv_stride, D);
+    if constexpr (!kShareKV) load_tile<T, DMAX>(Vs, vb, k0, Sk, kv_stride, D);
     __syncthreads();
 
     float s[4][4];
@@ -197,6 +209,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < CPT; ++c) acc[i][c] *= corr;
     }
     __syncthreads();
+    if constexpr (kShareKV) {  // the scores are formed: V goes over K
+      load_tile<T, DMAX>(Vs, vb, k0, Sk, kv_stride, D);
+      __syncthreads();
+    }
 
 #pragma unroll 4
     for (int j = 0; j < kTile; ++j) {
@@ -455,7 +471,9 @@ template <typename T, int DMAX>
 cudaError_t fwd_typed(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int Sq, int Sk, int H, int K, int D,
                       int causal, int window, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (3 * kTile * (DMAX + 1) + kTile * kPS);
+  const int tiles = DMAX > 128 ? 2 : 3;  // Q, K and V; V over K at 256
+  const size_t smem =
+      sizeof(float) * (tiles * kTile * (DMAX + 1) + kTile * kPS);
   cudaError_t err = set_smem(flash_fwd_kernel<T, DMAX>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kTile - 1) / kTile, B * H);
@@ -497,32 +515,44 @@ cudaError_t bwd_typed(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-bool bad_args(int B, int Sq, int Sk, int H, int K, int D, int dtype) {
+// d_max: 256 for the forward, 128 for the backward
+bool bad_args(int B, int Sq, int Sk, int H, int K, int D, int dtype,
+              int d_max) {
   return B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || D < 8 ||
-         D > 128 || D % 8 != 0 || dtype < 0 || dtype > 1 || B * H > 65535;
+         D > d_max || D % 8 != 0 || dtype < 0 || dtype > 1 || B * H > 65535;
+}
+
+template <typename T>
+cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* o,
+                         float* lse, int B, int Sq, int Sk, int H, int K,
+                         int D, int causal, int w, float scale,
+                         cudaStream_t s) {
+  if (D <= 64)
+    return fwd_typed<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, K, D, causal, w, scale, s);
+  if (D <= 128)
+    return fwd_typed<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, K, D, causal, w, scale, s);
+  return fwd_typed<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, K, D, causal, w, scale, s);
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, dO, dq, dk, dv alike).
-// causal is 0 or 1; window <= 0 means no window. Each returns 0 on success,
-// a cudaError_t from a launch, or -1 for arguments the kernels do not take
-// (the Python wrapper checks these first).
+// The forward takes D <= 256, the backward D <= 128. causal is 0 or 1;
+// window <= 0 means no window. Each returns 0 on success, a cudaError_t from
+// a launch, or -1 for arguments the kernels do not take (the Python wrapper
+// checks these first).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int Sq, int Sk,
                                    int H, int K, int D, int causal, int window,
                                    float scale, int dtype, void* stream) {
-  if (bad_args(B, Sq, Sk, H, K, D, dtype)) return -1;
+  if (bad_args(B, Sq, Sk, H, K, D, dtype, 256)) return -1;
   const auto s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const int w = window > 0 ? window : 0;
-  cudaError_t err;
-  if (dtype == 0)
-    err = D <= 64 ? fwd_typed<float, 64>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
-                  : fwd_typed<float, 128>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s);
-  else
-    err = D <= 64 ? fwd_typed<__nv_bfloat16, 64>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
-                  : fwd_typed<__nv_bfloat16, 128>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s);
+  const cudaError_t err =
+      dtype == 0
+          ? fwd_dispatch<float>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
+          : fwd_dispatch<__nv_bfloat16>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s);
   return static_cast<int>(err);
 }
 
@@ -532,7 +562,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    void* dv, int B, int Sq, int Sk, int H,
                                    int K, int D, int causal, int window,
                                    float scale, int dtype, void* stream) {
-  if (bad_args(B, Sq, Sk, H, K, D, dtype)) return -1;
+  if (bad_args(B, Sq, Sk, H, K, D, dtype, 128)) return -1;
   const auto s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);

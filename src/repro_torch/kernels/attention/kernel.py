@@ -65,7 +65,23 @@ def _load():
     return _lib
 
 
-def _check(tensors: dict, q, k) -> None:
+def _check(tensors: dict, q, k, d_max: int) -> None:
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"want q (B,S,H,D) and k/v (B,S,K,D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"match (same B and D, H % K == 0)")
+    if d_max == 128 and d > 128:
+        raise ValueError(f"head dim {d}: the flash backward takes D <= 128; "
+                         f"larger D waits for the hybrid family's training "
+                         f"slice (ROADMAP.md)")
+    if d % 8 or not 8 <= d <= d_max:
+        raise ValueError(f"head dim {d}: the kernel takes D <= {d_max}, a "
+                         f"multiple of 8")
+    if b * h > 65535:
+        raise ValueError(f"B * H = {b * h} exceeds the grid's 65535")
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device} "
@@ -74,18 +90,6 @@ def _check(tensors: dict, q, k) -> None:
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _DTYPES:
         raise ValueError(f"q must be float32 or bfloat16 (got {q.dtype})")
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"want q (B,S,H,D) and k/v (B,S,K,D); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}")
-    b, _, h, d = q.shape
-    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
-                         f"match (same B and D, H % K == 0)")
-    if d % 8 or not 8 <= d <= 128:
-        raise ValueError(f"head dim {d}: the kernels take D <= 128, a "
-                         f"multiple of 8")
-    if b * h > 65535:
-        raise ValueError(f"B * H = {b * h} exceeds the grid's 65535")
 
 
 def _check_like(name: str, t, like) -> None:
@@ -119,12 +123,12 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
     and lse ``(B, H, Sq)`` float32.
 
     q ``(B, Sq, H, D)``, k/v ``(B, Sk, K, D)``, one dtype (float32 or
-    bfloat16), contiguous, on one CUDA device; ``D <= 128`` a multiple of 8;
+    bfloat16), contiguous, on one CUDA device; ``D <= 256`` a multiple of 8;
     scale ``1/sqrt(D)``. Raises on anything the kernel does not take and
     when the launch fails.
     """
     global launches_fwd
-    _check({"q": q, "k": k, "v": v}, q, k)
+    _check({"q": q, "k": k, "v": v}, q, k, d_max=256)
     _check_like("v", v, k)
     if k.dtype != q.dtype:
         raise ValueError(f"q, k and v must share a dtype ({q.dtype}, {k.dtype})")
@@ -150,14 +154,15 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     """Launch the backward: ``(dq, dk, dv)`` in the dtype of q.
 
     ``o`` and ``lse`` are the forward's outputs and ``do`` the gradient of
-    ``o``; all as in :func:`flash_attention_fwd_cuda`. ``delta =
-    rowsum(do * o)`` is a float32 PyTorch reduction here, before the
+    ``o``; all as in :func:`flash_attention_fwd_cuda`, but ``D <= 128``.
+    ``delta = rowsum(do * o)`` is a float32 PyTorch reduction here, before the
     kernels (``_flash_bwd`` computes it outside its tile loops too). The
     dK/dV kernel sums each KV head's gradient over its query heads in
     float32.
     """
     global launches_bwd
-    _check({"q": q, "k": k, "v": v, "o": o, "lse": lse, "do": do}, q, k)
+    _check({"q": q, "k": k, "v": v, "o": o, "lse": lse, "do": do}, q, k,
+           d_max=128)
     _check_like("v", v, k)
     _check_like("o", o, q)
     _check_like("do", do, q)

@@ -1,0 +1,36 @@
+"""The RG-LRU linear scan, dispatched by device.
+
+Port of ``src/repro/kernels/rglru/ops.py``. As the reference's wrapper does
+(``ops.py:18-23``), :func:`rglru` folds ``h0`` into the first step
+(``b[:, 0] += a[:, 0] * h0``) and casts ``a`` and ``b`` to float32. CUDA
+tensors then launch the hand-written kernel
+(:func:`repro_torch.kernels.rglru.kernel.rglru_scan_cuda`), CPU tensors
+take the plain version (``ref.py``), and any other device raises. There is
+no fallback from the kernel to the plain version. XAIF registration waits
+for the platform slice of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.rglru import kernel, ref
+
+
+def _scan(a, b):
+    if a.device.type == "cuda":
+        return kernel.rglru_scan_cuda(a, b)
+    return ref.rglru(a, b)
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor,
+          h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``h_t = a_t * h_{t-1} + b_t``; a, b ``(B, S, W)``, h0 ``(B, W)`` or
+    ``None``. Returns ``(y (B, S, W), h_final (B, W))``, both float32."""
+    if a.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the RG-LRU scan runs on cuda or cpu, not {a.device}")
+    if h0 is not None:
+        b = b.clone()
+        b[:, 0] += a[:, 0] * h0.to(b.dtype)
+    return _scan(a.to(torch.float32).contiguous(),
+                 b.to(torch.float32).contiguous())

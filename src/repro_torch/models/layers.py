@@ -1,11 +1,11 @@
 """Shared neural layers, as plain functions on tensors.
 
 Port of ``src/repro/models/layers.py`` for the dense decode and training
-paths: norms, positional encodings, the multi-token attention entry, the
-four MLP kinds, the LM head, the cross-entropy loss and the naive attention
-oracle, with the reference's dtype boundaries (norm and rope in float32,
-cast back to the input dtype; the loss in float32) and mask constant
-(``-1e30``).
+paths and the hybrid family's serving: norms, positional encodings, the
+multi-token attention entry, the four MLP kinds, the depthwise causal
+conv, the LM head, the cross-entropy loss and the naive attention oracle,
+with the reference's dtype boundaries (norm and rope in float32, cast back
+to the input dtype; the loss in float32) and mask constant (``-1e30``).
 """
 
 from __future__ import annotations
@@ -156,6 +156,40 @@ def mlp(x: torch.Tensor, p: dict[str, torch.Tensor], kind: str) -> torch.Tensor:
     else:
         raise ValueError(f"unknown mlp kind {kind}")
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv1d (griffin's temporal conv)
+# ---------------------------------------------------------------------------
+
+
+def conv1d_decl(width: int, channels: int) -> ParamDecl:
+    return ParamDecl((width, channels), Axes(lx.CONV, lx.RNN_WIDTH),
+                     init="fan_in")
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,D), w (W,D), state (B,W-1,D) -> ``(y, new_state)``.
+
+    ``layers.py:477-490``: the depthwise sum of the W products of ``w[i]``
+    with ``[state, x]`` shifted by ``i``, in the input dtype (each product
+    and each partial sum rounds to it); the new state is the last W-1 rows
+    of ``[state, x]``. Plain PyTorch on every device: the reference computes
+    it in pure JAX too, not through its ``conv1d_causal`` Pallas kernel.
+    """
+    width = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], width - 1, x.shape[2]),
+                            dtype=x.dtype, device=x.device)
+    xx = torch.cat([state, x], dim=1)
+    s = x.shape[1]
+    y = xx[:, :s] * w[0]
+    for i in range(1, width):
+        y = y + xx[:, i:i + s] * w[i]
+    new_state = xx[:, -(width - 1):] if width > 1 else state
+    return y.to(x.dtype), new_state
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,38 @@
 """Family dispatch for the port (port of ``src/repro/models/registry.py``).
 
-The dense and audio families (the decoder-only transformer) are ported;
-every other family raises ``NotImplementedError`` until its slice lands.
+The dense and audio families (the decoder-only transformer) and the hybrid
+family (Griffin) are ported; every other family raises
+``NotImplementedError`` until its slice lands. The serve driver's
+``prefill`` / ``decode_step`` / ``cache_init`` serve the hybrid family; the
+transformer families serve through the paged engine, and their lane-backend
+prefill and decode are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from repro_torch.models import transformer
+from repro_torch.models import griffin, transformer
 from repro_torch.models.config import ModelConfig
 
 _PORTED_FAMILIES = ("dense", "audio")
+
+# the ROADMAP.md items ("Still to port") that bring each family's serve
+# driver path, for the error a caller sees
+_LATER_SERVE = {
+    "dense": "the transformer families' serve-driver prefill and decode",
+    "audio": "embeds inputs and the transformer families' serve-driver "
+             "prefill and decode",
+    "vlm": "embeds inputs and the transformer families' serve-driver "
+           "prefill and decode",
+    "moe": "the MoE family",
+    "ssm": "the SSM family (mamba2)",
+}
 
 
 def _mod(cfg: ModelConfig):
     if cfg.family in _PORTED_FAMILIES:
         return transformer
+    if cfg.family == "hybrid":
+        return griffin
     raise NotImplementedError(f"{cfg.name} ({cfg.family}): not yet ported")
 
 
@@ -25,8 +43,8 @@ def decls(cfg: ModelConfig):
 
 def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
     """Training forward ``(logits, aux)``; see :func:`transformer.forward`.
-    Dense family only: the audio family's ``embeds`` inputs are not yet
-    ported."""
+    Dense family only: the audio family's ``embeds`` inputs and the hybrid
+    family's training are not yet ported."""
     if cfg.family != "dense":
         raise NotImplementedError(f"{cfg.name} ({cfg.family}): training "
                                   f"forward not yet ported")
@@ -34,9 +52,40 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
                                embeds=embeds)
 
 
+def _require_hybrid(cfg: ModelConfig, what: str) -> None:
+    if cfg.family != "hybrid":
+        later = _LATER_SERVE.get(cfg.family, "not yet planned")
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): {what} of the serve driver is not "
+            f"yet ported for this family (ROADMAP.md, still to port: "
+            f"{later})")
+
+
+def prefill(params, cfg: ModelConfig, tokens, max_len=None):
+    """Batched prefill ``(logits of the last position, cache)``; see
+    :func:`griffin.prefill`. Hybrid family only."""
+    _require_hybrid(cfg, "prefill")
+    return griffin.prefill(params, cfg, tokens, max_len=max_len)
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens):
+    """One token per lane ``(logits, cache)``; see
+    :func:`griffin.decode_step`. Hybrid family only."""
+    _require_hybrid(cfg, "decode_step")
+    return griffin.decode_step(params, cfg, cache, tokens)
+
+
+def cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """A zeroed decode cache on ``device`` (``None`` is the card). Hybrid
+    family only."""
+    _require_hybrid(cfg, "cache_init")
+    return griffin.GriffinCache.init(cfg, batch, max_len, device=device)
+
+
 def supports_paged(cfg: ModelConfig) -> bool:
-    """True when ``cfg`` can decode against a global KV page pool."""
-    return _mod(cfg).supports_paged(cfg)
+    """True when ``cfg`` can decode against a global KV page pool
+    (transformer families only)."""
+    return _mod(cfg) is transformer and transformer.supports_paged(cfg)
 
 
 def _require_paged(cfg: ModelConfig) -> None:

@@ -80,13 +80,21 @@ def true_fan_in(params, cfg: ModelConfig):
     """
     if cfg.moe_experts >= 2:
         raise NotImplementedError("MoE layers are not yet ported")
+    layer = dict(params["blocks"]["l0"],
+                 attn=rescale_attention(params["blocks"]["l0"]["attn"], cfg))
+    return dict(params, blocks=dict(params["blocks"], l0=layer))
+
+
+def rescale_attention(attn: dict, cfg: ModelConfig) -> dict:
+    """One attention block's params (stacked or not) with wq, wk, wv and wo
+    rescaled from the reference's fan-in to their true fan-in (see
+    :func:`true_fan_in`); the other leaves are shared."""
     d, h, kh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    a = dict(params["blocks"]["l0"]["attn"])
+    a = dict(attn)
     for name, fan_ratio in (("wq", h / d), ("wk", kh / d), ("wv", kh / d),
                             ("wo", 1 / h)):
         a[name] = a[name] * fan_ratio ** 0.5
-    layer = dict(params["blocks"]["l0"], attn=a)
-    return dict(params, blocks=dict(params["blocks"], l0=layer))
+    return a
 
 
 # ---------------------------------------------------------------------------

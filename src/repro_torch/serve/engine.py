@@ -16,6 +16,10 @@ dense transformer greedily on the paged backend with sync dispatch:
   admission adopts a resident chain by pointing the block table at its
   pages (no copy), and a slot publishes each page its prefill completes.
 
+:func:`build_serve` is the serve driver's one-device prefill and decode
+(the reference's ``build_sharded_serve`` without a mesh), which serves the
+hybrid family.
+
 Later slices port the rest of the reference engine: async dispatch, the
 lane backend, tensor parallelism, a shared external pool or page table,
 fault injection, energy metering, platform banks and interrupts, sampled
@@ -81,6 +85,67 @@ class Request:
             raise ValueError("empty prompt")
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+
+
+# ---------------------------------------------------------------------------
+# One-device prefill and decode (the serve driver's path)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Serve:
+    """The serve driver's two functions for one config, batch and length.
+
+    ``prefill_fn(params, tokens) -> (logits, cache)`` and
+    ``decode_fn(params, cache, tokens) -> (logits, cache)``; both run under
+    ``torch.inference_mode()``, so no autograd state is kept (the flash
+    forward saves nothing for a backward). ``decode_fn`` writes the cache in
+    place and returns it.
+    """
+
+    prefill_fn: Callable
+    decode_fn: Callable
+    max_len: int
+
+
+def build_serve(cfg: ModelConfig, batch: int, max_len: int,
+                prefill_len: int | None = None, device=None) -> Serve:
+    """Prefill and decode functions of ``cfg`` on one device.
+
+    The one-device counterpart of the reference's ``build_sharded_serve``
+    (``src/repro/serve/engine.py:125-200``): no mesh, rules or FSDP (the
+    tensor-parallel slice of the port). ``device=None`` is the card and
+    raises without one; the params passed to the functions must live there.
+    With ``prefill_len`` the prefill checks its tokens are ``(batch,
+    prefill_len)``. Families without a serve-driver path raise
+    ``NotImplementedError`` from the registry.
+    """
+    dev = device_mod.resolve(device)
+    if batch < 1 or max_len < 1:
+        raise ValueError(f"batch {batch} and max_len {max_len} must be >= 1")
+    if prefill_len is not None and not 1 <= prefill_len <= max_len:
+        raise ValueError(f"prefill_len {prefill_len} must be in [1, "
+                         f"max_len {max_len}]")
+
+    def prefill_fn(params, tokens):
+        want = (batch, prefill_len or tokens.shape[-1])
+        if tuple(tokens.shape) != want:
+            raise ValueError(f"prefill tokens {tuple(tokens.shape)}, want "
+                             f"{want}")
+        with torch.inference_mode():
+            return registry.prefill(params, cfg, tokens.to(dev),
+                                    max_len=max_len)
+
+    def decode_fn(params, cache, tokens):
+        with torch.inference_mode():
+            return registry.decode_step(params, cfg, cache, tokens.to(dev))
+
+    return Serve(prefill_fn, decode_fn, max_len)
+
+
+# ---------------------------------------------------------------------------
+# Continuous-batching engine
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass

@@ -5,7 +5,9 @@ The plain forward is held to both JAX impls (the naive ``ref.attention`` and
 the Pallas kernel in interpret mode, as the JAX tests run it) on the
 reference's ``ATTN_CASES`` (``tests/test_kernels.py:21-27``), at the
 reference's tolerances: float32 2e-5, bfloat16 3e-2. ``lse`` is held to
-``layers._flash_fwd_impl``; the plain backward, and the autograd function
+``layers._flash_fwd_impl``; the forward at head dim 256 (MQA, a window:
+the hybrid family's prefill) to ``attention_chunked`` and
+``attention_banded``; the plain backward, and the autograd function
 around both, to ``jax.grad`` through ``layers.attention_chunked`` at atol
 2e-4 (``tests/test_kernels.py:61``); the autograd function to
 ``torch.autograd.gradcheck`` in float64. The CUDA kernels are held to the
@@ -84,6 +86,48 @@ def test_plain_forward_matches_jax(b, s, h, k, d, win, causal, dtype, impl):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+# recurrentgemma's attention at smoke length: head dim 256, MQA, a window
+D256 = (2, 80, 4, 1, 256, 24, True)      # B, S, H, K, D, window, causal
+
+
+@pytest.mark.parametrize("impl", ["chunked", "banded"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_forward_d256_matches_jax(dtype, impl):
+    """The forward at head dim 256 (the hybrid family's prefill) against the
+    reference's two windowed paths: ``attention_chunked`` and the banded
+    O(S * window) path the reference's prefill takes."""
+    b, s, h, k, d, win, causal = D256
+    q, kk, vv, _ = _inputs(b, s, h, k, d, seed=2)
+    jd = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, kk, vv))
+    if impl == "chunked":
+        want = JL.attention_chunked(jq, jk, jv, causal=causal, window=win,
+                                    q_block=16, kv_block=16)
+    else:
+        want = JL.attention_banded(jq, jk, jv, window=win, q_block=16)
+    got = ops.flash_attention(_torch(q, dtype), _torch(kk, dtype),
+                              _torch(vv, dtype), causal=causal, window=win)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, s, h, d)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_kernel_head_dim_limits():
+    """The CUDA forward takes D up to 256 and the backward up to 128; the
+    shape checks come before the device check, so they show on the CPU."""
+    def qkv(d):
+        return [torch.zeros((1, 8, 2, d)) for _ in range(3)]
+
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kernel.flash_attention_fwd_cuda(*qkv(256))        # D 256 is taken
+    with pytest.raises(ValueError, match="D <= 256"):
+        kernel.flash_attention_fwd_cuda(*qkv(264))
+    q, k, v = qkv(256)
+    with pytest.raises(ValueError, match="hybrid family's training"):
+        kernel.flash_attention_bwd_cuda(q, k, v, q, torch.zeros(1, 2, 8), q)
 
 
 @pytest.mark.parametrize("b,s,h,k,d,win,causal", ATTN_CASES)
@@ -221,6 +265,23 @@ def test_cuda_kernels_match_plain(b, s, h, k, d, win, causal, dtype):
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), atol=GRAD_ATOL
                                    if dtype == "float32" else tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_forward_d256_matches_plain(dtype):
+    """The CUDA forward at head dim 256 (V staged over K's buffer) against
+    the plain version on the card (skips here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, s, h, k, d, win, causal = D256
+    q, kk, vv, _ = (_torch(a, dtype).cuda()
+                    for a in _inputs(b, s, h, k, d, seed=2))
+    o, lse = kernel.flash_attention_fwd_cuda(q, kk, vv, causal=causal,
+                                             window=win)
+    wo, wlse = ref.flash_attention_ref(q, kk, vv, causal=causal, window=win)
+    tol = TOL[dtype]
+    torch.testing.assert_close(o.float(), wo.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, wlse, atol=2e-5, rtol=2e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,157 @@
+"""The port's RG-LRU scan against ``repro.kernels.rglru`` and
+``repro.models.griffin.linear_scan_ref``.
+
+The plain version (``repro_torch.kernels.rglru.ref``), reached through the
+dispatching ``ops.rglru`` on CPU tensors, is held to the JAX sequential scan
+and to the Pallas kernel in interpret mode (as the JAX tests run it) on the
+reference's cases (``tests/test_kernels.py:110``), at the reference's
+tolerance: atol 1e-5. Also: the ``h0`` fold, a ragged S and W (which the
+Pallas wrapper does not take, so against ``linear_scan_ref`` only), and the
+plain version in float64. The CUDA kernel is held to the plain version on
+the card by the test that skips here and by ``chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.kernels.rglru import ops as jops
+from repro.models import griffin as jg
+
+torch = kernel = ops = ref = None  # bound by _port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port():
+    """Import torch and the port when these tests run, not when pytest
+    collects this file: every xdist worker collects every test file, and a
+    worker that has loaded torch (and its OpenMP thread pool) runs the JAX
+    package's async-dispatch engine tests under other thread timing."""
+    global torch, kernel, ops, ref
+    torch = pytest.importorskip("torch")
+    from repro_torch.kernels.rglru import kernel, ops, ref
+    torch.set_num_threads(1)
+
+
+CASES = [(2, 64, 32), (1, 128, 128), (3, 32, 64)]   # B, S, W
+ATOL = 1e-5                                          # tests/test_kernels.py:118
+
+
+def _inputs(b, s, w, seed=7):
+    """a in [0, 0.95] and b ~ N(0, 0.5^2), as the reference's test draws
+    them; h0 ~ N(0, 0.5^2)."""
+    rng = np.random.default_rng(seed)
+    a = np.clip(np.abs(rng.normal(size=(b, s, w)) * 0.3), 0, 0.95)
+    bb = rng.normal(size=(b, s, w)) * 0.5
+    h0 = rng.normal(size=(b, w)) * 0.5
+    return a.astype(np.float32), bb.astype(np.float32), h0.astype(np.float32)
+
+
+def _jax(impl, a, bb, h0=None):
+    args = (jnp.asarray(a), jnp.asarray(bb),
+            None if h0 is None else jnp.asarray(h0))
+    if impl == "ref":
+        return jax.jit(jg.linear_scan_ref)(*args)
+    return jops.rglru(*args)          # the Pallas kernel, interpret mode
+
+
+def _close(got, want):
+    y, h = got
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == np.shape(want[0]) and h.shape == np.shape(want[1])
+    np.testing.assert_allclose(y.numpy(), np.asarray(want[0]), atol=ATOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want[1]), atol=ATOL)
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("b,s,w", CASES)
+def test_plain_matches_jax(b, s, w, impl):
+    a, bb, _ = _inputs(b, s, w)
+    got = ops.rglru(torch.from_numpy(a), torch.from_numpy(bb))
+    _close(got, _jax(impl, a, bb))
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+def test_h0_is_folded_into_the_first_step(impl):
+    a, bb, h0 = _inputs(2, 64, 32, seed=3)
+    tb = torch.from_numpy(bb)
+    got = ops.rglru(torch.from_numpy(a), tb, torch.from_numpy(h0))
+    _close(got, _jax(impl, a, bb, h0))
+    assert torch.equal(tb, torch.from_numpy(bb))      # the caller's b is kept
+
+
+def test_ragged_s_and_w_match_linear_scan_ref():
+    """S 200 and W 48: no block divides them (the Pallas wrapper asserts
+    ``S % min(128, S) == 0``); the port takes any shape."""
+    a, bb, h0 = _inputs(2, 200, 48, seed=5)
+    got = ops.rglru(torch.from_numpy(a), torch.from_numpy(bb),
+                    torch.from_numpy(h0))
+    _close(got, _jax("ref", a, bb, h0))
+
+
+def test_plain_version_in_float64():
+    """Given float64 inputs the plain version computes in float64 (the
+    card's float64 check uses it as the yardstick): equal to a float64
+    numpy loop, and its float32 result within float32 rounding of it."""
+    a, bb, h0 = (x.astype(np.float64) for x in _inputs(2, 96, 16, seed=9))
+    h = h0.copy()
+    want = np.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + bb[:, t]
+        want[:, t] = h
+    y, hf = ref.rglru(torch.from_numpy(a), torch.from_numpy(bb),
+                      torch.from_numpy(h0))
+    assert y.dtype == torch.float64
+    np.testing.assert_array_equal(y.numpy(), want)
+    np.testing.assert_array_equal(hf.numpy(), h)
+    y32, _ = ref.rglru(torch.from_numpy(a).float(), torch.from_numpy(bb).float(),
+                       torch.from_numpy(h0).float())
+    np.testing.assert_allclose(y32.double().numpy(), want, atol=ATOL)
+
+
+def test_dispatch_casts_to_float32():
+    """As the reference's wrapper: a and b are cast to float32 before the
+    scan, so bfloat16 gates give the float32 scan of their values."""
+    a, bb, _ = _inputs(1, 32, 16)
+    ta, tb = (torch.from_numpy(x).to(torch.bfloat16) for x in (a, bb))
+    y, h = ops.rglru(ta, tb)
+    wy, wh = ref.rglru(ta.float(), tb.float())
+    assert y.dtype == torch.float32
+    assert torch.equal(y, wy) and torch.equal(h, wh)
+
+
+def test_dispatch_raises_off_cuda_and_cpu():
+    meta = [torch.empty((1, 8, 4), device="meta") for _ in range(2)]
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        ops.rglru(*meta)
+    cpu = [torch.rand(1, 8, 4) for _ in range(2)]
+    before = kernel.launches
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kernel.rglru_scan_cuda(*cpu)
+    assert kernel.launches == before
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("the card's machine has nvcc")
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(kernel, "_BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernel.build()
+
+
+@pytest.mark.parametrize("b,s,w", CASES + [(2, 200, 48), (1, 1, 3)])
+def test_cuda_kernel_matches_plain(b, s, w):
+    """The CUDA kernel against the plain version on the card (skips here).
+    Both round the multiply and the add separately, so they agree bit for
+    bit; the test holds them to the reference's 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a, bb, h0 = (torch.from_numpy(x).cuda() for x in _inputs(b, s, w))
+    before = kernel.launches
+    y, h = ops.rglru(a, bb, h0)
+    assert kernel.launches == before + 1
+    wy, wh = ref.rglru(a, bb, h0)
+    torch.testing.assert_close(y, wy, atol=ATOL, rtol=0)
+    torch.testing.assert_close(h, wh, atol=ATOL, rtol=0)
