@@ -7,10 +7,10 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and PyTorch built for CUDA;
 imports nothing of JAX or of the JAX package ``src/repro``. In order:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the paged-attention, flash-attention and RG-LRU scan kernels
-   from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, started
-   together; reused when already built) and prints the compiler's resource
-   reports;
+2. builds the paged-attention, flash-attention, RG-LRU scan and SSD
+   chunk-scan kernels from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc``
+   each, started together; reused when already built) and prints the
+   compiler's resource reports;
 3. kernel phase: holds the paged CUDA kernel against its plain PyTorch
    version on the card, on the reference's test cases in float32 and
    bfloat16 and at granite-3-2b's decode shape (8 slots, 32 query / 8 KV
@@ -68,7 +68,22 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     a decode step;
 13. small hybrid reference: the recurrentgemma smoke config served on the
     card (through the kernels) and on the CPU's plain path: logits, caches
-    and clear-margin greedy tokens agree.
+    and clear-margin greedy tokens agree;
+14. SSD phase: the CUDA SSD chunk scan against its plain version on the
+    reference's cases (float32 and bf16 x), ragged S, bf16 B and C shared
+    by the heads with stride 0, against a float64 oracle, and at
+    mamba2-370m's prefill shape (b 8, s 4096, 32 heads, p 64, n 128, chunk
+    256), timed there;
+15. mamba2 serve phase: full-width mamba2-370m through the serve driver
+    ``repro_torch.launch.serve`` (batch 8, a 4096-token prompt, 64 greedy
+    steps). Checks 48 SSD launches in the prefill and none in a decode
+    step, holds every SSD call of one prompt's prefill to the plain
+    version, prints prefill time, decode-step time, tokens/s and peak
+    memory, profiles a prefill and a decode step, and counts the launches
+    that the decode step's SiLU (rounded as XLA rounds it) takes;
+16. small mamba2 reference: the mamba2 smoke config served on the card
+    (through the kernel) and on the CPU's plain path: logits, caches and
+    clear-margin greedy tokens agree.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line again, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
@@ -1101,6 +1116,34 @@ def flash256_phase(torch, fkernel, fref) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
 
+def counted_serve(launch_serve, argv, counts):
+    """``launch_serve.main(argv)`` with each prefill and decode call
+    recorded as ``(name, launches of each counter during the call)``;
+    ``counts`` is a zero-argument function returning the counters."""
+    import dataclasses
+
+    calls = []
+    real_build = launch_serve.build_serve
+
+    def counting_build(*a, **kw):
+        sv = real_build(*a, **kw)
+
+        def counted(name, fn):
+            def run(*args):
+                before = counts()
+                out = fn(*args)
+                calls.append((name, *(c - c0 for c, c0 in zip(counts(),
+                                                               before))))
+                return out
+            return run
+        return dataclasses.replace(sv, prefill_fn=counted("prefill", sv.prefill_fn),
+                                   decode_fn=counted("decode", sv.decode_fn))
+
+    with mock.patch.object(launch_serve, "build_serve", counting_build):
+        run = launch_serve.main(argv)
+    return run, calls
+
+
 def hybrid_serve_phase(torch, np, rkernel, rref, fkernel, fref,
                        card: str) -> tuple[int, int]:
     """Full-width recurrentgemma-2b served by the serve driver
@@ -1111,8 +1154,6 @@ def hybrid_serve_phase(torch, np, rkernel, rref, fkernel, fref,
     prefill to the plain versions on that call's own inputs, and profiles
     a prefill and a decode step. Returns the run's scan and flash-forward
     launch counts."""
-    import dataclasses
-
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.rglru import ops as rglru_ops
     from repro_torch.launch import serve as launch_serve
@@ -1121,28 +1162,11 @@ def hybrid_serve_phase(torch, np, rkernel, rref, fkernel, fref,
     argv = ["--arch", "recurrentgemma-2b", "--batch", str(RG_SERVE["batch"]),
             "--prompt-len", str(RG_SERVE["prompt_len"]),
             "--steps", str(RG_SERVE["steps"]), "--seed", str(SEED)]
-    calls = []                      # (fn, scan launches, flash launches)
-    real_build = launch_serve.build_serve
-
-    def counting_build(*a, **kw):
-        sv = real_build(*a, **kw)
-
-        def counted(name, fn):
-            def run(*args):
-                r0, f0 = rkernel.launches, fkernel.launches_fwd
-                out = fn(*args)
-                calls.append((name, rkernel.launches - r0,
-                              fkernel.launches_fwd - f0))
-                return out
-            return run
-        return dataclasses.replace(sv, prefill_fn=counted("prefill", sv.prefill_fn),
-                                   decode_fn=counted("decode", sv.decode_fn))
-
     print(f"hybrid serve: python -m repro_torch.launch.serve {' '.join(argv)}",
           flush=True)
     rkernel.launches = fkernel.launches_fwd = 0
-    with mock.patch.object(launch_serve, "build_serve", counting_build):
-        run = launch_serve.main(argv)
+    run, calls = counted_serve(launch_serve, argv, lambda: (
+        rkernel.launches, fkernel.launches_fwd))
     launches = (rkernel.launches, fkernel.launches_fwd)
     cfg = run.cfg
     n_rec = griffin._pattern(cfg).count("rec")
@@ -1190,7 +1214,9 @@ def hybrid_serve_phase(torch, np, rkernel, rref, fkernel, fref,
                                           TOL["bfloat16"]))
         return o, lse
 
-    with mock.patch.object(rglru_ops, "_scan", checked_scan),             mock.patch.object(attn_ops, "_forward", checked_fwd),             torch.inference_mode():
+    with mock.patch.object(rglru_ops, "_scan", checked_scan), \
+            mock.patch.object(attn_ops, "_forward", checked_fwd), \
+            torch.inference_mode():
         one, _ = registry.prefill(run.params, cfg, run.prompt[:1],
                                   max_len=run.serve.max_len)
     assert bool(torch.isfinite(one.float()).all())
@@ -1209,9 +1235,10 @@ def hybrid_serve_phase(torch, np, rkernel, rref, fkernel, fref,
     return launches
 
 
-def hybrid_profile(torch, run, card: str) -> None:
-    """One batch-8 prefill and three decode steps of the run under
-    ``torch.profiler``: device busy share and the top device kernels."""
+def hybrid_profile(torch, run, card: str, label: str = "hybrid") -> None:
+    """One batch-8 prefill and three decode steps of a serve-driver run
+    under ``torch.profiler``: device busy share and the top device
+    kernels."""
     sv, params = run.serve, run.params
     for name, fn, n in (
             ("prefill", lambda: sv.prefill_fn(params, run.prompt), 1),
@@ -1221,7 +1248,7 @@ def hybrid_profile(torch, run, card: str) -> None:
         wall_ms, busy_ms, launches, kernels = device_profile(torch, fn, n)
         top = "; ".join(f"{e.key[:44]} {dev_us(e) / 1e3 / n:.3f} ms x"
                         f"{e.count // n}" for e in kernels[:6])
-        print(f"hybrid {name} profile on {card}: wall {wall_ms:.3f} ms (under "
+        print(f"{label} {name} profile on {card}: wall {wall_ms:.3f} ms (under "
               f"the profiler), device busy {busy_ms:.3f} ms "
               f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} kernel "
               f"launches; top device time: {top}")
@@ -1279,6 +1306,313 @@ def small_hybrid_reference_phase(torch, np) -> None:
           f"with a clear margin")
 
 
+# ---------------------------------------------------------------------------
+# SSD chunk scan and the SSM family's serving (the serve driver's path)
+# ---------------------------------------------------------------------------
+
+# b, s, h, p, n, chunk (tests/test_kernels.py:68-72), then ragged S
+SSD_CASES = [(2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 8, 32), (2, 32, 8, 8, 64, 8)]
+SSD_RAGGED = [(2, 37, 3, 16, 16, 16), (1, 300, 2, 64, 128, 256), (1, 1, 2, 8, 4, 8)]
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}      # tests/test_kernels.py:83
+M2_PREFILL = (8, 4096, 32, 64, 128, 256)   # b, s, h, p, n, chunk: mamba2-370m
+M2_SERVE = {"batch": 8, "prompt_len": 4096, "steps": 64}
+
+
+def ssd_inputs(torch, gen, b, s, h, p, n, x_dtype=None, bc_dtype=None,
+               heads_share_bc=False):
+    """The reference test's draws on the card: x ~ N(0, 0.5^2), dA =
+    -|N(0, 0.1^2)|, B and C ~ N(0, 0.3^2); B and C drawn once and expanded
+    over the heads (stride 0) when ``heads_share_bc``, as the model passes
+    them."""
+    mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    x = (mk(b, s, h, p) * 0.5).to(x_dtype or torch.float32)
+    dA = -(mk(b, s, h) * 0.1).abs()
+    hb = 1 if heads_share_bc else h
+    B, C = ((mk(b, s, hb, n) * 0.3).to(bc_dtype or torch.float32)
+            for _ in range(2))
+    if heads_share_bc:
+        B, C = (t.expand(b, s, h, n) for t in (B, C))
+    return x, dA, B, C
+
+
+def ssd_check(torch, skernel, sref, x, dA, B, C, chunk, tol, f64=False):
+    """Kernel against the plain chunked version on the same inputs, y and
+    the final state each at :func:`close_scaled`'s bound; with ``f64`` the
+    plain version computes in float64. At the model's scale (|y| in the
+    tens, the cumsum of dA near -200 at a chunk's end) the float32 plain
+    version is itself off float64 by several 1e-4 (its decays are
+    differences of that cumsum), so there the kernel is held to float64."""
+    y, st = skernel.ssd_cuda(x, dA, B, C, chunk=chunk)
+    wy, wst = sref.ssd_chunked(x.double() if f64 else x, dA, B, C,
+                               chunk=chunk)
+    return close_scaled(y, wy, tol, tol), close_scaled(st, wst, tol, tol)
+
+
+def ssd_bound_ms(b, s, h, p, n, chunk, x_bytes, bc_bytes, bc_bf16, shared):
+    """Least time for one call: the larger of its operations at the card's
+    peak for their type and its bytes (x, dA, the stored B and C read
+    once; y and the state written once) over the memory rate. Operations
+    (2 a multiply-add), per chunk of L steps over its L (L + 1) / 2 pairs
+    j <= i: the C.B^T scores, 2 n a pair, are products of B and C alone, so
+    they run on the bf16 tensor cores when B and C are bf16 (float32
+    accumulation, as the plain version computes them), and once for all
+    heads when the heads share B and C (``shared``: stride 0); the rest is
+    float32 on the CUDA cores per (b, h): the decayed scores' product with
+    x (2 p a pair), the C.S^T term and the state update (4 L n p).
+    Returns ``(ms, bound_by, float32 ops, score ops, bytes)``."""
+    score = f32 = 0
+    for t0 in range(0, s, chunk):
+        length = min(chunk, s - t0)
+        pairs = length * (length + 1) // 2
+        score += 2 * pairs * n
+        f32 += 2 * pairs * p + 4 * length * n * p
+    score *= b * (1 if shared else h)
+    f32 *= b * h
+    moved = 2 * b * s * h * p * x_bytes + b * s * h * 4 + bc_bytes \
+        + b * h * p * n * 4
+    t_ops = (f32 / FP32_OPS_PER_S
+             + score / (BF16_OPS_PER_S if bc_bf16 else FP32_OPS_PER_S)) * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            f32, score, moved)
+
+
+def ssd_phase(torch, skernel, sref) -> dict:
+    """The CUDA SSD chunk scan against its plain version on the
+    reference's cases (float32 and bfloat16 x), on ragged S, on B and C
+    broadcast over the heads with stride 0, against a float64 oracle, and
+    at mamba2-370m's prefill shape; then times kernel and plain version
+    there. Returns the kernel's JSON entry (no launches)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    for case in SSD_CASES + SSD_RAGGED:
+        b, s, h, p, n, chunk = case
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            x, dA, B, C = ssd_inputs(torch, gen, b, s, h, p, n, x_dtype=dt)
+            ey, es = ssd_check(torch, skernel, sref, x, dA, B, C, chunk,
+                               SSD_TOL[name])
+            print(f"ssd case b,s,h,p,n,chunk={case} x {name}: max abs err y "
+                  f"{ey[0]:.3e} (scale {ey[1]:.3e}), state {es[0]:.3e}")
+    # the model's inputs: float32 x, bf16 B and C shared by the heads
+    x, dA, B, C = ssd_inputs(torch, gen, 2, 520, 8, 64, 128,
+                             bc_dtype=torch.bfloat16, heads_share_bc=True)
+    assert B.stride(2) == 0
+    ey, es = ssd_check(torch, skernel, sref, x, dA, B, C, 256,
+                       SSD_TOL["float32"])
+    print(f"ssd with bf16 B and C expanded over 8 heads (stride 0), s 520, "
+          f"chunk 256: max abs err y {ey[0]:.3e} (scale {ey[1]:.3e}), state "
+          f"{es[0]:.3e}")
+
+    # float64 yardstick at one small shape: both float32 versions against it
+    x, dA, B, C = ssd_inputs(torch, gen, 2, 200, 4, 32, 64)
+    y, st = skernel.ssd_cuda(x, dA, B, C, chunk=64)
+    py, pst = sref.ssd_chunked(x, dA, B, C, chunk=64)
+    ey, est = sref.ssd_ref(*(t.double() for t in (x, dA, B, C)))
+    err = lambda a, b: max((a[0].double() - b[0]).abs().max().item(),
+                           (a[1].double() - b[1]).abs().max().item())
+    e_kernel, e_plain = err((y, st), (ey, est)), err((py, pst), (ey, est))
+    assert e_kernel <= SSD_TOL["float32"], e_kernel
+    print(f"ssd against float64 (b 2, s 200, h 4, p 32, n 64, chunk 64): max "
+          f"abs err of y and state: kernel {e_kernel:.3e}, plain "
+          f"{e_plain:.3e}")
+
+    # mamba2-370m's prefill shape with the model's dtypes and dA of its size
+    b, s, h, p, n, chunk = M2_PREFILL
+    x, _, B, C = ssd_inputs(torch, gen, b, s, h, p, n,
+                            bc_dtype=torch.bfloat16, heads_share_bc=True)
+    # dt = softplus(N(0, 1)) and A = -1: the reference init's decay
+    dA = -torch.nn.functional.softplus(torch.randn(
+        (b, s, h), generator=gen, device="cuda"))
+    ey, es = ssd_check(torch, skernel, sref, x, dA, B, C, chunk,
+                       SSD_TOL["float32"], f64=True)
+    py, _ = sref.ssd_chunked(x, dA, B, C, chunk=chunk)
+    wy, _ = sref.ssd_chunked(x.double(), dA, B, C, chunk=chunk)
+    e_plain = (py.double() - wy).abs().max().item()
+    del py, wy
+    ms = time_ms(torch, lambda i: skernel.ssd_cuda(x, dA, B, C, chunk=chunk),
+                 1, inner=5, reps=7)
+    plain_ms = time_ms(torch, lambda i: sref.ssd_chunked(x, dA, B, C,
+                                                         chunk=chunk),
+                       1, inner=1, reps=3)
+    bc_bytes = 2 * b * s * n * B.element_size()     # B and C as stored
+    bound, by, f32_ops, score_ops, moved = ssd_bound_ms(
+        b, s, h, p, n, chunk, 4, bc_bytes, B.dtype == torch.bfloat16,
+        B.stride(2) == 0)
+    ops = f32_ops + score_ops
+    print(f"ssd at mamba2-370m's prefill shape b={b} s={s} h={h} p={p} n={n} "
+          f"chunk {chunk} (x float32, B and C bf16 shared by the heads): "
+          f"against the plain version in float64, max abs err y {ey[0]:.3e} "
+          f"(scale {ey[1]:.3e}), state {es[0]:.3e} (the float32 plain "
+          f"version's y: {e_plain:.3e}); "
+          f"kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}; {f32_ops:.4e} "
+          f"float32 operations at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s, "
+          f"{score_ops:.4e} bf16 C.B^T score operations, once for all heads, "
+          f"at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; {moved} bytes); no "
+          f"single PyTorch call computes the SSD scan")
+    return {"name": "ssd", "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk_scan.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:67",
+            "max_abs_err": max(ey[0], es[0]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def mamba2_serve_phase(torch, np, skernel, sref, card: str) -> int:
+    """Full-width mamba2-370m served by the serve driver
+    (``repro_torch.launch.serve``): batch 8, a 4096-token prompt, 64 greedy
+    steps, random bf16 weights from the seed. Checks the launch counts of
+    every call (48 SSD scans in the prefill, none in a decode step), then
+    holds every SSD call of one prompt's prefill to the plain version on
+    that call's own inputs, and profiles a prefill and a decode step.
+    Returns the run's SSD launch count."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import registry
+
+    argv = ["--arch", "mamba2-370m", "--batch", str(M2_SERVE["batch"]),
+            "--prompt-len", str(M2_SERVE["prompt_len"]),
+            "--steps", str(M2_SERVE["steps"]), "--seed", str(SEED)]
+    print(f"mamba2 serve: python -m repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    skernel.launches = 0
+    run, calls = counted_serve(launch_serve, argv, lambda: (skernel.launches,))
+    launches = skernel.launches
+    cfg = run.cfg
+    b, steps = M2_SERVE["batch"], M2_SERVE["steps"]
+    assert cfg.n_layers == 48 and cfg.param_count() == 368_227_840
+    assert calls[0] == ("prefill", cfg.n_layers), calls[0]
+    assert calls[1:] == [("decode", 0)] * steps, calls[1:4]
+    assert launches == cfg.n_layers, launches
+    assert tuple(run.tokens.shape) == (b, steps)
+    assert bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all())
+    assert bool(torch.isfinite(run.logits.float()).all())
+    assert bool(torch.isfinite(run.cache.state).all())
+    assert int(run.cache.pos) == M2_SERVE["prompt_len"] + steps
+    step_ms = statistics.median(run.decode_s) * 1e3
+    print(f"mamba2 serve on {card}: mamba2-370m, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, "
+          f"state {cfg.ssm_state}, {cfg.param_count()} parameters in bf16; "
+          f"prefill {b} x {M2_SERVE['prompt_len']} tokens {run.prefill_s:.3f} s "
+          f"({b * M2_SERVE['prompt_len'] / run.prefill_s:.0f} tokens/s); "
+          f"decode step {step_ms:.3f} ms (median of {steps}; first "
+          f"{run.decode_s[0] * 1e3:.3f} ms), {b * steps / sum(run.decode_s):.1f} "
+          f"tokens/s; peak memory {run.peak_bytes / 1e9:.2f} GB; launches "
+          f"{launches} SSD scans in the prefill, 0 in each of the {steps} "
+          f"decode steps")
+
+    # every SSD call of one prompt's prefill against the plain version on
+    # that call's own inputs, computed in float64 (see ssd_check); the
+    # float32 plain version's own error is printed beside it
+    errs, plain_errs, kernel_scan = [], [], ssd_ops._scan
+
+    def checked_scan(x, dA, B, C, chunk):
+        y, st = kernel_scan(x, dA, B, C, chunk)
+        wy, wst = sref.ssd_chunked(x.double(), dA, B, C, chunk=chunk)
+        tol = SSD_TOL["float32"]
+        errs.append(max(close_scaled(y, wy, tol, tol),
+                        close_scaled(st, wst, tol, tol)))
+        py, _ = sref.ssd_chunked(x, dA, B, C, chunk=chunk)
+        plain_errs.append((py.double() - wy).abs().max().item())
+        return y, st
+
+    with mock.patch.object(ssd_ops, "_scan", checked_scan), \
+            torch.inference_mode():
+        one, _ = registry.prefill(run.params, cfg, run.prompt[:1],
+                                  max_len=run.serve.max_len)
+    assert bool(torch.isfinite(one.float()).all())
+    assert len(errs) == cfg.n_layers, len(errs)
+    print(f"mamba2 serve: every SSD call of one prompt's prefill held to the "
+          f"plain version in float64 on its own inputs: {len(errs)} calls, "
+          f"max abs err {max(e for e, _ in errs):.3e}, scales "
+          f"{min(s for _, s in errs):.3e} to {max(s for _, s in errs):.3e} "
+          f"(bound {SSD_TOL['float32']} * scale + {SSD_TOL['float32']} * "
+          f"|plain|); the float32 plain version's y off float64 by up to "
+          f"{max(plain_errs):.3e}")
+    del errs
+    hybrid_profile(torch, run, card, label="mamba2")
+    silu_launches(torch, run)
+    return launches
+
+
+def silu_launches(torch, run) -> None:
+    """The share of a mamba2 decode step's launches that its SiLU takes:
+    ``mamba2._silu`` rounds each step to bf16 as XLA does (bit parity
+    with the reference on the CPU), in more launches a call than
+    ``F.silu``'s one. Counts the calls in one decode step and the launches
+    of one call of each at the step's shape under the profiler."""
+    from repro_torch.models import mamba2
+
+    calls, real = [], mamba2._silu
+
+    def counted(x):
+        calls.append(tuple(x.shape))
+        return real(x)
+
+    with mock.patch.object(mamba2, "_silu", counted):
+        run.serve.decode_fn(run.params, run.cache, run.tokens[:, -1:])
+    z = torch.randn((M2_SERVE["batch"], 1, run.cfg.d_inner),
+                    device="cuda").to(torch.bfloat16)
+    per = {}
+    for name, fn in (("_silu", real), ("F.silu", torch.nn.functional.silu)):
+        fn(z)
+        per[name] = device_profile(torch, lambda: fn(z), 3)[2]
+    extra = len(calls) * (per["_silu"] - per["F.silu"])
+    print(f"mamba2 decode step: {len(calls)} SiLU calls "
+          f"({len(calls) // run.cfg.n_layers} a layer), {per['_silu']:.0f} "
+          f"launches each as XLA rounds it against {per['F.silu']:.0f} for "
+          f"F.silu: {extra:.0f} launches a step beyond F.silu's")
+
+
+def small_mamba2_reference_phase(torch, np) -> None:
+    """The card's serve path against the CPU's plain path on a small input:
+    the mamba2 smoke config, the same bf16 params (the embedding x 10, as
+    tests/test_torch_mamba2.py holds the port to JAX), a 37-token prompt
+    (4 chunks of 8 and a ragged 5) and 12 teacher-forced decode steps.
+    Logits and the caches agree at the bf16 bound, greedy tokens wherever
+    the margin is clear, and the card's prefill went through the kernel."""
+    from repro_torch import configs
+    from repro_torch.kernels.ssd import kernel as skernel
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import build_serve
+    from repro_torch.sharding.params import cast_tree, init_tree, tree_map
+
+    cfg = configs.smoke("mamba2_370m")
+    params = cast_tree(init_tree(registry.decls(cfg), SEED, "cpu"),
+                       torch.bfloat16)
+    params["embed"] = params["embed"] * 10.0
+    s, steps, tol = 37, 12, 6e-2
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, s + steps)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        sv = build_serve(cfg, 2, s + steps, prefill_len=s, device=dev)
+        s0 = skernel.launches
+        logits, cache = sv.prefill_fn(p, toks[:, :s])
+        launched = skernel.launches - s0
+        seq = [logits.float().cpu()]
+        for t in range(steps):
+            logits, cache = sv.decode_fn(p, cache, toks[:, s + t:s + t + 1])
+            seq.append(logits.float().cpu())
+        out[dev] = (torch.stack(seq), cache, launched)
+    (want, wcache, _), (got, gcache, launched) = out["cpu"], out["cuda"]
+    assert launched == cfg.n_layers, launched
+    err = close(got, want, tol)
+    for f in ("conv_x", "conv_B", "conv_C", "state"):
+        close(getattr(gcache, f).cpu(), getattr(wcache, f), tol)
+    top2 = want.topk(2, dim=-1).values
+    clear = top2[..., 0] - top2[..., 1] > 2 * tol * (1 + top2[..., 0].abs())
+    same = got.argmax(-1)[clear] == want.argmax(-1)[clear]
+    assert bool(same.all()) and int(clear.sum()) > 0, int(clear.sum())
+    print(f"smoke mamba2 on the card (kernel: {launched} SSD scans in the "
+          f"prefill) vs the CPU's plain path: prefill of {s} tokens and "
+          f"{steps} decode steps, logits max abs err {err:.3e} (tolerance "
+          f"{tol} + {tol} * |plain|), caches within it; greedy tokens equal at "
+          f"all {int(clear.sum())} of {clear.numel()} steps with a clear "
+          f"margin")
+
+
 def argmax_tie(torch) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -1319,6 +1653,8 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import kernel, ref
     from repro_torch.kernels.rglru import kernel as rkernel
     from repro_torch.kernels.rglru import ref as rref
+    from repro_torch.kernels.ssd import kernel as skernel
+    from repro_torch.kernels.ssd import ref as sref
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
@@ -1327,7 +1663,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    build_all(kernel, fkernel, rkernel)
+    build_all(kernel, fkernel, rkernel, skernel)
 
     paged = kernel_phase(torch, kernel, ref)
     paged["launches"] = serve_phase(torch, np, kernel, ref, card)
@@ -1349,9 +1685,15 @@ def main() -> int:
         torch, np, rkernel, rref, fkernel, fref, card)
     torch.cuda.empty_cache()
     small_hybrid_reference_phase(torch, np)
+    torch.cuda.empty_cache()
+    ssd = ssd_phase(torch, skernel, sref)
+    torch.cuda.empty_cache()
+    ssd["launches"] = mamba2_serve_phase(torch, np, skernel, sref, card)
+    torch.cuda.empty_cache()
+    small_mamba2_reference_phase(torch, np)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [paged, fwd, bwd, scan, fwd256]}))
+    print(json.dumps({"kernels": [paged, fwd, bwd, scan, fwd256, ssd]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

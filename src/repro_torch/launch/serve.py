@@ -4,9 +4,12 @@
       --prompt-len 4096 --steps 64
   python -m repro_torch.launch.serve --arch recurrentgemma-2b --smoke \\
       --device cpu --batch 2 --prompt-len 32 --steps 8
+  python -m repro_torch.launch.serve --arch mamba2-370m --batch 8 \\
+      --prompt-len 4096 --steps 64
 
 Port of ``src/repro/launch/serve.py`` on one device, through
-:func:`repro_torch.serve.engine.build_serve`. Runs on the card unless
+:func:`repro_torch.serve.engine.build_serve`, for the families the serve
+driver runs (hybrid and SSM). Runs on the card unless
 ``--device cpu`` is given; without a card and without ``--device`` it
 raises. Random bf16 weights (``init_tree``) and a random prompt (a
 ``torch.Generator``), both from ``--seed`` and made on the device; greedy

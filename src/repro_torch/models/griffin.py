@@ -258,10 +258,12 @@ def _rec_mix_prefill(x, p, cfg: ModelConfig):
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     y = F.gelu(h @ p["w_y"].to(h.dtype), approximate="tanh")
     u = h @ p["w_x"].to(h.dtype)
-    # the conv state is the pre-conv input's tail (a copy: a view would keep
-    # all of u alive)
-    tail = u[:, -(cfg.ssm_conv_width - 1):].clone()
-    u, _ = L.causal_conv1d(u, p["conv"].to(u.dtype))
+    # the conv state: the last w-1 rows of [zeros, u], so a prompt shorter
+    # than w-1 keeps the zero history GriffinCache.init starts from (the
+    # reference slices u itself and then fails to decode); a copy, since a
+    # view would keep all of u alive
+    u, tail = L.causal_conv1d(u, p["conv"].to(u.dtype))
+    tail = tail.clone()
     a, b_in = rglru_gates(u, p["rglru"], cfg.rglru_c)
     ys, h_fin = linear_scan(a, b_in)
     out = (ys.to(x.dtype) * y) @ p["w_out"].to(x.dtype)

@@ -1,19 +1,23 @@
 """Family dispatch for the port (port of ``src/repro/models/registry.py``).
 
-The dense and audio families (the decoder-only transformer) and the hybrid
-family (Griffin) are ported; every other family raises
-``NotImplementedError`` until its slice lands. The serve driver's
-``prefill`` / ``decode_step`` / ``cache_init`` serve the hybrid family; the
-transformer families serve through the paged engine, and their lane-backend
-prefill and decode are later slices (ROADMAP.md).
+The dense and audio families (the decoder-only transformer), the hybrid
+family (Griffin) and the SSM family (Mamba-2) are ported; every other
+family raises ``NotImplementedError`` until its slice lands. The serve
+driver's ``prefill`` / ``decode_step`` / ``cache_init`` serve the hybrid
+and SSM families; the transformer families serve through the paged engine,
+and their lane-backend prefill and decode are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from repro_torch.models import griffin, transformer
+from repro_torch.models import griffin, mamba2, transformer
 from repro_torch.models.config import ModelConfig
 
 _PORTED_FAMILIES = ("dense", "audio")
+
+# the families the serve driver runs: (model module, its cache class)
+_SERVE = {"hybrid": (griffin, griffin.GriffinCache),
+          "ssm": (mamba2, mamba2.SSMCache)}
 
 # the ROADMAP.md items ("Still to port") that bring each family's serve
 # driver path, for the error a caller sees
@@ -24,15 +28,14 @@ _LATER_SERVE = {
     "vlm": "embeds inputs and the transformer families' serve-driver "
            "prefill and decode",
     "moe": "the MoE family",
-    "ssm": "the SSM family (mamba2)",
 }
 
 
 def _mod(cfg: ModelConfig):
     if cfg.family in _PORTED_FAMILIES:
         return transformer
-    if cfg.family == "hybrid":
-        return griffin
+    if cfg.family in _SERVE:
+        return _SERVE[cfg.family][0]
     raise NotImplementedError(f"{cfg.name} ({cfg.family}): not yet ported")
 
 
@@ -44,7 +47,7 @@ def decls(cfg: ModelConfig):
 def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
     """Training forward ``(logits, aux)``; see :func:`transformer.forward`.
     Dense family only: the audio family's ``embeds`` inputs and the hybrid
-    family's training are not yet ported."""
+    and SSM families' training are not yet ported."""
     if cfg.family != "dense":
         raise NotImplementedError(f"{cfg.name} ({cfg.family}): training "
                                   f"forward not yet ported")
@@ -52,34 +55,39 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
                                embeds=embeds)
 
 
-def _require_hybrid(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "hybrid":
+def _serve(cfg: ModelConfig, what: str):
+    """``(module, cache class)`` of ``cfg``'s family on the serve driver;
+    raises ``NotImplementedError`` naming the ROADMAP item otherwise."""
+    if cfg.family not in _SERVE:
         later = _LATER_SERVE.get(cfg.family, "not yet planned")
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): {what} of the serve driver is not "
             f"yet ported for this family (ROADMAP.md, still to port: "
             f"{later})")
+    return _SERVE[cfg.family]
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len=None):
     """Batched prefill ``(logits of the last position, cache)``; see
-    :func:`griffin.prefill`. Hybrid family only."""
-    _require_hybrid(cfg, "prefill")
-    return griffin.prefill(params, cfg, tokens, max_len=max_len)
+    :func:`griffin.prefill` and :func:`mamba2.prefill`. Hybrid and SSM
+    families."""
+    return _serve(cfg, "prefill")[0].prefill(params, cfg, tokens,
+                                             max_len=max_len)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens):
-    """One token per lane ``(logits, cache)``; see
-    :func:`griffin.decode_step`. Hybrid family only."""
-    _require_hybrid(cfg, "decode_step")
-    return griffin.decode_step(params, cfg, cache, tokens)
+    """One token per lane ``(logits, cache)``, the cache written in place;
+    see :func:`griffin.decode_step` and :func:`mamba2.decode_step`. Hybrid
+    and SSM families."""
+    return _serve(cfg, "decode_step")[0].decode_step(params, cfg, cache,
+                                                     tokens)
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """A zeroed decode cache on ``device`` (``None`` is the card). Hybrid
-    family only."""
-    _require_hybrid(cfg, "cache_init")
-    return griffin.GriffinCache.init(cfg, batch, max_len, device=device)
+    and SSM families."""
+    return _serve(cfg, "cache_init")[1].init(cfg, batch, max_len,
+                                             device=device)
 
 
 def supports_paged(cfg: ModelConfig) -> bool:

@@ -18,7 +18,7 @@ dense transformer greedily on the paged backend with sync dispatch:
 
 :func:`build_serve` is the serve driver's one-device prefill and decode
 (the reference's ``build_sharded_serve`` without a mesh), which serves the
-hybrid family.
+hybrid and SSM families.
 
 Later slices port the rest of the reference engine: async dispatch, the
 lane backend, tensor parallelism, a shared external pool or page table,

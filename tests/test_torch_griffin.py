@@ -310,7 +310,7 @@ def test_prefill_scans_and_attends_once_per_layer_and_decode_never():
 def test_other_families_raise_on_the_serve_path():
     for arch, item in (("granite_3_2b", "serve-driver prefill"),
                        ("musicgen_large", "embeds inputs"),
-                       ("mamba2_370m", "SSM family")):
+                       ("grok_1_314b", "MoE family")):
         cfg = configs.smoke(arch)
         with pytest.raises(NotImplementedError, match=item):
             registry.prefill({}, cfg, torch.zeros((1, 4), dtype=torch.long))
