@@ -7,10 +7,10 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and PyTorch built for CUDA;
 imports nothing of JAX or of the JAX package ``src/repro``. In order:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the paged-attention, flash-attention, RG-LRU scan and SSD
-   chunk-scan kernels from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc``
-   each, started together; reused when already built) and prints the
-   compiler's resource reports;
+2. builds the paged-attention, flash-attention, RG-LRU scan, SSD
+   chunk-scan and depthwise causal conv1d kernels from
+   ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, started together;
+   reused when already built) and prints the compiler's resource reports;
 3. kernel phase: holds the paged CUDA kernel against its plain PyTorch
    version on the card, on the reference's test cases in float32 and
    bfloat16 and at granite-3-2b's decode shape (8 slots, 32 query / 8 KV
@@ -21,9 +21,13 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
 4. serve phase: full-width, full-depth granite-3-2b with random weights
    made on the card from a seed, served by ``ContinuousBatchingEngine``
    (8 slots, 16-token pages, prefill chunk 16): 16 requests sharing a
-   64-token system prompt, 32 greedy tokens each. Checks completions,
-   prefix reuse, and that every attention call went through the kernel
-   (launches == n_layers x one-token steps); then teacher-forces one request
+   64-token system prompt, 32 greedy tokens each, with the engine's
+   default energy meter and its own platform. Checks completions, prefix
+   reuse, that every attention call went through the kernel (launches ==
+   n_layers x one-token steps), 16 ``serve.admit`` and 16
+   ``serve.complete`` interrupts and the meter's conservation; serves the
+   trace again unmetered and metered (equal completions, decode steps in
+   turns); then teacher-forces one request
    through the kernel path, holding every attention call to the plain
    version on that call's own inputs. (Full-width logits of the kernel path
    and the plain path are printed, not compared: this random-weight model
@@ -32,7 +36,8 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
    path against itself perturbed by one bf16 ulp.)
 5. small reference: the granite smoke config (3 layers, float32) served on
    the card and on the CPU's plain path gives equal completions, after a
-   check that its greedy margins are clear, and its teacher-forced logits
+   check that its greedy margins are clear (and on the card metered and
+   unmetered alike), and its teacher-forced logits
    agree between the kernel path and the plain path on the card;
 6. checks that ``torch.argmax`` on the card takes the first maximal index;
 7. flash kernel phase: the CUDA flash forward (o and lse) and backward (dq,
@@ -83,9 +88,26 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     that the decode step's SiLU (rounded as XLA rounds it) takes;
 16. small mamba2 reference: the mamba2 smoke config served on the card
     (through the kernel) and on the CPU's plain path: logits, caches and
-    clear-margin greedy tokens agree.
+    clear-margin greedy tokens agree;
+17. conv1d phase: the CUDA depthwise causal conv against its plain version
+    on the reference's cases (float32 at 1e-5 and bit for bit, bfloat16 at
+    5e-2), at width 1, ragged S and D, stride-0 and transposed inputs,
+    against float64, and at the seizure CNN's three layer shapes; timed at
+    layer 0's shape (1, 1024, 32) and at recurrentgemma's conv shape (8,
+    4096, 2560, bf16, on no path) against the plain version and cuDNN's
+    depthwise conv (the yardstick, never called by the port);
+18. healthcare phase: the flow of ``examples/healthcare_pipeline.py``
+    through the port on the card (the HEEPocrates platform with the CGRA
+    attached, bank gating from each acquisition, ``run_heartbeat``, the
+    seizure CNN on the host path and through the CGRA, the 4.9x energy
+    story, post-processing leakage). Checks 87 conv1d launches per CGRA
+    ``apply``, each of those calls against the plain version, host == CGRA
+    within 1e-4, and the card's logits and clear-margin flags against the
+    CPU's plain path; prints the wall times of one ``apply`` and one
+    ``classify``.
 
-Prints a ``{"kernels": [...]}`` JSON line, the card line again, and last
+Prints a ``{"kernels": [...]}`` JSON line (seven entries), the card line
+again, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero and prints no result; so does a machine without a card.
 """
@@ -350,25 +372,31 @@ def serve_phase(torch, np, kernel, ref, card: str) -> int:
           f"{count_params(params)} parameters in bf16, made on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     page_size = 16
-    engine = ContinuousBatchingEngine(cfg, params, slots=8, max_len=160,
-                                      device="cuda", page_size=page_size,
-                                      prefill_chunk=16)
-    for rid, prompt, n_new in serve_trace(np):
-        assert engine.submit(Request(rid, prompt, n_new))
+
+    def serve(**kw):
+        engine = ContinuousBatchingEngine(cfg, params, slots=8, max_len=160,
+                                          device="cuda", page_size=page_size,
+                                          prefill_chunk=16, **kw)
+        for rid, prompt, n_new in serve_trace(np):
+            assert engine.submit(Request(rid, prompt, n_new))
+        decode_ms, steps = [], 0
+        t0 = time.perf_counter()
+        while True:
+            before = engine.token_steps
+            ts = time.perf_counter()
+            if not engine.step():
+                break
+            dt = time.perf_counter() - ts   # step() ends with the tokens on the host
+            steps += 1
+            if engine.token_steps - before == 1:
+                decode_ms.append(dt * 1e3)
+        return engine, decode_ms, steps, time.perf_counter() - t0
+
+    # the main path: the engine as a user builds it (metered, its own
+    # platform), counted
     torch.cuda.reset_peak_memory_stats()
-    decode_ms, steps = [], 0
     kernel.launches = 0
-    t0 = time.perf_counter()
-    while True:
-        before = engine.token_steps
-        ts = time.perf_counter()
-        if not engine.step():
-            break
-        dt = time.perf_counter() - ts       # step() ends with the tokens on the host
-        steps += 1
-        if engine.token_steps - before == 1:
-            decode_ms.append(dt * 1e3)
-    wall = time.perf_counter() - t0
+    engine, decode_ms, steps, wall = serve()
     launches = kernel.launches
     stats = engine.stats()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -389,6 +417,38 @@ def serve_phase(torch, np, kernel, ref, card: str) -> int:
           f"(median of {len(decode_ms)} decode-only steps), "
           f"{stats['tokens_generated'] / wall:.1f} tokens/s over {wall:.3f} s, "
           f"peak memory {peak_gb:.2f} GB")
+
+    # the platform surface: one admit and one complete interrupt per
+    # request, and a conserving meter
+    irq = engine.platform.interrupts
+    assert (irq.count("serve.admit"), irq.count("serve.complete")) == (16, 16)
+    en = stats["energy"]
+    per_request = sum(r.energy_uj for r in engine.completed)
+    assert abs(en["total_uj"] - (en["attributed_uj"] + en["overhead_uj"])) \
+        <= 1e-9 * en["total_uj"], en
+    assert abs(en["attributed_uj"] - per_request) <= 1e-9 * per_request, en
+    banks = engine.platform.power.states
+    print(f"serve metering: {irq.count('serve.admit')} serve.admit and "
+          f"{irq.count('serve.complete')} serve.complete interrupts; meter "
+          f"total {en['total_uj']:.6f} uJ = attributed "
+          f"{en['attributed_uj']:.6f} + overhead {en['overhead_uj']:.6f} "
+          f"(= sum of Request.energy_uj within 1e-9 relative), "
+          f"{en['projected_uj_per_token']:.4f} uJ per decode token at "
+          f"{en['point']}; banks at the end: "
+          f"{sorted((k, v.value) for k, v in banks.items() if k != 'host')}")
+    # the meter only observes: unmetered runs give the same completions;
+    # decode steps metered and not, in turns (metered, unmetered, metered)
+    plain_engine, plain_ms, _, _ = serve(metered=False)
+    again, again_ms, _, _ = serve()
+    want = {r.id: r.tokens for r in engine.completed}
+    assert {r.id: r.tokens for r in plain_engine.completed} == want
+    assert {r.id: r.tokens for r in again.completed} == want
+    assert "energy" not in plain_engine.stats()
+    print(f"serve decode step on {card}, metered {statistics.median(decode_ms):.3f}"
+          f" ms (main run), unmetered {statistics.median(plain_ms):.3f} ms, "
+          f"metered again {statistics.median(again_ms):.3f} ms (medians); the "
+          f"unmetered engine's 16 completions equal the metered ones")
+    del plain_engine, again
 
     # teacher-force the last request (it adopted the shared prefix) through
     # the kernel path; every attention call is held to the plain version on
@@ -525,15 +585,19 @@ def small_reference_phase(torch, np) -> None:
     reqs = [(f"s{i}", prefix + [int(t) for t in rng.integers(1, 256, 1 + i % 4)],
              4 + i % 3) for i in range(6)]
     out = {}
-    for dev in ("cpu", "cuda"):
+    for dev, metered in (("cpu", True), ("cuda", True), ("cuda", False)):
         p = tree_map(lambda t: t.to(dev), params)
         eng = ContinuousBatchingEngine(cfg, p, slots=3, max_len=32, device=dev,
-                                       page_size=4, prefill_chunk=4)
+                                       page_size=4, prefill_chunk=4,
+                                       metered=metered)
         for r in reqs:
             eng.submit(Request(*r))
         eng.run_until_idle()
-        out[dev] = {r.id: r.tokens for r in eng.completed}
+        out[dev if metered else "unmetered"] = {r.id: r.tokens
+                                                for r in eng.completed}
         assert eng.stats()["prompt_tokens_reused"] > 0
+        assert ("energy" in eng.stats()) == metered
+    assert out["unmetered"] == out["cuda"], (out["unmetered"], out["cuda"])
     margin = float("inf")
     for rid, prompt, _ in reqs:
         seq = list(prompt) + out["cpu"][rid]
@@ -550,7 +614,8 @@ def small_reference_phase(torch, np) -> None:
         want = teacher_force(torch, registry, cfg, p, seq, 4, "cuda")
     err = close(got, want, TOL["bfloat16"])
     print(f"smoke granite on the card vs the CPU's plain path: {len(reqs)} "
-          f"completions equal (greedy margin >= {margin:.3f}); teacher-forced "
+          f"completions equal (greedy margin >= {margin:.3f}), and equal "
+          f"metered and unmetered on the card; teacher-forced "
           f"kernel vs plain logits max abs err {err:.3e} (tolerance "
           f"{TOL['bfloat16']}, the bf16 pool's)")
 
@@ -1613,6 +1678,332 @@ def small_mamba2_reference_phase(torch, np) -> None:
           f"margin")
 
 
+# ---------------------------------------------------------------------------
+# Depthwise causal conv1d (the CGRA) and the paper's healthcare pipeline
+# ---------------------------------------------------------------------------
+
+# B, S, D, W (tests/test_kernels.py:167-169), then W 1, ragged S and D
+CONV_CASES = [(2, 64, 32, 4), (1, 256, 128, 4), (3, 32, 16, 2), (1, 64, 64, 8)]
+CONV_RAGGED = [(2, 64, 32, 1), (2, 37, 13, 3), (1, 1, 5, 4), (3, 100, 200, 8)]
+CONV_TOL = {"float32": 1e-5, "bfloat16": 5e-2}     # tests/test_kernels.py:175
+# the seizure CNN's three layers: (B, S, D) of each depthwise call, W 4
+HEALTH_SHAPES = [(1, 1024, 32), (1, 512, 32), (1, 256, 16)]
+RG_CONV = (8, 4096, 2560, 4)      # B, S, D, W: recurrentgemma-2b's conv, bf16
+CGRA_LAUNCHES = 23 + 32 + 32      # one depthwise call per input channel
+
+
+def conv_inputs(torch, gen, b, s, d, w, dtype=None, broadcast=False):
+    """x (B, S, D) and taps (W, D) on the card; ``broadcast`` expands one
+    channel over D with stride 0, as the seizure CNN's CGRA path does."""
+    dtype = dtype or torch.float32
+    x = torch.randn((b, s, 1 if broadcast else d), generator=gen,
+                    device="cuda").to(dtype)
+    if broadcast:
+        x = x.expand(b, s, d)
+    taps = (0.4 * torch.randn((w, d), generator=gen, device="cuda")).to(dtype)
+    return x, taps
+
+
+def conv_check(torch, ckernel, cref, x, taps) -> float:
+    """Kernel against the plain version in float32 (the reference's own
+    test holds its bf16 kernel to the float32 oracle); float32 inputs must
+    agree bit for bit (the kernel rounds each product and sum as the plain
+    version does)."""
+    got = ckernel.conv1d_cuda(x, taps)
+    want = cref.conv1d(x.float(), taps.float())
+    torch.cuda.synchronize()
+    name = str(x.dtype).split(".")[1]
+    err = close_at(got, want, CONV_TOL[name], CONV_TOL[name])
+    if x.dtype == torch.float32 and taps.dtype == torch.float32:
+        assert torch.equal(got, want), f"float32 not bitwise: {err:.3e}"
+    return err
+
+
+def conv_bytes(x, taps) -> int:
+    """Bytes one call must move: each distinct input element read once (an
+    input expanded with stride 0 counts its storage once), y written once,
+    the taps as float32 (the kernel's accumulation type)."""
+    distinct = 1
+    for n, st in zip(x.shape, x.stride()):
+        distinct *= n if st else 1
+    return distinct * x.element_size() + x.numel() * x.element_size() \
+        + taps.numel() * 4
+
+
+def graph_ms(torch, fn, inner: int = 100, reps: int = 11) -> float:
+    """Median ms per call of ``fn`` replayed from a CUDA graph of ``inner``
+    calls (CUDA events around each replay): the device's time for the call,
+    without the host's time to issue it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def conv_timing(torch, ckernel, cref, x, taps, label: str) -> dict:
+    """Kernel, plain version and cuDNN's depthwise conv (the yardstick,
+    never called by the port) with CUDA events, and the call's bound. At a
+    small shape, where issuing a call from Python takes longer than the
+    card takes to run it, the three are also timed replayed from a CUDA
+    graph, and the JSON entry reports those device times."""
+    b, s, d = x.shape
+    w = taps.shape[0]
+    cudnn = lambda: torch.nn.functional.conv1d(
+        x.transpose(1, 2), taps.T[:, None, :].to(x.dtype), groups=d,
+        padding=w - 1)[..., :s].transpose(1, 2)
+    name = str(x.dtype).split(".")[1]
+    want = cref.conv1d(x.float(), taps.float())
+    lib_err = close_at(cudnn(), want, CONV_TOL[name], CONV_TOL[name])
+    err = conv_check(torch, ckernel, cref, x, taps)
+    big = x.numel() > 1 << 20
+    ms = time_ms(torch, lambda i: ckernel.conv1d_cuda(x, taps), 1,
+                 inner=10 if big else 100)
+    plain_ms = time_ms(torch, lambda i: cref.conv1d(x, taps), 1,
+                       inner=5 if big else 50, reps=11)
+    library_ms = time_ms(torch, lambda i: cudnn(), 1, inner=10 if big else 100)
+    times = (f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+             f"cudnn depthwise conv {library_ms * 1e3:.2f} us")
+    if not big:
+        times = (f"issued eagerly (CUDA events over back-to-back calls): "
+                 f"{times}; replayed from a CUDA graph (the card's time): ")
+        ms = graph_ms(torch, lambda: ckernel.conv1d_cuda(x, taps))
+        plain_ms = graph_ms(torch, lambda: cref.conv1d(x, taps))
+        library_ms = graph_ms(torch, cudnn)
+        times += (f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+                  f"cudnn depthwise conv {library_ms * 1e3:.2f} us")
+    moved = conv_bytes(x, taps)
+    ops = 2 * w * x.numel()
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    print(f"conv1d {label} B={b} S={s} D={d} W={w} x {name}"
+          f"{' (stride 0 over D)' if x.stride(2) == 0 else ''}: {times} "
+          f"(cudnn's max abs err vs plain {lib_err:.3e}); bound "
+          f"{bound * 1e3:.4f} us "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}: {moved} bytes "
+          f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, {ops} float32 operations); "
+          f"kernel max abs err vs plain {err:.3e}")
+    return {"name": "conv1d_causal", "route": "cuda",
+            "source": "src/repro_torch/kernels/conv1d/csrc/conv1d_causal.cu",
+            "replaces": "src/repro/kernels/conv1d/kernel.py:36",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def conv1d_phase(torch, ckernel, cref) -> dict:
+    """The CUDA depthwise causal conv against its plain version on the
+    reference's cases (float32 and bfloat16), at W 1, ragged S and D, a
+    stride-0 and a transposed input, against a float64 oracle, and at the
+    healthcare layers' shapes; then timed at layer 0's shape (the path's
+    own) and at one shape where bytes dominate. Returns the kernel's JSON
+    entry (no launches), timed at the path's shape."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    for case in CONV_CASES + CONV_RAGGED:
+        for dt in (torch.float32, torch.bfloat16):
+            x, taps = conv_inputs(torch, gen, *case, dtype=dt)
+            err = conv_check(torch, ckernel, cref, x, taps)
+            print(f"conv1d case B,S,D,W={case} {str(dt).split('.')[1]}: max "
+                  f"abs err {err:.3e}")
+    # float32 x with bf16 taps, a stride-0 input and a transposed input
+    x, taps = conv_inputs(torch, gen, 2, 50, 24, 4)
+    errs = [conv_check(torch, ckernel, cref, x, taps.to(torch.bfloat16)),
+            conv_check(torch, ckernel, cref, *conv_inputs(
+                torch, gen, 2, 70, 40, 4, broadcast=True)),
+            conv_check(torch, ckernel, cref,
+                       x.transpose(0, 1).contiguous().transpose(0, 1), taps)]
+    print(f"conv1d float32 x with bf16 taps, stride-0 input, transposed "
+          f"input: max abs err {max(errs):.3e}")
+    # float64 oracle: kernel and plain version (float32) against it
+    x, taps = conv_inputs(torch, gen, 2, 300, 48, 4)
+    exact = cref.conv1d(x.double(), taps.double())
+    e_kernel = (ckernel.conv1d_cuda(x, taps).double() - exact).abs().max().item()
+    e_plain = (cref.conv1d(x, taps).double() - exact).abs().max().item()
+    assert e_kernel <= CONV_TOL["float32"], e_kernel
+    print(f"conv1d against float64 (B 2, S 300, D 48, W 4): max abs err "
+          f"kernel {e_kernel:.3e}, plain {e_plain:.3e}")
+    for b, s, d in HEALTH_SHAPES:
+        err = conv_check(torch, ckernel, cref, *conv_inputs(
+            torch, gen, b, s, d, 4, broadcast=True))
+        print(f"conv1d at the seizure CNN's shape ({b}, {s}, {d}), W 4, "
+              f"stride-0 input: max abs err {err:.3e} (bitwise equal)")
+    entry = conv_timing(torch, ckernel, cref, *conv_inputs(
+        torch, gen, *HEALTH_SHAPES[0], 4, broadcast=True),
+        "at the path's shape (seizure CNN layer 0)")
+    b, s, d, w = RG_CONV
+    conv_timing(torch, ckernel, cref, *conv_inputs(
+        torch, gen, b, s, d, w, dtype=torch.bfloat16),
+        "not on any path (both packages run that conv plain), at "
+        "recurrentgemma's conv shape,")
+    return entry
+
+
+def healthcare_phase(torch, np, ckernel, cref, card: str) -> int:
+    """The flow of ``examples/healthcare_pipeline.py`` through the port on
+    the card: the HEEPocrates platform with the CGRA attached, bank gating
+    from each acquisition, the heartbeat classifier, the seizure CNN on the
+    host path and through the CGRA (the conv1d kernel, one call per input
+    channel), and the energy story. Checks 87 kernel launches per CGRA
+    ``apply``, every one of those calls against the plain version on its
+    own inputs, and the card's flags and logits against the CPU's plain
+    path on the same seeded weights; prints wall times. Returns the launch
+    count of the counted ``apply``."""
+    import dataclasses
+
+    from repro_torch.apps import healthcare as H
+    from repro_torch.core import energy as E
+    from repro_torch.core.platform import Platform, XHeepConfig
+    from repro_torch.core.power import PowerState
+    from repro_torch.core.xaif import REGISTRY
+    from repro_torch.data import biosignal
+
+    platform = Platform(XHeepConfig(core="cv32e20", bus="fully_connected",
+                                    addressing="contiguous", n_banks=8))
+    cgra = REGISTRY.get("conv1d", "cuda")
+    platform.attach(cgra)
+    assert (len(cgra.slave_ports), len(cgra.master_ports),
+            cgra.bus_width_bits) == (2, 4, 128)
+    assert "cgra" in platform.power.domains
+    print(f"attached accelerator: {cgra.name} ({len(cgra.slave_ports)} slave "
+          f"+ {len(cgra.master_ports)} master ports = {cgra.bus_width_bits} "
+          f"bit/cycle)")
+    for spec in (biosignal.HEARTBEAT_ECG, biosignal.SEIZURE_EEG):
+        used = biosignal.AcquisitionSim(spec, n_banks=8).bank_states()
+        for i, u in enumerate(used):
+            platform.power.set_state(f"bank{i}",
+                                     PowerState.ON if u else PowerState.OFF)
+        on = [platform.power.is_active(f"bank{i}") for i in range(8)]
+        assert on == used, (on, used)
+        print(f"{spec.name}: window {spec.window_bytes / 1024:.1f} KiB -> "
+              f"{sum(used)}/8 banks on; acquisition power "
+              f"{E.power_acquisition(2):.0f} uW (paper: 286 uW)")
+
+    # the main path: one CGRA apply, counted
+    ckernel.launches = 0
+    logits_cgra, macs_sz = H.run_seizure(0, impl="cgra")
+    launches = ckernel.launches
+    assert launches == CGRA_LAUNCHES, launches
+    logits_host, _ = H.run_seizure(0, impl="host")
+    assert np.allclose(logits_host, logits_cgra, atol=1e-4), (logits_host,
+                                                             logits_cgra)
+    flags, macs_hb = H.run_heartbeat(0)
+    verdict = "SEIZURE" if logits_cgra[1] > logits_cgra[0] else "normal"
+    print(f"heartbeat classifier: {int(flags.sum())} abnormal beats of "
+          f"{flags.size} ({macs_hb} MACs on host CPU @ "
+          f"{E.power_processing(True) / 1000:.2f} mW)")
+    print(f"seizure CNN ({macs_sz} MACs): host == CGRA within 1e-4 (max abs "
+          f"diff {np.abs(logits_host - logits_cgra).max():.3e}), verdict: "
+          f"{verdict}; {launches} conv1d launches in one CGRA apply")
+
+    # every conv1d call of one CGRA apply against the plain version on its
+    # own inputs (these launches are not the counted run's)
+    errs = []
+
+    def checked(x, w):
+        got = cgra.fn(x, w)
+        errs.append(close_at(got, cref.conv1d(x, w), CONV_TOL["float32"],
+                             CONV_TOL["float32"]))
+        return got
+
+    REGISTRY.register(dataclasses.replace(cgra, fn=checked),
+                      allow_override=True)
+    try:
+        again, _ = H.run_seizure(0, impl="cgra")
+    finally:
+        REGISTRY.register(cgra, allow_override=True)
+    assert len(errs) == CGRA_LAUNCHES and np.array_equal(again, logits_cgra)
+    print(f"every conv1d call of one CGRA apply held to the plain version on "
+          f"its own inputs: {len(errs)} calls, max abs err {max(errs):.3e} "
+          f"(tolerance {CONV_TOL['float32']} + {CONV_TOL['float32']} * "
+          f"|plain|)")
+
+    # the card against the CPU's plain path on the same seeded weights
+    cpu = {impl: H.run_seizure(0, impl=impl, device="cpu")[0]
+           for impl in ("host", "cgra")}
+    err = max(np.abs(logits_host - cpu["host"]).max(),
+              np.abs(logits_cgra - cpu["cgra"]).max())
+    assert err <= 1e-5, (logits_host, logits_cgra, cpu)
+    model = H.HeartbeatModel()
+    ecg = biosignal.ecg_window(biosignal.HEARTBEAT_ECG, seed=0)
+    s0, thr0, sc, thrc = (t.cpu() for t in model._scores(ecg, None, "cuda"))
+    w0, wthr0, wsc, wthrc = model._scores(ecg, None, "cpu")
+    cpu_flags, _ = H.run_heartbeat(0, device="cpu")
+    # a flag is compared where both of its scores clear their thresholds by
+    # more than the two devices' difference in them
+    gap = max((s0 - w0).abs().max().item(), (sc - wsc).abs().max().item(),
+              abs(thr0 - wthr0).item(), abs(thrc - wthrc).item())
+    clear = (((w0 - wthr0).abs() > 2 * gap + 1e-6)
+             & ((wsc - wthrc).abs() > 2 * gap + 1e-6)).numpy()
+    assert np.array_equal(flags[clear], cpu_flags[clear]), (flags, cpu_flags)
+    print(f"card vs the CPU's plain path on the same seeded weights: seizure "
+          f"logits max abs err {err:.3e} (tolerance 1e-5); heartbeat flags "
+          f"equal at all {int(clear.sum())} of {clear.size} beats whose "
+          f"margin clears the devices' score difference {gap:.3e}")
+
+    # wall times of one apply and one classify, synchronised
+    cnn = H.SeizureCNN()
+    params = cnn.init("cuda")
+    eeg = biosignal.eeg_window(biosignal.SEIZURE_EEG, seed=0, seizure=True)
+
+    def wall_ms(fn, n=30):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    host_ms = wall_ms(lambda: cnn.apply(eeg, "host", params))
+    cgra_ms = wall_ms(lambda: cnn.apply(eeg, "cgra", params))
+    classify_ms = wall_ms(lambda: model.classify(ecg))
+    n_prof = 3
+    _, busy_ms, per_apply, kernels = device_profile(
+        torch, lambda: cnn.apply(eeg, "cgra", params), n_prof)
+    conv = [e for e in kernels if "conv1d_causal_kernel" in e.key]
+    conv_us = sum(dev_us(e) for e in conv) / n_prof
+    print(f"healthcare on {card}: seizure CNN apply host {host_ms:.3f} ms, "
+          f"CGRA {cgra_ms:.3f} ms; heartbeat classify {classify_ms:.3f} ms "
+          f"(medians of 30, synchronised); profiled CGRA apply: "
+          f"{per_apply:.0f} launches, device busy {busy_ms:.3f} ms, of it "
+          f"the {CGRA_LAUNCHES} conv1d calls {conv_us / 1e3:.3f} ms")
+
+    # energy story (paper Fig. 6) and race-to-sleep
+    e_cpu = E.conv_energy_uj(on_cgra=False)
+    e_cgra = E.conv_energy_uj(on_cgra=True)
+    assert abs(e_cpu / e_cgra - 4.9) / 4.9 < 0.02, e_cpu / e_cgra
+    print(f"16x16 conv(3x3): host {e_cpu:.3f} uJ vs CGRA {e_cgra:.3f} uJ -> "
+          f"{e_cpu / e_cgra:.1f}x benefit (paper: 4.9x)")
+    for name in list(platform.power.states):
+        if name != "host":
+            platform.power.set_state(name, PowerState.OFF)
+    leak = platform.power.leakage_uw()
+    assert leak == 0.0, leak
+    print(f"post-processing leakage: {leak} uW (accelerators power-gated)")
+    return launches
+
+
 def argmax_tie(torch) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -1650,6 +2041,8 @@ def main() -> int:
         return 1
     from repro_torch.kernels.attention import kernel as fkernel
     from repro_torch.kernels.attention import ref as fref
+    from repro_torch.kernels.conv1d import kernel as ckernel
+    from repro_torch.kernels.conv1d import ref as cref
     from repro_torch.kernels.paged_attention import kernel, ref
     from repro_torch.kernels.rglru import kernel as rkernel
     from repro_torch.kernels.rglru import ref as rref
@@ -1663,7 +2056,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    build_all(kernel, fkernel, rkernel, skernel)
+    build_all(kernel, fkernel, rkernel, skernel, ckernel)
 
     paged = kernel_phase(torch, kernel, ref)
     paged["launches"] = serve_phase(torch, np, kernel, ref, card)
@@ -1691,9 +2084,12 @@ def main() -> int:
     ssd["launches"] = mamba2_serve_phase(torch, np, skernel, sref, card)
     torch.cuda.empty_cache()
     small_mamba2_reference_phase(torch, np)
+    torch.cuda.empty_cache()
+    conv = conv1d_phase(torch, ckernel, cref)
+    conv["launches"] = healthcare_phase(torch, np, ckernel, cref, card)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [paged, fwd, bwd, scan, fwd256, ssd]}))
+    print(json.dumps({"kernels": [paged, fwd, bwd, scan, fwd256, ssd, conv]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,1 @@
-"""Data pipelines of the port (synthetic LM batches)."""
+"""Data pipelines of the port (synthetic LM batches, synthetic biosignals)."""

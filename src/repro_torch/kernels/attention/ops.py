@@ -13,14 +13,20 @@ versions (``ref.py``), any other device raises. There is no fallback from a
 kernel to its plain version. The reference's wrapper pads D to 128 and
 rescales q for the TPU's matrix unit (``ops.py:48-56``); the result it
 matches, ``softmax(q k^T / sqrt(D)) v``, is what both versions compute
-directly. XAIF registration waits for the platform slice of the port.
+directly. :data:`SPEC` registers :func:`flash_attention` with the XAIF
+registry under the impl key ``"cuda"``, with the reference's ports and
+power domain (``src/repro/kernels/attention/ops.py:64-82``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.power import PowerDomain
+from repro_torch.core.xaif import AcceleratorSpec, PortSpec, register
 from repro_torch.kernels.attention import kernel, ref
+from repro_torch.sharding import axes as lx
+from repro_torch.sharding.params import Axes
 
 
 def _forward(q, k, v, causal, window):
@@ -68,3 +74,24 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal, window)
+
+
+SPEC = AcceleratorSpec(
+    name="flash_attention_cuda",
+    op="attention",
+    impl="cuda",
+    fn=flash_attention,
+    slave_ports=(
+        PortSpec("attn_config", Axes(), direction="slave", dtype="int32"),
+    ),
+    master_ports=(
+        PortSpec("q", Axes(lx.BATCH, lx.SEQ, lx.HEADS, lx.HEAD_DIM)),
+        PortSpec("k", Axes(lx.BATCH, lx.SEQ, lx.KV_HEADS, lx.HEAD_DIM)),
+        PortSpec("v", Axes(lx.BATCH, lx.SEQ, lx.KV_HEADS, lx.HEAD_DIM)),
+        PortSpec("o", Axes(lx.BATCH, lx.SEQ, lx.HEADS, lx.HEAD_DIM)),
+    ),
+    power_domain=PowerDomain("acc_attention", leak_uw=12.0,
+                             active_dyn_uw_mhz=48.0),
+    description="Flash attention CUDA kernels: online softmax over KV tiles",
+)
+register(SPEC, allow_override=True)

@@ -9,13 +9,18 @@ a kernel that does not build or launch raises.
 
 The KV append is plain PyTorch indexing on either device (the JAX package
 computes it as an XLA scatter outside its Pallas kernel too) and writes the
-pool **in place**. XAIF registration of the kernel waits for the platform
-slice of the port.
+pool **in place**. :data:`SPEC` registers :func:`paged_attention` with
+the XAIF registry under the impl key ``"cuda"``, with the reference's
+ports and power domain (``ops.py:78-98``).
 """
 
 from __future__ import annotations
 
+from repro_torch.core.power import PowerDomain
+from repro_torch.core.xaif import AcceleratorSpec, PortSpec, register
 from repro_torch.kernels.paged_attention import kernel, ref
+from repro_torch.sharding import axes as lx
+from repro_torch.sharding.params import Axes
 
 
 def paged_attention(q, k_pool, v_pool, tables, lengths, *,
@@ -51,3 +56,26 @@ def paged_decode_append(q, k_new, v_new, k_pool, v_pool, tables, lengths, *,
                              append_mask)
     o = paged_attention(q, k_pool, v_pool, tables, lengths + 1, window=window)
     return o, k_pool, v_pool
+
+
+SPEC = AcceleratorSpec(
+    name="paged_attention_cuda",
+    op="paged_attention",
+    impl="cuda",
+    fn=paged_attention,
+    slave_ports=(
+        PortSpec("paged_config", Axes(), direction="slave", dtype="int32"),
+    ),
+    master_ports=(
+        PortSpec("q", Axes(lx.DECODE_BATCH, lx.HEADS, lx.HEAD_DIM)),
+        PortSpec("k_pool", Axes(None, lx.CACHE_SEQ, lx.KV_HEADS, lx.HEAD_DIM)),
+        PortSpec("v_pool", Axes(None, lx.CACHE_SEQ, lx.KV_HEADS, lx.HEAD_DIM)),
+        PortSpec("block_table", Axes(lx.DECODE_BATCH, None), dtype="int32"),
+        PortSpec("o", Axes(lx.DECODE_BATCH, lx.HEADS, lx.HEAD_DIM)),
+    ),
+    power_domain=PowerDomain("acc_paged_attention", leak_uw=10.0,
+                             active_dyn_uw_mhz=42.0),
+    description=("Paged decode attention: one block per (slot, KV head), the "
+                 "chain's pages read through the block table, online softmax"),
+)
+register(SPEC, allow_override=True)

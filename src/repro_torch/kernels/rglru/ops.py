@@ -6,15 +6,20 @@ Port of ``src/repro/kernels/rglru/ops.py``. As the reference's wrapper does
 tensors then launch the hand-written kernel
 (:func:`repro_torch.kernels.rglru.kernel.rglru_scan_cuda`), CPU tensors
 take the plain version (``ref.py``), and any other device raises. There is
-no fallback from the kernel to the plain version. XAIF registration waits
-for the platform slice of the port.
+no fallback from the kernel to the plain version. :data:`SPEC` registers
+:func:`rglru` with the XAIF registry under the impl key ``"cuda"``, with
+the reference's ports and power domain (``ops.py:26-39``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.power import PowerDomain
+from repro_torch.core.xaif import AcceleratorSpec, PortSpec, register
 from repro_torch.kernels.rglru import kernel, ref
+from repro_torch.sharding import axes as lx
+from repro_torch.sharding.params import Axes
 
 
 def _scan(a, b):
@@ -34,3 +39,19 @@ def rglru(a: torch.Tensor, b: torch.Tensor,
         b[:, 0] += a[:, 0] * h0.to(b.dtype)
     return _scan(a.to(torch.float32).contiguous(),
                  b.to(torch.float32).contiguous())
+
+
+SPEC = AcceleratorSpec(
+    name="rglru_scan_cuda",
+    op="rglru",
+    impl="cuda",
+    fn=rglru,
+    master_ports=(
+        PortSpec("a", Axes(lx.BATCH, lx.SEQ, lx.RNN_WIDTH)),
+        PortSpec("b", Axes(lx.BATCH, lx.SEQ, lx.RNN_WIDTH)),
+        PortSpec("y", Axes(lx.BATCH, lx.SEQ, lx.RNN_WIDTH)),
+    ),
+    power_domain=PowerDomain("acc_rglru", leak_uw=6.0, active_dyn_uw_mhz=22.0),
+    description="RG-LRU linear scan: one thread per lane, h in a register",
+)
+register(SPEC, allow_override=True)

@@ -6,15 +6,21 @@ hand-written kernel (:func:`repro_torch.kernels.ssd.kernel.ssd_cuda`),
 which reads that layout through strides (the reference transposes to
 head-major for its Pallas kernel); CPU tensors take the plain chunked
 version (:func:`repro_torch.kernels.ssd.ref.ssd_chunked`); any other device
-raises. There is no fallback from the kernel to the plain version. XAIF
-registration waits for the platform slice of the port.
+raises. There is no fallback from the kernel to the plain version.
+:data:`SPEC` registers :func:`ssd` with the XAIF registry under the impl
+key ``"cuda"``, with the reference's ports and power domain
+(``ops.py:36-53``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.power import PowerDomain
+from repro_torch.core.xaif import AcceleratorSpec, PortSpec, register
 from repro_torch.kernels.ssd import kernel, ref
+from repro_torch.sharding import axes as lx
+from repro_torch.sharding.params import Axes
 
 
 def _scan(x, dA, B, C, chunk):
@@ -37,3 +43,23 @@ def ssd(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"the SSD scan runs on cuda or cpu, not {x.device}")
     return _scan(x, dA, B, C, chunk)
+
+
+SPEC = AcceleratorSpec(
+    name="ssd_chunk_scan_cuda",
+    op="ssd",
+    impl="cuda",
+    fn=ssd,
+    slave_ports=(PortSpec("chunk_config", Axes(), direction="slave",
+                          dtype="int32"),),
+    master_ports=(
+        PortSpec("x", Axes(lx.BATCH, lx.SEQ, lx.HEADS, lx.HEAD_DIM)),
+        PortSpec("dA", Axes(lx.BATCH, lx.SEQ, lx.HEADS)),
+        PortSpec("B", Axes(lx.BATCH, lx.SEQ, lx.HEADS, lx.STATE)),
+        PortSpec("C", Axes(lx.BATCH, lx.SEQ, lx.HEADS, lx.STATE)),
+        PortSpec("y", Axes(lx.BATCH, lx.SEQ, lx.HEADS, lx.HEAD_DIM)),
+    ),
+    power_domain=PowerDomain("acc_ssd", leak_uw=9.0, active_dyn_uw_mhz=40.0),
+    description="SSD chunk scan: one block per (b, h) row, state in shared memory",
+)
+register(SPEC, allow_override=True)

@@ -14,7 +14,16 @@ dense transformer greedily on the paged backend with sync dispatch:
   paged-attention kernel on the card;
 * prefix sharing through :class:`~repro_torch.serve.pages.PageTable`:
   admission adopts a resident chain by pointing the block table at its
-  pages (no copy), and a slot publishes each page its prefill completes.
+  pages (no copy), and a slot publishes each page its prefill completes;
+* the platform surface: each slot lives in a memory bank of the engine's
+  :class:`~repro_torch.core.platform.Platform`, woken and clock-gated
+  through the platform's shared bank refcounts; admissions and completions
+  raise the ``serve.admit`` / ``serve.complete`` XAIF interrupt lines; and
+  an :class:`~repro_torch.serve.energy_meter.EnergyMeter` (on by default,
+  as in the reference) charges every step's joules to its requests
+  (``Request.energy_uj``, ``stats()["energy"]``). The meter only observes:
+  a metered engine's tokens, admissions and launches equal an unmetered
+  one's.
 
 :func:`build_serve` is the serve driver's one-device prefill and decode
 (the reference's ``build_sharded_serve`` without a mesh), which serves the
@@ -22,11 +31,10 @@ hybrid and SSM families.
 
 Later slices port the rest of the reference engine: async dispatch, the
 lane backend, tensor parallelism, a shared external pool or page table,
-fault injection, energy metering, platform banks and interrupts, sampled
-requests, dedup claims and mid-flight re-match, sliding-window page
-recycling, and preempt/replay with a request journal. Passing a
-constructor argument of those features with a non-default value raises
-``NotImplementedError``.
+fault injection, sampled requests, dedup claims and mid-flight re-match,
+sliding-window page recycling, and preempt/replay with a request
+journal. Passing a constructor argument of those features with a
+non-default value raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,23 +47,26 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.core.platform import Platform, XHeepConfig
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
+from repro_torch.serve.energy_meter import EnergyMeter
 from repro_torch.serve.paged import PagePool, paged_chunk_fn, paged_step_fn
 from repro_torch.serve.pages import PageTable
 from repro_torch.serve.sampling import SamplingParams, require_greedy
 from repro_torch.sharding.params import tree_leaves
 
 # constructor arguments of the reference engine that later slices port,
-# with the value that leaves each feature off (the reference meters energy
-# by default; the port has no meter yet, so its default is off)
+# with the value that leaves each feature off
 _LATER_SLICES = {
-    "platform": None, "journal": None, "journal_horizon": None,
+    "journal": None, "journal_horizon": None,
     "page_table": None, "pool": None, "async_dispatch": False,
     "lane_batch": None, "device_len": None, "admission_hook": None,
     "reclaim": None, "chaos": None, "mesh": None, "tp_axis": "model",
-    "metered": False, "operating_point": "max", "gate_idle_banks": True,
 }
+
+COMPLETE_LINE = "serve.complete"     # interrupt line raised per finished request
+ADMIT_LINE = "serve.admit"           # raised per slot admission
 
 
 @dataclasses.dataclass
@@ -65,6 +76,8 @@ class Request:
     ``sampling`` ``None`` (or a zero-temperature :class:`SamplingParams`)
     means greedy, the only mode the port serves so far.
     ``first_token_time`` stamps the retire of the first generated token.
+    ``energy_uj`` accumulates the joules a metered engine attributes to the
+    request (prefill/decode work, held KV pages, retention).
     """
 
     id: str
@@ -78,6 +91,7 @@ class Request:
     admit_time: float | None = None
     first_token_time: float | None = None
     finish_time: float | None = None
+    energy_uj: float = 0.0
 
     def __post_init__(self):
         self.prompt = tuple(int(t) for t in self.prompt)
@@ -181,16 +195,26 @@ class ContinuousBatchingEngine:
     ``device=None`` is the card and raises without one; ``params`` must
     already live on the engine's device. The engine is clock-agnostic:
     ``clock`` is any ``() -> float``.
+
+    ``platform`` is the X-HEEP platform whose banks and interrupt lines the
+    engine uses (default: its own ``Platform(XHeepConfig())``, whose banks
+    start clock-gated). ``metered`` (default on, as in the reference) runs
+    an :class:`EnergyMeter` at DVFS point ``operating_point``;
+    ``gate_idle_banks=False`` charges idle banks and the waiting host at
+    full ON power.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int, max_len: int,
-                 device=None, queue_capacity: int | None = None,
+                 device=None, platform: Platform | None = None,
+                 queue_capacity: int | None = None,
                  clock: Callable[[], float] = lambda: 0.0,
                  pad_token: int = 0, prefill_chunk: int = 1,
                  page_size: int | None = None,
                  page_capacity: int | None = None,
                  paged: bool | None = None, namespace: str = "",
-                 name: str | None = None, **later_slices):
+                 name: str | None = None, metered: bool = True,
+                 operating_point: str = "max", gate_idle_banks: bool = True,
+                 **later_slices):
         for arg, value in later_slices.items():
             if arg not in _LATER_SLICES:
                 raise TypeError(f"unexpected keyword argument {arg!r}")
@@ -217,6 +241,8 @@ class ContinuousBatchingEngine:
         self.params = params
         self.n_slots = slots
         self.max_len = max_len
+        owns_platform = platform is None
+        self.platform = platform or Platform(XHeepConfig())
         self.queue_capacity = queue_capacity
         self.clock = clock
         self.pad_token = pad_token
@@ -237,6 +263,7 @@ class ContinuousBatchingEngine:
                 page_size,
                 capacity_pages=(page_capacity if page_capacity is not None
                                 else 16 * slots),
+                platform=self.platform,
                 on_evict=self._pool.release)
         self._pstep = paged_step_fn(cfg)
         self._pchunk = (paged_chunk_fn(cfg, prefill_chunk)
@@ -254,6 +281,22 @@ class ContinuousBatchingEngine:
         self.prompt_tokens_reused = 0
         self.completed: list[Request] = []
         self.rejected = 0
+
+        # energy meter: purely observational joule accounting over the
+        # calibrated HEEPocrates domain model; it reads launch shapes and
+        # page holdings after the fact and never touches tokens or
+        # admission order
+        self._meter = (EnergyMeter(point=operating_point,
+                                   gate_idle_banks=gate_idle_banks)
+                       if metered else None)
+        n_banks = self.platform.config.n_banks
+        self._slot_bank = [f"bank{i % n_banks}" for i in range(slots)]
+        # our own platform: the whole idle bank pool starts gated. A shared
+        # platform's states are left untouched at construction; all
+        # wake/gate transitions go through its shared bank refcounts
+        if owns_platform:
+            for i in range(n_banks):
+                self.platform.power.clock_gate(f"bank{i}")
 
     # -- admission -----------------------------------------------------------
 
@@ -300,6 +343,9 @@ class ContinuousBatchingEngine:
             self.prompt_tokens_reused += match.tokens_matched
         slot.next_token = req.prompt[slot.fed]
         self.slots[i] = slot
+        # shared refcount wakes the bank if idle
+        self.platform.bank_acquire(self._slot_bank[i])
+        self.platform.interrupts.fire(ADMIT_LINE, req)
 
     # -- the engine step ------------------------------------------------------
 
@@ -317,6 +363,9 @@ class ContinuousBatchingEngine:
         prefill completes is publishable). The step's tokens are on the
         host when it returns. Returns False when idle.
         """
+        if self._meter is not None:
+            residents, idle_banks = self._meter_residents()
+            self._meter.tick(self.clock(), residents, idle_banks)
         self._admit()
         if self.active == 0:
             return False
@@ -348,11 +397,19 @@ class ContinuousBatchingEngine:
             self._ensure_pages(slot, slot.fed + int(counts[i]))
 
         nxt = self._launch(toks, counts)
-        emitted, finished = [], []
+        emitted, finished, charges = [], [], []
+        if self._meter is not None:
+            occupied = {self._slot_bank[i]
+                        for i, s in enumerate(self.slots) if s is not None}
+            launch_idle_banks = len(set(self._slot_bank)) - len(occupied)
         for i, slot in enumerate(self.slots):
             if slot is None:
                 continue
             was_prefilling = slot.prefilling
+            if self._meter is not None:
+                charges.append((slot.request,
+                                "prefill" if was_prefilling else "decode",
+                                int(counts[i]), self._page_share(slot)))
             slot.fed += int(counts[i])
             if was_prefilling:
                 self.prompt_tokens_processed += int(counts[i])
@@ -368,6 +425,8 @@ class ContinuousBatchingEngine:
                 # complete once this step's token lands: free the slot now
                 finished.append(slot)
                 self._evict(i)
+        if self._meter is not None:
+            self._meter.charge_step(charges, launch_idle_banks)
         return nxt, emitted, finished
 
     def _launch(self, toks: np.ndarray, counts: np.ndarray) -> torch.Tensor:
@@ -400,6 +459,8 @@ class ContinuousBatchingEngine:
             req = slot.request
             req.finish_time = self.clock()
             self.completed.append(req)
+            # XAIF end-of-computation interrupt, then the per-request handler
+            self.platform.interrupts.fire(COMPLETE_LINE, req)
             if req.on_complete is not None:
                 req.on_complete(req)
 
@@ -445,6 +506,57 @@ class ContinuousBatchingEngine:
         for idx in slot.pages_by_block.values():
             self._pool.release(idx)
         self.slots[i] = None
+        # shared refcount: gates only when no engine holds the bank
+        self.platform.bank_release(self._slot_bank[i])
+
+    @property
+    def _bank_load(self) -> dict[str, int]:
+        """This engine's live slots per bank (the platform refcounts span
+        every holder of the platform)."""
+        load = {b: 0 for b in set(self._slot_bank)}
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                load[self._slot_bank[i]] += 1
+        return load
+
+    # -- energy metering ------------------------------------------------------
+
+    def _page_share(self, slot: _Slot) -> float:
+        """Refcount-weighted KV pages this slot holds: shared-prefix pool
+        pages split their holding energy 1/refcount across their holders
+        (table residency included), as the reference's paged backend
+        charges them."""
+        if slot.pages_by_block:
+            refs = self._pool.refcounts()
+            return sum(1.0 / max(refs.get(idx, 1), 1)
+                       for idx in slot.pages_by_block.values())
+        return float(len(slot.page_keys))
+
+    def _meter_residents(self):
+        """(residents, idle_banks) for the meter's clock tick: every
+        occupied slot with its bank-leak weight (a bank shared by k live
+        slots splits its retention leakage k ways) and page share, plus
+        how many of the engine's banks host no live slot."""
+        load = self._bank_load
+        residents = []
+        for i, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            bank_weight = 1.0 / load[self._slot_bank[i]]
+            residents.append((slot.request, bank_weight,
+                              self._page_share(slot)))
+        idle_banks = sum(1 for n in load.values() if n == 0)
+        return residents, idle_banks
+
+    def set_operating_point(self, name: str) -> None:
+        """Move the engine's energy meter to a named DVFS point (see
+        :data:`repro_torch.core.energy.OPERATING_POINTS`). Accounting only:
+        the engine's tokens stay bit-identical, only the joules-per-token
+        bookkeeping changes."""
+        if self._meter is None:
+            raise ValueError("engine built with metered=False has no "
+                             "operating point to set")
+        self._meter.set_point(name)
 
     # -- convenience ----------------------------------------------------------
 
@@ -465,7 +577,8 @@ class ContinuousBatchingEngine:
         return done
 
     def stats(self) -> dict:
-        """Lifetime counters (monotone), plus page-table and pool stats.
+        """Lifetime counters (monotone), plus the meter's joules (``energy``,
+        when metered) and page-table and pool stats.
 
         ``token_steps`` counts one-token model steps: a chunked launch runs
         one per fed position of its longest lane, so every attention layer
@@ -485,6 +598,8 @@ class ContinuousBatchingEngine:
             "queued": len(self.queue),
             "active": self.active,
         }
+        if self._meter is not None:
+            out["energy"] = self._meter.stats()
         if self.pages is not None:
             out["pages"] = dict(self.pages.stats,
                                 resident=self.pages.resident,

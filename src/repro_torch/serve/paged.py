@@ -140,6 +140,11 @@ class PagePool:
         """Pages available for allocation."""
         return len(self._free)
 
+    def refcounts(self) -> dict[int, int]:
+        """Live page id -> reference count (the energy meter's page shares,
+        tests)."""
+        return {i: int(r) for i, r in enumerate(self._refs) if r > 0}
+
     def in_use_by(self, owner: str | None) -> int:
         """Live pages carrying ``owner``'s tag (alloc-origin accounting: a
         page stays charged to the tenant that allocated it until its final

@@ -1,9 +1,9 @@
 """Paged prefix cache: refcounted KV pages shared across requests.
 
 A copy of ``src/repro/serve/pages.py`` (the reference is free of JAX; the
-port keeps its own copy). The cluster, platform banks and claim registry
-are used by later slices of the port; ``platform=None`` is the setting
-the port's engine uses.
+port keeps its own copy). The port's engine passes its platform, so
+resident pages keep their banks awake as in the reference; the cluster and
+the claim registry are used by later slices of the port.
 
 This module is the host-side page table, the serving rendition of the
 paper's refcounted memory banks. A *page* is the model state after

@@ -191,7 +191,7 @@ def test_later_slices_raise_not_implemented(model):
     kw = {"slots": 2, "max_len": MAX_LEN, "device": "cpu"}
     ContinuousBatchingEngine(cfg, params, async_dispatch=False, tp_axis="model",
                              **kw)                 # defaults are accepted
-    for arg, value in [("async_dispatch", True), ("metered", True),
+    for arg, value in [("async_dispatch", True), ("journal", object()),
                        ("lane_batch", 8), ("chaos", object())]:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ContinuousBatchingEngine(cfg, params, **{arg: value}, **kw)
