@@ -8,7 +8,7 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the paged-attention, flash-attention, RG-LRU scan, SSD
-   chunk-scan and depthwise causal conv1d kernels from
+   chunk-scan, depthwise causal conv1d and grouped-matmul kernels from
    ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, started together;
    reused when already built) and prints the compiler's resource reports;
 3. kernel phase: holds the paged CUDA kernel against its plain PyTorch
@@ -104,9 +104,28 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     ``apply``, each of those calls against the plain version, host == CGRA
     within 1e-4, and the card's logits and clear-margin flags against the
     CPU's plain path; prints the wall times of one ``apply`` and one
-    ``classify``.
+    ``classify``;
+19. gmm phase: the CUDA grouped matmul against its plain version on the
+    reference's cases (float32 at 1e-4, bfloat16 at 5e-2), ragged C, D and
+    F, an input off 16-byte alignment, against float64, and at the four
+    shapes of grok-1's expert FFN (prefill gate/up and down, decode gate/up
+    and down, bf16); timed there against the plain version and
+    ``torch.bmm`` (the yardstick, never called by the port);
+20. moe serve phase: full-width grok-1 cut to 4 of its 64 layers (42.58
+    GB of bf16 weights) through the serve driver
+    ``repro_torch.launch.serve.run`` (batch 8, a 1024-token prompt, 64
+    greedy steps). Checks 12 grouped-matmul and 4 flash-forward launches in
+    the prefill and 12 grouped matmuls in each decode step, holds every
+    grouped-matmul call of a prefill and of one decode step to the plain
+    version, counts the prefill's dropped slots, prints prefill time,
+    decode-step time, tokens/s and peak memory, profiles a prefill and a
+    decode step, and frees the weights;
+21. small MoE reference: the grok and llama4 smoke configs served on the
+    card (through the kernel) and on the CPU's plain path: routing equal
+    on every MoE call, logits and caches at the bf16 bound, clear-margin
+    greedy tokens equal; prints the smallest top-k router margin.
 
-Prints a ``{"kernels": [...]}`` JSON line (seven entries), the card line
+Prints a ``{"kernels": [...]}`` JSON line (eight entries), the card line
 again, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero and prints no result; so does a machine without a card.
@@ -361,12 +380,12 @@ def serve_phase(torch, np, kernel, ref, card: str) -> int:
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.models import registry
     from repro_torch.serve.engine import ContinuousBatchingEngine, Request
-    from repro_torch.sharding.params import cast_tree, count_params, init_tree
+    from repro_torch.sharding.params import count_params, init_tree
 
     cfg = configs.get("granite_3_2b")
     t0 = time.perf_counter()
-    params = cast_tree(init_tree(registry.decls(cfg), SEED, "cuda"),
-                       torch.bfloat16)
+    params = init_tree(registry.decls(cfg), SEED, "cuda",
+                       dtype=torch.bfloat16)
     torch.cuda.synchronize()
     print(f"granite-3-2b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{count_params(params)} parameters in bf16, made on the card in "
@@ -814,7 +833,7 @@ def train_phase(torch, np, fkernel, fref, card: str) -> tuple[int, int]:
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.launch import train as launch_train
     from repro_torch.models import registry, transformer
-    from repro_torch.sharding.params import cast_tree, count_params, init_tree
+    from repro_torch.sharding.params import count_params, init_tree
     from repro_torch.train.trainer import TrainConfig, make_loss_fn
 
     cfg = configs.get("granite_3_2b")
@@ -826,8 +845,8 @@ def train_phase(torch, np, fkernel, fref, card: str) -> tuple[int, int]:
             "--optimizer", "adamw", "--seed", str(SEED)]
     # the launcher's init, loss and first batch, for the control and the
     # before/after loss on one fixed microbatch
-    params = cast_tree(init_tree(registry.decls(cfg), SEED, "cuda"),
-                       torch.bfloat16)
+    params = init_tree(registry.decls(cfg), SEED, "cuda",
+                       dtype=torch.bfloat16)
     assert count_params(params) == n_params == 2_533_531_648
     loss_fn = make_loss_fn(cfg, TrainConfig(optimizer="adamw", lr=lr,
                                             accum=accum))
@@ -1181,10 +1200,11 @@ def flash256_phase(torch, fkernel, fref) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
 
-def counted_serve(launch_serve, argv, counts):
-    """``launch_serve.main(argv)`` with each prefill and decode call
-    recorded as ``(name, launches of each counter during the call)``;
-    ``counts`` is a zero-argument function returning the counters."""
+def counted_serve(launch_serve, serve, counts):
+    """``serve()`` (a call of ``launch_serve.main`` or ``launch_serve.run``)
+    with each prefill and decode call recorded as ``(name, launches of each
+    counter during the call)``; ``counts`` is a zero-argument function
+    returning the counters."""
     import dataclasses
 
     calls = []
@@ -1205,7 +1225,7 @@ def counted_serve(launch_serve, argv, counts):
                                    decode_fn=counted("decode", sv.decode_fn))
 
     with mock.patch.object(launch_serve, "build_serve", counting_build):
-        run = launch_serve.main(argv)
+        run = serve()
     return run, calls
 
 
@@ -1230,8 +1250,9 @@ def hybrid_serve_phase(torch, np, rkernel, rref, fkernel, fref,
     print(f"hybrid serve: python -m repro_torch.launch.serve {' '.join(argv)}",
           flush=True)
     rkernel.launches = fkernel.launches_fwd = 0
-    run, calls = counted_serve(launch_serve, argv, lambda: (
-        rkernel.launches, fkernel.launches_fwd))
+    run, calls = counted_serve(launch_serve, lambda: launch_serve.main(argv),
+                               lambda: (rkernel.launches,
+                                        fkernel.launches_fwd))
     launches = (rkernel.launches, fkernel.launches_fwd)
     cfg = run.cfg
     n_rec = griffin._pattern(cfg).count("rec")
@@ -1332,11 +1353,11 @@ def small_hybrid_reference_phase(torch, np) -> None:
     from repro_torch.kernels.rglru import kernel as rkernel
     from repro_torch.models import griffin, registry
     from repro_torch.serve.engine import build_serve
-    from repro_torch.sharding.params import cast_tree, init_tree, tree_map
+    from repro_torch.sharding.params import init_tree, tree_map
 
     cfg = configs.smoke("recurrentgemma_2b")
     params = griffin.true_fan_in(
-        cast_tree(init_tree(registry.decls(cfg), SEED, "cpu"), torch.bfloat16),
+        init_tree(registry.decls(cfg), SEED, "cpu", dtype=torch.bfloat16),
         cfg)
     params["embed"] = params["embed"] * 10.0
     s, steps, tol = 40, 12, 6e-2
@@ -1541,7 +1562,8 @@ def mamba2_serve_phase(torch, np, skernel, sref, card: str) -> int:
     print(f"mamba2 serve: python -m repro_torch.launch.serve {' '.join(argv)}",
           flush=True)
     skernel.launches = 0
-    run, calls = counted_serve(launch_serve, argv, lambda: (skernel.launches,))
+    run, calls = counted_serve(launch_serve, lambda: launch_serve.main(argv),
+                               lambda: (skernel.launches,))
     launches = skernel.launches
     cfg = run.cfg
     b, steps = M2_SERVE["batch"], M2_SERVE["steps"]
@@ -1640,11 +1662,11 @@ def small_mamba2_reference_phase(torch, np) -> None:
     from repro_torch.kernels.ssd import kernel as skernel
     from repro_torch.models import registry
     from repro_torch.serve.engine import build_serve
-    from repro_torch.sharding.params import cast_tree, init_tree, tree_map
+    from repro_torch.sharding.params import init_tree, tree_map
 
     cfg = configs.smoke("mamba2_370m")
-    params = cast_tree(init_tree(registry.decls(cfg), SEED, "cpu"),
-                       torch.bfloat16)
+    params = init_tree(registry.decls(cfg), SEED, "cpu",
+                       dtype=torch.bfloat16)
     params["embed"] = params["embed"] * 10.0
     s, steps, tol = 37, 12, 6e-2
     rng = np.random.default_rng(SEED)
@@ -2004,6 +2026,347 @@ def healthcare_phase(torch, np, ckernel, cref, card: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Grouped matmul and the MoE family's serving (the serve driver's path)
+# ---------------------------------------------------------------------------
+
+# E, C, D, F (tests/test_kernels.py:137-139), then ragged C, D and F (D or F
+# off a multiple of 8 takes the element-by-element loads)
+GMM_CASES = [(4, 16, 32, 64), (2, 128, 64, 128), (8, 8, 16, 16)]
+GMM_RAGGED = [(3, 37, 45, 77), (1, 1, 1, 1), (2, 200, 64, 136),
+              (2, 130, 300, 129), (1, 300, 8, 8)]
+GMM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}      # tests/test_kernels.py:147
+GROK_LAYERS = 4                  # of grok-1's 64: 42.58 GB of bf16 weights
+GROK_SERVE = {"batch": 8, "prompt_len": 1024, "steps": 64}
+GROK_PARAMS = 21_290_539_008
+# the expert FFN's four grouped-matmul shapes on that path: (label, E, C,
+# D, F); C is the capacity (prefill: 8192 tokens x top-2 x 1.25 / 8
+# experts; decode: min(8, T))
+GMM_PATH = [("prefill gate/up", 8, 2560, 6144, 32768),
+            ("prefill down", 8, 2560, 32768, 6144),
+            ("decode gate/up", 8, 8, 6144, 32768),
+            ("decode down", 8, 8, 32768, 6144)]
+
+
+def gmm_inputs(torch, gen, e, c, d, f, dtype):
+    """x ~ N(0, 1), w ~ N(0, 1 / D) (the fan-in init), drawn in dtype."""
+    x = torch.randn((e, c, d), generator=gen, device="cuda", dtype=dtype)
+    w = torch.randn((e, d, f), generator=gen, device="cuda", dtype=dtype)
+    return x, w.mul_(d ** -0.5)
+
+
+def gmm_bound_ms(e, c, d, f, elt, ops_per_s) -> tuple[float, str, int]:
+    """The least time for one call: each input read and the output written
+    once against ``2 E C D F`` operations at the type's peak."""
+    moved = (e * c * d + e * d * f + e * c * f) * elt
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * e * c * d * f / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", moved
+
+
+def gmm_phase(torch, gkernel, gref) -> dict:
+    """The CUDA grouped matmul against its plain version: the reference's
+    cases in float32 (1e-4) and bf16 (5e-2), ragged C, D and F, an input
+    off 16-byte alignment, float32 against float64, and the four shapes of
+    grok-1's expert FFN (bf16, each held with :func:`close_scaled`); times
+    kernel, plain version and ``torch.bmm`` (the yardstick, never called by
+    the port) at those four shapes. Returns the kernel's JSON entry (no
+    launches), timed at the prefill's gate/up shape."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    for case in GMM_CASES + GMM_RAGGED:
+        for dt in (torch.float32, torch.bfloat16):
+            x, w = gmm_inputs(torch, gen, *case, dt)
+            err = close(gkernel.grouped_matmul_cuda(x, w),
+                        gref.grouped_matmul(x, w), GMM_TOL[str(dt)[6:]])
+            print(f"gmm E,C,D,F={case} {str(dt)[6:]}: max abs err {err:.3e}")
+    # an input whose data starts 2 bytes past a 16-byte boundary
+    x, w = gmm_inputs(torch, gen, 2, 64, 64, 64, torch.bfloat16)
+    xo = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(
+        x.shape)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16 != 0 and xo.is_contiguous()
+    assert torch.equal(gkernel.grouped_matmul_cuda(xo, w),
+                       gkernel.grouped_matmul_cuda(x, w))
+    x, w = gmm_inputs(torch, gen, 4, 96, 1000, 72, torch.float32)
+    want = torch.einsum("ecd,edf->ecf", x.double(), w.double())
+    e_kernel = (gkernel.grouped_matmul_cuda(x, w).double() - want).abs().max().item()
+    e_plain = (gref.grouped_matmul(x, w).double() - want).abs().max().item()
+    assert e_kernel <= GMM_TOL["float32"], e_kernel
+    print(f"gmm against float64 (E 4, C 96, D 1000, F 72, float32): max abs "
+          f"err kernel {e_kernel:.3e}, plain {e_plain:.3e}; an input off "
+          f"16-byte alignment gives the aligned result bit for bit")
+
+    entry = None
+    for label, e, c, d, f in GMM_PATH:
+        x, w = gmm_inputs(torch, gen, e, c, d, f, torch.bfloat16)
+        err = close_scaled(gkernel.grouped_matmul_cuda(x, w),
+                           gref.grouped_matmul(x, w), GMM_TOL["bfloat16"],
+                           GMM_TOL["bfloat16"])
+        torch.cuda.empty_cache()
+        prefill = c > 8
+        inner, reps = (3, 5) if prefill else (10, 11)
+        ms = time_ms(torch, lambda i: gkernel.grouped_matmul_cuda(x, w), 1,
+                     inner=inner, reps=reps)
+        lib_ms = time_ms(torch, lambda i: torch.bmm(x, w), 1, inner=inner,
+                         reps=reps)
+        plain_ms = time_ms(torch, lambda i: gref.grouped_matmul(x, w), 1,
+                           inner=1, reps=3)
+        bound, by, moved = gmm_bound_ms(e, c, d, f, 2, BF16_OPS_PER_S)
+        print(f"gmm at grok-1's {label} shape x ({e}, {c}, {d}) w ({e}, {d}, "
+              f"{f}) bf16: max abs err {err[0]:.3e} (scale {err[1]:.3e}); "
+              f"kernel {ms:.4f} ms ({2 * e * c * d * f / ms / 1e9:.1f} "
+              f"TFLOP/s, {moved / ms / 1e6:.0f} GB/s), plain {plain_ms:.3f} "
+              f"ms, torch.bmm {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"{moved} bytes)", flush=True)
+        if entry is None:
+            entry = {"name": "grouped_matmul", "route": "cuda",
+                     "source": "src/repro_torch/kernels/moe/csrc/"
+                               "grouped_matmul.cu",
+                     "replaces": "src/repro/kernels/moe/kernel.py:38",
+                     "max_abs_err": err[0], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        del x, w
+        torch.cuda.empty_cache()
+    return entry
+
+
+def drops(eidx, n_exp: int, cap: int) -> int:
+    """Slots dropped past the capacity: ``sum_e max(0, count_e - cap)``."""
+    counts = eidx.reshape(-1).bincount(minlength=n_exp)
+    return int((counts - cap).clamp_min(0).sum())
+
+
+def grok_serve_phase(torch, np, gkernel, gref, fkernel, fref,
+                     card: str) -> int:
+    """Full-width grok-1 cut to 4 of its 64 layers, served by the serve
+    driver (``repro_torch.launch.serve.run``): batch 8, a 1024-token
+    prompt, 64 greedy steps, random bf16 weights from the seed. Checks the
+    launch counts of every call (12 grouped matmuls and 4 flash forwards
+    in the prefill, 12 and 0 in each decode step), then holds every
+    grouped-matmul call of a prefill of the same prompts and of one decode
+    step, and every flash forward of that prefill (head dim 128), to the
+    plain version on that call's own inputs, counts the prefill's dropped
+    slots, and profiles a prefill and a decode step.
+    Frees the weights before it returns the run's grouped-matmul launch
+    count."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.moe import ops as moe_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(configs.get("grok_1_314b"), n_layers=GROK_LAYERS)
+    b, s, steps = (GROK_SERVE[k] for k in ("batch", "prompt_len", "steps"))
+    print(f"moe serve: repro_torch.launch.serve.run(grok-1-314b at "
+          f"{GROK_LAYERS} layers, batch {b}, prompt {s}, steps {steps}, seed "
+          f"{SEED})", flush=True)
+    gkernel.launches = fkernel.launches_fwd = 0
+    run, calls = counted_serve(
+        launch_serve, lambda: launch_serve.run(cfg, b, s, steps, seed=SEED),
+        lambda: (gkernel.launches, fkernel.launches_fwd))
+    launches = gkernel.launches
+    per_call = 3 * cfg.n_layers                 # gate, up, down a layer
+    assert cfg.param_count() == GROK_PARAMS, cfg.param_count()
+    assert calls[0] == ("prefill", per_call, cfg.n_layers), calls[0]
+    assert calls[1:] == [("decode", per_call, 0)] * steps, calls[1:4]
+    assert launches == per_call * (1 + steps), launches
+    assert tuple(run.tokens.shape) == (b, steps)
+    assert bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all())
+    assert bool(torch.isfinite(run.logits.float()).all())
+    assert bool(torch.isfinite(run.cache.k.float()).all())
+    assert int(run.cache.pos) == s + steps
+    step_ms = statistics.median(run.decode_s) * 1e3
+    print(f"moe serve on {card}: grok-1-314b at full width, {cfg.n_layers} of "
+          f"its 64 layers (d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"{cfg.moe_experts} experts of d_ff {cfg.d_ff}, top-"
+          f"{cfg.moe_top_k}), {cfg.param_count()} parameters in bf16; "
+          f"prefill {b} x {s} tokens {run.prefill_s:.3f} s "
+          f"({b * s / run.prefill_s:.0f} tokens/s); decode step "
+          f"{step_ms:.3f} ms (median of {steps}; first "
+          f"{run.decode_s[0] * 1e3:.3f} ms), {b * steps / sum(run.decode_s):.1f} "
+          f"tokens/s; peak memory {run.peak_bytes / 1e9:.2f} GB; launches "
+          f"{per_call} grouped matmuls and {cfg.n_layers} flash forwards in "
+          f"the prefill, {per_call} grouped matmuls in each of the {steps} "
+          f"decode steps ({launches} in the run)", flush=True)
+
+    # every grouped-matmul call of a prefill of the same prompts and of one
+    # decode step, and every flash forward of that prefill, against the
+    # plain version on that call's own inputs
+    errs, routes = {"prefill": [], "decode": [], "flash": []}, []
+    real_route, kernel_fwd = L.route, attn_ops._forward
+
+    def recording_route(xt, router, top_k):
+        out = real_route(xt, router, top_k)
+        routes.append(out[2])
+        return out
+
+    def checked(phase):
+        def gmm(x, w):
+            y = gkernel.grouped_matmul_cuda(x, w)
+            errs[phase].append(close_scaled(y, gref.grouped_matmul(x, w),
+                                            GMM_TOL["bfloat16"],
+                                            GMM_TOL["bfloat16"]))
+            return y
+        return gmm
+
+    def checked_fwd(q, k, v, causal, window):
+        o, lse = kernel_fwd(q, k, v, causal, window)
+        wo, wlse = fref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window)
+        errs["flash"].append((
+            close_scaled(o, wo, TOL["bfloat16"], TOL["bfloat16"]),
+            close_scaled(lse, wlse, TOL["float32"], TOL["float32"]),
+            tuple(q.shape), tuple(k.shape)))
+        return o, lse
+
+    sv, params = run.serve, run.params
+    with mock.patch.object(L, "route", recording_route):
+        with mock.patch.object(moe_ops, "grouped_matmul", checked("prefill")), \
+                mock.patch.object(attn_ops, "_forward", checked_fwd):
+            logits, _ = sv.prefill_fn(params, run.prompt)
+        assert bool(torch.isfinite(logits.float()).all())
+        cap = L.capacity(b * s, cfg.moe_top_k, cfg.moe_capacity_factor,
+                         cfg.moe_experts)
+        dropped = [drops(r, cfg.moe_experts, cap) for r in routes]
+        routes.clear()
+        run.cache.pos = run.cache.pos - 1      # rewrite the last position
+        with mock.patch.object(moe_ops, "grouped_matmul", checked("decode")):
+            logits, _ = sv.decode_fn(params, run.cache, run.tokens[:, -1:])
+        assert bool(torch.isfinite(logits.float()).all())
+    assert [len(errs[k]) for k in errs] == [per_call, per_call,
+                                            cfg.n_layers], errs
+    hd = cfg.resolved_head_dim
+    assert all(qs == (b, s, cfg.n_heads, hd) and ks == (b, s, cfg.n_kv_heads, hd)
+               for _, _, qs, ks in errs["flash"]), errs["flash"]
+    span = lambda xs: (f"max abs err {max(e for e, _ in xs):.3e}, scales "
+                       f"{min(sc for _, sc in xs):.3e} to "
+                       f"{max(sc for _, sc in xs):.3e}")
+    print(f"moe serve: every grouped-matmul call held to the plain version "
+          f"on its own inputs (bound {GMM_TOL['bfloat16']} * scale + "
+          f"{GMM_TOL['bfloat16']} * |plain|): prefill {per_call} calls, "
+          f"{span(errs['prefill'])}; one decode step {per_call} calls, "
+          f"{span(errs['decode'])}. Prefill routing: capacity {cap} slots an "
+          f"expert, {sum(dropped)} of {cfg.n_layers * b * s * cfg.moe_top_k} "
+          f"slots dropped (per layer {dropped})", flush=True)
+    flash_o, flash_lse = ([e[i] for e in errs["flash"]] for i in (0, 1))
+    print(f"moe serve: every flash forward of that prefill held to the "
+          f"plain version on its own inputs: {cfg.n_layers} calls at q "
+          f"{errs['flash'][0][2]}, k/v {errs['flash'][0][3]} bf16, o "
+          f"{span(flash_o)} (bound {TOL['bfloat16']} * scale + "
+          f"{TOL['bfloat16']} * |plain|), lse {span(flash_lse)} (bound "
+          f"{TOL['float32']} * scale + {TOL['float32']} * |plain|)",
+          flush=True)
+    del errs
+    moe_profile(torch, run, card)
+    del run, params, sv, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_profile(torch, run, card: str) -> None:
+    """One batch-8 prefill and three decode steps (each rewriting the last
+    position) under ``torch.profiler``: device busy share and the grouped
+    matmul's share of device time."""
+    sv, params = run.serve, run.params
+
+    def step():
+        run.cache.pos = run.cache.pos - 1
+        sv.decode_fn(params, run.cache, run.tokens[:, -1:])
+
+    for name, fn, n in (
+            ("prefill", lambda: sv.prefill_fn(params, run.prompt), 1),
+            ("decode step", step, 3)):
+        fn()
+        wall_ms, busy_ms, launches, kernels = device_profile(torch, fn, n)
+        gmm_ms = sum(dev_us(e) for e in kernels if "gmm_" in e.key) / 1e3 / n
+        top = "; ".join(f"{e.key[:44]} {dev_us(e) / 1e3 / n:.3f} ms x"
+                        f"{e.count // n}" for e in kernels[:5])
+        print(f"moe {name} profile on {card}: wall {wall_ms:.3f} ms (under "
+              f"the profiler), device busy {busy_ms:.3f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} kernel "
+              f"launches; grouped matmul {gmm_ms:.3f} ms "
+              f"({100 * gmm_ms / busy_ms:.1f}% of device time); top device "
+              f"time: {top}", flush=True)
+
+
+def small_moe_reference_phase(torch, np) -> None:
+    """The card's serve path against the CPU's plain path on a small input:
+    the grok and llama4 smoke configs (top-2 of 4 experts; top-1 with a
+    shared expert every second layer), the same bf16 params (attention at
+    its true fan-in and the embedding x 10, as tests/test_torch_moe.py
+    holds the port to JAX), a 24-token prompt and 12 teacher-forced decode
+    steps. Routing equal on every MoE call, logits and caches at the bf16
+    bound, greedy tokens wherever the margin is clear, and the card's
+    prefill and decode went through the kernel."""
+    from repro_torch import configs
+    from repro_torch.kernels.moe import kernel as gkernel
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry, transformer
+    from repro_torch.serve.engine import build_serve
+    from repro_torch.sharding.params import init_tree, tree_map
+
+    s, steps, tol = 24, 12, 6e-2
+    for arch in ("grok_1_314b", "llama4_maverick_400b"):
+        cfg = configs.smoke(arch)
+        params = transformer.true_fan_in(
+            init_tree(registry.decls(cfg), SEED, "cpu", dtype=torch.bfloat16),
+            cfg)
+        params["embed"] = params["embed"] * 10.0
+        rng = np.random.default_rng(SEED)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, s + steps)))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            sv = build_serve(cfg, 2, s + steps, prefill_len=s, device=dev)
+            routes, real_route = [], L.route
+
+            def recording_route(xt, router, top_k):
+                probs, gates, eidx = real_route(xt, router, top_k)
+                routes.append((probs.cpu(), eidx.cpu()))
+                return probs, gates, eidx
+
+            g0 = gkernel.launches
+            with mock.patch.object(L, "route", recording_route):
+                logits, cache = sv.prefill_fn(p, toks[:, :s])
+                seq = [logits.float().cpu()]
+                for t in range(steps):
+                    logits, cache = sv.decode_fn(p, cache,
+                                                 toks[:, s + t:s + t + 1])
+                    seq.append(logits.float().cpu())
+            out[dev] = (torch.stack(seq), cache, routes, gkernel.launches - g0)
+        (want, wcache, wroutes, _), (got, gcache, groutes, launched) = (
+            out["cpu"], out["cuda"])
+        n_moe = sum(transformer._is_moe_layer(cfg, j)
+                    for j in range(cfg.n_layers))
+        assert launched == 3 * n_moe * (1 + steps), launched
+        assert len(groutes) == len(wroutes) == n_moe * (1 + steps)
+        k = cfg.moe_top_k
+        margin = min((pr.sort(-1, descending=True).values[:, k - 1]
+                      - pr.sort(-1, descending=True).values[:, k]).min().item()
+                     for pr, _ in wroutes)
+        same = all(torch.equal(g, w) for (_, g), (_, w) in zip(groutes, wroutes))
+        assert same, "routing differs between the card and the CPU"
+        err = close(got, want, tol)
+        close(gcache.k.cpu(), wcache.k, tol)
+        close(gcache.v.cpu(), wcache.v, tol)
+        top2 = want.topk(2, dim=-1).values
+        clear = top2[..., 0] - top2[..., 1] > 2 * tol * (1 + top2[..., 0].abs())
+        agree = got.argmax(-1)[clear] == want.argmax(-1)[clear]
+        assert bool(agree.all()) and int(clear.sum()) > 0, int(clear.sum())
+        print(f"smoke {cfg.name} on the card (kernel: {launched} grouped "
+              f"matmuls) vs the CPU's plain path: prefill of {s} tokens and "
+              f"{steps} decode steps, routing equal on all {len(groutes)} MoE "
+              f"calls (smallest top-{k} router margin {margin:.3e}), logits "
+              f"max abs err {err:.3e} (tolerance {tol} + {tol} * |plain|), "
+              f"KV caches within it; greedy tokens equal at all "
+              f"{int(clear.sum())} of {clear.numel()} steps with a clear "
+              f"margin", flush=True)
+
+
 def argmax_tie(torch) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -2043,6 +2406,8 @@ def main() -> int:
     from repro_torch.kernels.attention import ref as fref
     from repro_torch.kernels.conv1d import kernel as ckernel
     from repro_torch.kernels.conv1d import ref as cref
+    from repro_torch.kernels.moe import kernel as gkernel
+    from repro_torch.kernels.moe import ref as gref
     from repro_torch.kernels.paged_attention import kernel, ref
     from repro_torch.kernels.rglru import kernel as rkernel
     from repro_torch.kernels.rglru import ref as rref
@@ -2056,7 +2421,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    build_all(kernel, fkernel, rkernel, skernel, ckernel)
+    build_all(kernel, fkernel, rkernel, skernel, ckernel, gkernel)
 
     paged = kernel_phase(torch, kernel, ref)
     paged["launches"] = serve_phase(torch, np, kernel, ref, card)
@@ -2087,9 +2452,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     conv = conv1d_phase(torch, ckernel, cref)
     conv["launches"] = healthcare_phase(torch, np, ckernel, cref, card)
+    torch.cuda.empty_cache()
+    gmm = gmm_phase(torch, gkernel, gref)
+    torch.cuda.empty_cache()
+    gmm["launches"] = grok_serve_phase(torch, np, gkernel, gref, fkernel,
+                                       fref, card)
+    torch.cuda.empty_cache()
+    small_moe_reference_phase(torch, np)
+    torch.cuda.empty_cache()
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [paged, fwd, bwd, scan, fwd256, ssd, conv]}))
+    print(json.dumps({"kernels": [paged, fwd, bwd, scan, fwd256, ssd, conv,
+                                  gmm]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,7 @@ from repro_torch import device as device_mod
 from repro_torch.data.lm import LMDataConfig, LMPipeline
 from repro_torch.models import registry, transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.params import cast_tree, init_tree
+from repro_torch.sharding.params import init_tree
 from repro_torch.train.trainer import TrainConfig, make_train_step
 
 
@@ -80,7 +80,7 @@ def main(argv=None) -> TrainRun:
         vocab=cfg.vocab, seq=args.seq, global_batch=args.global_batch,
         accum=args.accum, seed=args.seed))
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    params = cast_tree(init_tree(registry.decls(cfg), args.seed, dev), dtype)
+    params = init_tree(registry.decls(cfg), args.seed, dev, dtype=dtype)
     if args.init == "true-fan-in":
         params = transformer.true_fan_in(params, cfg)
     opt_state = optimizer.init(params)

@@ -37,8 +37,9 @@ from repro_torch import device as device_mod
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (_attn_decls, _ffn, _project_qkv,
-                                           rescale_attention)
+from repro_torch.models.transformer import (_attn_decls, _attn_out, _ffn,
+                                           _project_qkv, _rope, cache_tail,
+                                           decode_attend, rescale_attention)
 from repro_torch.sharding import axes as lx
 from repro_torch.sharding.params import Axes, ParamDecl, stack_tree, tree_map
 
@@ -249,11 +250,6 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=BF16)
 
 
-def _rope(cfg: ModelConfig, positions: torch.Tensor):
-    return (L.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
-            if cfg.pos_emb == "rope" else None)
-
-
 def _rec_mix_prefill(x, p, cfg: ModelConfig):
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     y = F.gelu(h @ p["w_y"].to(h.dtype), approximate="tanh")
@@ -270,27 +266,13 @@ def _rec_mix_prefill(x, p, cfg: ModelConfig):
     return x + out, tail, h_fin
 
 
-def _attn_out(x, o, wo):
-    return x + o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
-
-
 def _attn_mix_prefill(x, p, cfg: ModelConfig, rope_cs, win: int):
-    b, s = x.shape[:2]
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     w = {n: p[n].to(h.dtype) for n in ("wq", "wk", "wv", "wo")}
     q, k, v = _project_qkv(h, w, cfg, rope_cs)
     o = L.attention(q, k, v, causal=True, window=cfg.attn_window)
     x = _attn_out(x, o, w["wo"])
-    if s >= win:
-        # position p sits at ring slot p % win
-        slots = torch.arange(s - win, s, device=x.device) % win
-        ck = torch.zeros((b, win, *k.shape[2:]), dtype=BF16, device=x.device)
-        cv = torch.zeros_like(ck)
-        ck[:, slots] = k[:, s - win:].to(BF16)
-        cv[:, slots] = v[:, s - win:].to(BF16)
-    else:
-        ck = F.pad(k.to(BF16), (0, 0, 0, 0, 0, win - s))
-        cv = F.pad(v.to(BF16), (0, 0, 0, 0, 0, win - s))
+    ck, cv = cache_tail(k, v, win, BF16)   # position p at ring slot p % win
     return x, ck, cv
 
 
@@ -348,13 +330,7 @@ def _attn_mix_decode(x, p, cfg: ModelConfig, ck, cv, pos, rope_cs):
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     w = {n: p[n].to(h.dtype) for n in ("wq", "wk", "wv", "wo")}
     q, k, v = _project_qkv(h, w, cfg, rope_cs)
-    win = ck.shape[1]
-    slot = (pos % win).reshape(1).long()
-    ck.index_copy_(1, slot, k.to(ck.dtype))
-    cv.index_copy_(1, slot, v.to(cv.dtype))
-    kv_len = torch.clamp_max(pos + 1, win)
-    o = L.attention_ref(q, ck, cv, causal=False, kv_len=kv_len)
-    return _attn_out(x, o, w["wo"])
+    return _attn_out(x, decode_attend(q, k, v, ck, cv, pos), w["wo"])
 
 
 def decode_step(params, cfg: ModelConfig, cache: GriffinCache,

@@ -1,11 +1,14 @@
 """Shared neural layers, as plain functions on tensors.
 
 Port of ``src/repro/models/layers.py`` for the dense decode and training
-paths and the hybrid family's serving: norms, positional encodings, the
-multi-token attention entry, the four MLP kinds, the depthwise causal
-conv, the LM head, the cross-entropy loss and the naive attention oracle,
-with the reference's dtype boundaries (norm and rope in float32, cast back
-to the input dtype; the loss in float32) and mask constant (``-1e30``).
+paths, the hybrid family's serving and the MoE family's serving: norms,
+positional encodings, the multi-token attention entry, the four MLP kinds,
+the mixture of experts (capacity-grouped dispatch, the expert FFN through
+the grouped-matmul op, the dense oracle), the depthwise causal conv, the
+LM head, the cross-entropy loss and the naive attention oracle, with the
+reference's dtype boundaries (norm and rope in float32, cast back to the
+input dtype; router and combine in float32; the loss in float32) and mask
+constant (``-1e30``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.moe import ops as moe_ops
 from repro_torch.sharding import axes as lx
 from repro_torch.sharding.params import Axes, ParamDecl
 
@@ -156,6 +160,126 @@ def mlp(x: torch.Tensor, p: dict[str, torch.Tensor], kind: str) -> torch.Tensor:
     else:
         raise ValueError(f"unknown mlp kind {kind}")
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: capacity-grouped dispatch
+# ---------------------------------------------------------------------------
+
+
+def moe_decls(d: int, f: int, n_exp: int, kind: str = "swiglu",
+              shared: bool = False) -> dict:
+    def e(shape, ax):
+        return ParamDecl((n_exp, *shape), Axes(lx.EXPERT, *ax), init="fan_in")
+
+    decls: dict = {
+        "router": ParamDecl((d, n_exp), Axes(lx.EMBED, None), init="fan_in"),
+        "w_gate": e((d, f), (lx.EMBED, lx.MLP)),
+        "w_up": e((d, f), (lx.EMBED, lx.MLP)),
+        "w_down": e((f, d), (lx.MLP, lx.EMBED)),
+    }
+    if shared:
+        decls["shared"] = mlp_decls(d, f, kind)
+    return decls
+
+
+def route(xt: torch.Tensor, router: torch.Tensor, top_k: int):
+    """Router of ``moe``: tokens xt (T, d) -> ``(probs (T, E), gates (T, k),
+    experts (T, k))``, in float32 (the router is lifted to float32 whatever
+    its dtype). The top k by a stable descending sort, so equal
+    probabilities take the lower expert first, as ``lax.top_k`` does
+    (``torch.topk`` does not promise an order among ties). Gates are
+    renormalised over the k chosen."""
+    probs = torch.softmax(xt.to(F32) @ router.to(F32), dim=-1)
+    gates, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eidx = gates[:, :top_k], eidx[:, :top_k]
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    return probs, gates, eidx
+
+
+def capacity(t: int, top_k: int, capacity_factor: float, n_exp: int) -> int:
+    """Slots per expert (``layers.py:416-417``): the float share truncated,
+    rounded up to a multiple of 8, at least 8, at most ``t``."""
+    cap = int(max(8, -(-int(t * top_k * capacity_factor / n_exp) // 8) * 8))
+    return min(cap, t)
+
+
+def moe(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
+        capacity_factor: float = 1.25,
+        kind: str = "swiglu") -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> ``(out (B, S, d), aux_loss)`` (``layers.py:396-453``).
+
+    Dispatch is sort-based with a static per-expert capacity: each token's
+    k choices are stably sorted by expert, a slot past the expert's
+    capacity is dropped (it contributes nothing: GShard semantics), and the
+    kept tokens are gathered into an (E, capacity, d) buffer, zero rows in
+    the free slots. The expert FFN runs on that buffer through
+    :func:`repro_torch.kernels.moe.ops.moe_ffn` (three launches of the
+    grouped-matmul kernel on the card), and the outputs are combined
+    back per token in float32, weighted by the renormalised gates. The aux
+    loss is Switch's load-balance term ``E * sum_e f_e * p_e``. Only
+    ``impl="chunked"``'s arithmetic exists here; the op is the kernel on
+    the card, the plain version on the CPU.
+    """
+    b, s, d = x.shape
+    t = b * s
+    dev = x.device
+    xt = x.reshape(t, d)
+    probs, gates, eidx = route(xt, p["router"], top_k)
+
+    me = probs.mean(dim=0)
+    ce = torch.zeros((n_exp,), dtype=F32, device=dev).index_add_(
+        0, eidx.reshape(-1), torch.ones((t * top_k,), dtype=F32, device=dev))
+    aux = n_exp * torch.sum(me * (ce / (t * top_k)))
+
+    cap = capacity(t, top_k, capacity_factor, n_exp)
+    slot_e = eidx.reshape(-1)                          # (T*k,)
+    slot_g = gates.reshape(-1)
+    order = torch.argsort(slot_e, stable=True)         # as jnp.argsort
+    sorted_e = slot_e[order]
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(n_exp, dtype=sorted_e.dtype, device=dev))
+    pos = torch.arange(t * top_k, device=dev) - seg_start[sorted_e]
+    keep = pos < cap
+    dest = sorted_e * cap + pos                        # flat slot id
+    tok = order // top_k                               # token of each slot
+
+    # gather tokens into (E, cap, d); a free slot reads the zero row t.
+    # Dropped slots write to one extra entry, cut off after (the
+    # reference's mode="drop" write at index n_exp * cap)
+    buf = torch.full((n_exp * cap + 1,), t, dtype=torch.long, device=dev)
+    buf[torch.where(keep, dest, n_exp * cap)] = tok
+    xg = torch.cat([xt, xt.new_zeros((1, d))])[buf[:-1]]
+    hg = moe_ops.moe_ffn(xg.reshape(n_exp, cap, d), p, kind)
+
+    slot_out = hg.reshape(n_exp * cap, d)[torch.where(keep, dest, 0)]
+    w = (slot_g[order] * keep).to(F32)[:, None]
+    # at most top_k addends a token, each into zero: the sum is the same in
+    # any order, so index_add_'s atomics on the card stay exact for k <= 2
+    out = torch.zeros((t, d), dtype=F32, device=dev).index_add_(
+        0, tok, slot_out.to(F32) * w)
+    out = out.to(x.dtype).reshape(b, s, d)
+    if "shared" in p:
+        out = out + mlp(x, p["shared"], kind)
+    return out, aux
+
+
+def moe_dense_ref(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
+                  kind: str = "swiglu") -> torch.Tensor:
+    """Oracle: every expert on every token, then mixed by the gates
+    (``layers.py:456-470``). O(E) FLOPs; equals :func:`moe` when no slot is
+    dropped."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    _, gates, eidx = route(xt, p["router"], top_k)
+    full = torch.zeros((t, n_exp), dtype=F32, device=x.device).scatter_(
+        1, eidx, gates)
+    outs = moe_ops.moe_ffn(xt.expand(n_exp, t, d).contiguous(), p, kind)
+    out = torch.einsum("te,etd->td", full, outs.to(F32))
+    if "shared" in p:
+        out = out + mlp(x, p["shared"], kind).reshape(t, d).to(F32)
+    return out.to(x.dtype).reshape(b, s, d)
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from typing import Any, Iterator
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.kernels.moe import ref as moe_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -134,11 +135,7 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens].to(BF16)
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as XLA computes it: ``x * (1 / (1 + exp(-x)))``,
-    each step rounded to x's dtype (``F.silu`` rounds once, so in bf16 it
-    parts from the reference by an ulp in about a third of the values)."""
-    return x * (1 / (1 + torch.exp(-x)))
+_silu = moe_ref.silu   # jax.nn.silu as XLA rounds it in bf16
 
 
 def _mix(x, lp, cfg: ModelConfig):

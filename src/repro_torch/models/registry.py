@@ -1,11 +1,11 @@
 """Family dispatch for the port (port of ``src/repro/models/registry.py``).
 
-The dense and audio families (the decoder-only transformer), the hybrid
-family (Griffin) and the SSM family (Mamba-2) are ported; every other
-family raises ``NotImplementedError`` until its slice lands. The serve
-driver's ``prefill`` / ``decode_step`` / ``cache_init`` serve the hybrid
-and SSM families; the transformer families serve through the paged engine,
-and their lane-backend prefill and decode are later slices (ROADMAP.md).
+The dense, MoE and audio families (the decoder-only transformer), the
+hybrid family (Griffin) and the SSM family (Mamba-2) are ported; every
+other family raises ``NotImplementedError`` until its slice lands. The
+serve driver's ``prefill`` / ``decode_step`` / ``cache_init`` serve the
+dense, MoE, hybrid and SSM families; the paged engine serves the dense
+family. Training (``forward``) is the dense family's only.
 """
 
 from __future__ import annotations
@@ -13,21 +13,19 @@ from __future__ import annotations
 from repro_torch.models import griffin, mamba2, transformer
 from repro_torch.models.config import ModelConfig
 
-_PORTED_FAMILIES = ("dense", "audio")
+_PORTED_FAMILIES = ("dense", "moe", "audio")
 
 # the families the serve driver runs: (model module, its cache class)
-_SERVE = {"hybrid": (griffin, griffin.GriffinCache),
+_SERVE = {"dense": (transformer, transformer.KVCache),
+          "moe": (transformer, transformer.KVCache),
+          "hybrid": (griffin, griffin.GriffinCache),
           "ssm": (mamba2, mamba2.SSMCache)}
 
 # the ROADMAP.md items ("Still to port") that bring each family's serve
 # driver path, for the error a caller sees
 _LATER_SERVE = {
-    "dense": "the transformer families' serve-driver prefill and decode",
-    "audio": "embeds inputs and the transformer families' serve-driver "
-             "prefill and decode",
-    "vlm": "embeds inputs and the transformer families' serve-driver "
-           "prefill and decode",
-    "moe": "the MoE family",
+    "audio": "embeds inputs",
+    "vlm": "embeds inputs",
 }
 
 
@@ -46,8 +44,8 @@ def decls(cfg: ModelConfig):
 
 def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
     """Training forward ``(logits, aux)``; see :func:`transformer.forward`.
-    Dense family only: the audio family's ``embeds`` inputs and the hybrid
-    and SSM families' training are not yet ported."""
+    Dense family only: the audio family's ``embeds`` inputs and the MoE,
+    hybrid and SSM families' training are not yet ported."""
     if cfg.family != "dense":
         raise NotImplementedError(f"{cfg.name} ({cfg.family}): training "
                                   f"forward not yet ported")
@@ -69,23 +67,23 @@ def _serve(cfg: ModelConfig, what: str):
 
 def prefill(params, cfg: ModelConfig, tokens, max_len=None):
     """Batched prefill ``(logits of the last position, cache)``; see
-    :func:`griffin.prefill` and :func:`mamba2.prefill`. Hybrid and SSM
-    families."""
+    :func:`transformer.prefill`, :func:`griffin.prefill` and
+    :func:`mamba2.prefill`. Dense, MoE, hybrid and SSM families."""
     return _serve(cfg, "prefill")[0].prefill(params, cfg, tokens,
                                              max_len=max_len)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens):
     """One token per lane ``(logits, cache)``, the cache written in place;
-    see :func:`griffin.decode_step` and :func:`mamba2.decode_step`. Hybrid
-    and SSM families."""
+    see :func:`transformer.decode_step`, :func:`griffin.decode_step` and
+    :func:`mamba2.decode_step`. Dense, MoE, hybrid and SSM families."""
     return _serve(cfg, "decode_step")[0].decode_step(params, cfg, cache,
                                                      tokens)
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """A zeroed decode cache on ``device`` (``None`` is the card). Hybrid
-    and SSM families."""
+    """A zeroed decode cache on ``device`` (``None`` is the card). Dense,
+    MoE, hybrid and SSM families."""
     return _serve(cfg, "cache_init")[1].init(cfg, batch, max_len,
                                              device=device)
 

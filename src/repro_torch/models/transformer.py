@@ -1,17 +1,31 @@
-"""Decoder-only transformer: the training forward and paged decode.
+"""Decoder-only transformer: the training forward, the serve driver's
+prefill and decode, and paged decode.
 
-Port of ``src/repro/models/transformer.py`` (``decls``, ``forward`` for the
-dense family, ``supports_paged``, ``paged_pool_init``, ``decode_step_paged``
-without tensor parallelism, and the helpers they use). The parameter tree
-keeps the reference's stacked layout, so weights map one to one:
-``blocks[...]["l0"]`` with a leading ``n_super`` axis, ``wq (d,h,hd)``,
-``wk/wv (d,k,hd)``, ``wo (h,hd,d)``. The reference's ``lax.scan`` over that
-axis is a Python loop here, and the KV page pool is written **in place**
-(the reference donates it and returns a new one).
+Port of ``src/repro/models/transformer.py`` (``decls`` with dense and MoE
+superblocks, ``forward`` for the dense family, ``KVCache``, ``prefill`` and
+``decode_step`` for the dense and MoE families, ``supports_paged``,
+``paged_pool_init``, ``decode_step_paged`` without tensor parallelism, and
+the helpers they use). The parameter tree keeps the reference's stacked
+layout, so weights map one to one: ``blocks[...]["l{j}"]`` with a leading
+``n_super`` axis (``moe_interleave`` layers a superblock, the last one MoE),
+``wq (d,h,hd)``, ``wk/wv (d,k,hd)``, ``wo (h,hd,d)``, the experts'
+``w_gate/w_up (E,d,f)`` and ``w_down (E,f,d)``. The reference's
+``lax.scan`` over that axis is a Python loop here, and the KV cache and the
+KV page pool are written **in place** (the reference donates them and
+returns new ones).
+
+Every MoE layer's expert FFN goes through
+:func:`repro_torch.kernels.moe.ops.moe_ffn` (the CUDA grouped-matmul kernel
+on the card), and every prefill attention call through
+:func:`repro_torch.models.layers.attention` (the CUDA flash forward). The
+one-token decode step attends over the cache in plain PyTorch
+(:func:`layers.attention_ref` with ``kv_len``), as the reference does with
+``attention_chunked``, not with a Pallas kernel.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -44,15 +58,24 @@ def _attn_decls(cfg: ModelConfig) -> dict[str, ParamDecl]:
 
 
 def _layer_decls(cfg: ModelConfig, layer_idx: int) -> dict[str, Any]:
+    out: dict[str, Any] = {"attn": _attn_decls(cfg),
+                           "ln_mlp": L.rmsnorm_decl(cfg.d_model)}
     if _is_moe_layer(cfg, layer_idx):
-        raise NotImplementedError("MoE layers are not yet ported")
-    return {"attn": _attn_decls(cfg), "ln_mlp": L.rmsnorm_decl(cfg.d_model),
-            "mlp": L.mlp_decls(cfg.d_model, cfg.d_ff, cfg.mlp_type)}
+        out["moe"] = L.moe_decls(cfg.d_model, cfg.d_ff, cfg.moe_experts,
+                                 cfg.mlp_type, shared=cfg.moe_shared_expert)
+    else:
+        out["mlp"] = L.mlp_decls(cfg.d_model, cfg.d_ff, cfg.mlp_type)
+    return out
+
+
+def _interleave(cfg: ModelConfig) -> int:
+    """Layers a superblock: ``moe_interleave`` for MoE configs, else 1."""
+    return cfg.moe_interleave if cfg.moe_experts >= 2 else 1
 
 
 def decls(cfg: ModelConfig) -> dict[str, Any]:
     """The parameter declaration tree (the reference's layout)."""
-    il = cfg.moe_interleave if cfg.moe_experts >= 2 else 1
+    il = _interleave(cfg)
     if cfg.n_layers % il:
         raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} % interleave {il} != 0")
     superblock = {f"l{j}": _layer_decls(cfg, j) for j in range(il)}
@@ -76,13 +99,12 @@ def true_fan_in(params, cfg: ModelConfig):
     8 times too large, and the gradients grow 5-10x per layer towards the
     input, past bf16's range at depth 40. Returns a new tree (leaves
     multiplied by a Python float, so numpy and torch leaves alike); the
-    other leaves are shared. Dense family only.
+    other leaves are shared. Every layer of a superblock is rescaled (MoE
+    superblocks hold ``moe_interleave`` of them).
     """
-    if cfg.moe_experts >= 2:
-        raise NotImplementedError("MoE layers are not yet ported")
-    layer = dict(params["blocks"]["l0"],
-                 attn=rescale_attention(params["blocks"]["l0"]["attn"], cfg))
-    return dict(params, blocks=dict(params["blocks"], l0=layer))
+    blocks = {name: dict(lp, attn=rescale_attention(lp["attn"], cfg))
+              for name, lp in params["blocks"].items()}
+    return dict(params, blocks=blocks)
 
 
 def rescale_attention(attn: dict, cfg: ModelConfig) -> dict:
@@ -102,8 +124,21 @@ def rescale_attention(attn: dict, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _cast(tree: dict[str, torch.Tensor], dtype) -> dict[str, torch.Tensor]:
-    return {k: v.to(dtype) for k, v in tree.items()}
+def _cast(tree: dict, dtype) -> dict:
+    """Every leaf of a (nested) params dict cast to ``dtype``."""
+    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    """``(cos, sin)`` for :func:`_project_qkv`, or None without rope."""
+    return (L.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+            if cfg.pos_emb == "rope" else None)
+
+
+def _attn_out(x, o, wo):
+    """The residual add of the attention output o (B,S,H,hd) through wo."""
+    return x + o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
 def _project_qkv(h, p, cfg: ModelConfig, rope_cs=None):
@@ -120,8 +155,19 @@ def _project_qkv(h, p, cfg: ModelConfig, rope_cs=None):
     return q, k, v
 
 
-def _ffn(x, lp, cfg: ModelConfig):
+def _ffn(x, lp, cfg: ModelConfig, is_moe: bool = False):
+    """The residual FFN of one layer: the MLP, or for an MoE layer
+    :func:`layers.moe` on weights cast to x's dtype (the router is lifted
+    back to float32 inside, as the reference's is). The MoE aux loss is
+    dropped: the serving paths discard it, as the reference's prefill and
+    decode do, and MoE training is not yet ported."""
     h = L.rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
+    if is_moe:
+        o, _aux = L.moe(h, _cast(lp["moe"], x.dtype),
+                        n_exp=cfg.moe_experts, top_k=cfg.moe_top_k,
+                        capacity_factor=cfg.moe_capacity_factor,
+                        kind=cfg.mlp_type)
+        return x + o
     return x + L.mlp(h, _cast(lp["mlp"], x.dtype), cfg.mlp_type)
 
 
@@ -162,8 +208,7 @@ def _attn_train(x, p, cfg: ModelConfig, rope_cs):
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _project_qkv(h, p, cfg, rope_cs)
     o = L.attention(q, k, v, causal=True, window=cfg.sliding_window)
-    wo = p["wo"]
-    return x + o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return _attn_out(x, o, p["wo"])
 
 
 def _layer_train(x, lp, cfg: ModelConfig, rope_cs):
@@ -195,13 +240,12 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
         positions = torch.arange(tokens.shape[1], device=dev)[None]
     positions = positions.to(dev)
     x = _embed(params, cfg, tokens, positions)
-    rope_cs = (L.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
-               if cfg.pos_emb == "rope" else None)
-    il = cfg.moe_interleave if cfg.moe_experts >= 2 else 1
+    rope_cs = _rope(cfg, positions)
+    il = _interleave(cfg)
     for blk in superblocks(params["blocks"], cfg.n_layers // il):
         for j in range(il):
             if _is_moe_layer(cfg, j):
-                raise NotImplementedError("MoE layers are not yet ported")
+                raise NotImplementedError("MoE training is not yet ported")
             if cfg.remat == "full":
                 x = checkpoint(_layer_train, x, blk[f"l{j}"], cfg, rope_cs,
                                use_reentrant=False)
@@ -212,7 +256,154 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
 
 
 # ---------------------------------------------------------------------------
-# Serving
+# Serving: the serve driver's lane cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Decode state of the serve driver: every layer's K and V in bf16,
+    ``(L, B, S_cache, Kh, Dh)``, and the next position to write. With a
+    sliding window the cache is a ring of ``min(max_len, window)`` slots,
+    position p at slot ``p % S_cache``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor    # () int32
+
+    @staticmethod
+    def cache_len(cfg: ModelConfig, max_len: int) -> int:
+        return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+    @staticmethod
+    def init(cfg: ModelConfig, batch: int, max_len: int,
+             device=None) -> "KVCache":
+        """A zeroed bf16 cache on ``device`` (``None`` is the card)."""
+        dev = device_mod.resolve(device)
+        shape = (cfg.n_layers, batch, KVCache.cache_len(cfg, max_len),
+                 cfg.n_kv_heads, cfg.resolved_head_dim)
+        return KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                       torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _layers(params, cfg: ModelConfig):
+    """``(layer index, is_moe, layer params)`` in model order, each leaf
+    indexed out of the stacked superblock tree."""
+    il = _interleave(cfg)
+    blocks = params["blocks"]
+    for s in range(cfg.n_layers // il):
+        for j in range(il):
+            lp = tree_map(lambda a, s=s: a[s], blocks[f"l{j}"])
+            yield s * il + j, _is_moe_layer(cfg, j), lp
+
+
+def cache_tail(k, v, s_cache: int, dtype=torch.bfloat16):
+    """The cache rows ``(ck, cv)`` (B, s_cache, K, hd) in ``dtype`` that a
+    prefill of S positions leaves: with S >= s_cache its last s_cache rows,
+    position p at slot ``p % s_cache`` (a ring when the cache is a window),
+    else all S rows, zero-padded to s_cache."""
+    b, s = k.shape[:2]
+    if s >= s_cache:
+        slots = torch.arange(s - s_cache, s, device=k.device) % s_cache
+        ck = torch.zeros((b, s_cache, *k.shape[2:]), dtype=dtype,
+                         device=k.device)
+        cv = torch.zeros_like(ck)
+        ck[:, slots] = k[:, s - s_cache:].to(dtype)
+        cv[:, slots] = v[:, s - s_cache:].to(dtype)
+        return ck, cv
+    pad = (0, 0, 0, 0, 0, s_cache - s)
+    return (torch.nn.functional.pad(k.to(dtype), pad),
+            torch.nn.functional.pad(v.to(dtype), pad))
+
+
+def decode_attend(q, k, v, ck, cv, pos):
+    """One position per lane against a cache ck/cv (B, S_cache, K, hd): its
+    k/v land at slot ``pos % S_cache``, **in place**, and q attends over
+    the first ``min(pos + 1, S_cache)`` slots in plain PyTorch
+    (:func:`layers.attention_ref`). Without a window S_cache is max_len and
+    the slot is pos."""
+    s_cache = ck.shape[1]
+    slot = (pos % s_cache).reshape(1).long()
+    ck.index_copy_(1, slot, k.to(ck.dtype))
+    cv.index_copy_(1, slot, v.to(cv.dtype))
+    kv_len = torch.clamp_max(pos + 1, s_cache)
+    return L.attention_ref(q, ck, cv, causal=False, kv_len=kv_len)
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+            max_len: int | None = None) -> tuple[torch.Tensor, KVCache]:
+    """tokens (B, S) -> ``(logits (B, V), cache)``: the logits of the last
+    position, and the cache that :func:`decode_step` continues from
+    (``transformer.py:223-271``).
+
+    Runs where the params are. ``max_len`` (default S) sizes the cache
+    (:meth:`KVCache.cache_len`): a prompt of at least ``S_cache`` positions
+    keeps its last ``S_cache`` K/V rows, position p at slot ``p % S_cache``;
+    a shorter one is zero-padded. Attention is causal (windowed where the
+    config is) through :func:`layers.attention`, the MoE layers' expert
+    FFNs through the grouped-matmul op. The B x S tokens of an MoE layer
+    are routed together, as the reference routes them.
+    """
+    dev = params["embed"].device
+    tokens = tokens.to(dev)
+    s = tokens.shape[1]
+    max_len = max_len or s
+    s_cache = KVCache.cache_len(cfg, max_len)
+    positions = torch.arange(s, device=dev)[None]
+    rope_cs = _rope(cfg, positions)
+    x = _embed(params, cfg, tokens, positions)
+    ks, vs = [], []
+    for _, is_moe, lp in _layers(params, cfg):
+        ap = _cast(lp["attn"], x.dtype)
+        h = L.rmsnorm(x, ap["ln"], cfg.norm_eps)
+        q, k, v = _project_qkv(h, ap, cfg, rope_cs)
+        o = L.attention(q, k, v, causal=True, window=cfg.sliding_window)
+        x = _attn_out(x, o, ap["wo"])
+        x = _ffn(x, lp, cfg, is_moe)
+        ck, cv = cache_tail(k, v, s_cache)
+        ks.append(ck)
+        vs.append(cv)
+    xf = L.rmsnorm(x[:, -1:], params["ln_f"], cfg.norm_eps)
+    logits = L.lm_head(xf, params, cfg)[:, 0]
+    cache = KVCache(torch.stack(ks), torch.stack(vs),
+                    torch.tensor(s, dtype=torch.int32, device=dev))
+    return logits, cache
+
+
+def _attn_decode(x, p, cfg: ModelConfig, ck, cv, pos, rope_cs):
+    """``transformer.py:131-143``: the layer's attention for one position
+    per lane, through :func:`decode_attend`."""
+    h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
+    q, k, v = _project_qkv(h, p, cfg, rope_cs)
+    return _attn_out(x, decode_attend(q, k, v, ck, cv, pos), p["wo"])
+
+
+def decode_step(params, cfg: ModelConfig, cache: KVCache,
+                tokens: torch.Tensor) -> tuple[torch.Tensor, KVCache]:
+    """tokens (B, 1) -> ``(logits (B, V), cache)`` (``transformer.py:
+    380-410``). The cache is written **in place** (the reference returns a
+    new one) and comes back as the same object, its ``pos`` advanced by
+    one. The B tokens of a step are routed together, as the reference
+    routes them."""
+    dev = params["embed"].device
+    tokens = tokens.to(dev)
+    pos = cache.pos
+    positions = pos.reshape(1, 1)
+    rope_cs = _rope(cfg, positions)
+    x = _embed(params, cfg, tokens, positions)
+    for layer, is_moe, lp in _layers(params, cfg):
+        x = _attn_decode(x, _cast(lp["attn"], x.dtype), cfg, cache.k[layer],
+                         cache.v[layer], pos, rope_cs)
+        x = _ffn(x, lp, cfg, is_moe)
+    x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    logits = L.lm_head(x, params, cfg)[:, 0]
+    cache.pos = pos + 1
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Serving: the paged engine
 # ---------------------------------------------------------------------------
 
 
@@ -264,17 +455,16 @@ def decode_step_paged(params, cfg: ModelConfig, pool_k, pool_v, tables,
     tokens = tokens.to(dev)
     positions = lengths[:, None]
     x = _embed(params, cfg, tokens[:, None], positions)
-    rope_cs = (L.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
-               if cfg.pos_emb == "rope" else None)
+    rope_cs = _rope(cfg, positions)
     # the tail rows are the same for every layer: select the lanes once
     rows = paged_ref.tail_rows(tables, lengths, pool_k.shape[2], append_mask)
     attend_len = lengths + 1
-    il = cfg.moe_interleave if cfg.moe_experts >= 2 else 1
+    il = _interleave(cfg)
     blocks = params["blocks"]
     for s in range(cfg.n_layers // il):
         for j in range(il):
             if _is_moe_layer(cfg, j):
-                raise NotImplementedError("MoE layers are not yet ported")
+                raise NotImplementedError("MoE layers have no paged decode")
             lp = blocks[f"l{j}"]
             ap = {k: v[s].to(x.dtype) for k, v in lp["attn"].items()}
             h = L.rmsnorm(x, ap["ln"], cfg.norm_eps)
@@ -285,9 +475,7 @@ def decode_step_paged(params, cfg: ModelConfig, pool_k, pool_v, tables,
             o = paged_ops.paged_attention(q[:, 0].contiguous(), pool_k[layer],
                                           pool_v[layer], tables, attend_len,
                                           window=window)
-            wo = ap["wo"]
-            x = x + (o.reshape(o.shape[0], -1) @ wo.reshape(-1, wo.shape[-1])
-                     )[:, None]
+            x = _attn_out(x, o[:, None], ap["wo"])
             x = _ffn(x, {"ln_mlp": lp["ln_mlp"][s],
                          "mlp": {n: w[s] for n, w in lp["mlp"].items()}}, cfg)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)

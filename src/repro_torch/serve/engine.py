@@ -27,7 +27,9 @@ dense transformer greedily on the paged backend with sync dispatch:
 
 :func:`build_serve` is the serve driver's one-device prefill and decode
 (the reference's ``build_sharded_serve`` without a mesh), which serves the
-hybrid and SSM families.
+dense, MoE, hybrid and SSM families. The engine itself serves only configs
+with a paged decode: MoE configs stay on the driver, as the reference's
+engine serves them only on its lane backend (not yet ported).
 
 Later slices port the rest of the reference engine: async dispatch, the
 lane backend, tensor parallelism, a shared external pool or page table,
@@ -128,8 +130,9 @@ def build_serve(cfg: ModelConfig, batch: int, max_len: int,
 
     The one-device counterpart of the reference's ``build_sharded_serve``
     (``src/repro/serve/engine.py:125-200``): no mesh, rules or FSDP (the
-    tensor-parallel slice of the port). ``device=None`` is the card and
-    raises without one; the params passed to the functions must live there.
+    tensor-parallel slice of the port), for the dense, MoE, hybrid and SSM
+    families. ``device=None`` is the card and raises without one; the
+    params passed to the functions must live there.
     With ``prefill_len`` the prefill checks its tokens are ``(batch,
     prefill_len)``. Families without a serve-driver path raise
     ``NotImplementedError`` from the registry.

@@ -50,6 +50,10 @@ class Axes:
         return Axes(name, *self.dims)
 
 
+# float32 elements drawn at a time (256 MB): the bound on init's transient
+DRAW_CHUNK = 1 << 26
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamDecl:
     """Declaration of a single parameter tensor."""
@@ -64,13 +68,22 @@ class ParamDecl:
         if len(self.shape) != len(self.axes):
             raise ValueError(f"decl rank mismatch: {self.shape} vs {self.axes}")
 
-    def materialize(self, generator: torch.Generator,
-                    device: torch.device) -> torch.Tensor:
-        """Draw this tensor on ``device`` (the generator must live there)."""
+    def materialize(self, generator: torch.Generator, device: torch.device,
+                    dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Draw this tensor on ``device`` (the generator must live there) in
+        ``dtype`` (default the decl's).
+
+        The normal draws are made in float32 and scaled in place, a slice
+        of at most :data:`DRAW_CHUNK` elements of the flattened leaf at a
+        time, each cast into the leaf as it is drawn: the float32 transient
+        is bounded whatever the leaf's size (grok-1's stacked expert leaf
+        ``(4, 8, 6144, 32768)`` is 25.8 GB in float32, 12.9 GB in bf16).
+        """
+        dtype = dtype or self.dtype
         if self.init == "zeros":
-            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+            return torch.zeros(self.shape, dtype=dtype, device=device)
         if self.init == "ones":
-            return torch.ones(self.shape, dtype=self.dtype, device=device)
+            return torch.ones(self.shape, dtype=dtype, device=device)
         if self.init == "normal":
             std = self.scale if self.scale is not None else 0.02
         elif self.init == "fan_in":
@@ -78,9 +91,14 @@ class ParamDecl:
             std = 1.0 / math.sqrt(max(fan_in, 1))
         else:
             raise ValueError(f"unknown init {self.init}")
-        x = torch.randn(self.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (x * std).to(self.dtype)
+        out = torch.empty(self.shape, dtype=dtype, device=device)
+        flat = out.view(-1)
+        for start in range(0, flat.numel(), DRAW_CHUNK):
+            n = min(DRAW_CHUNK, flat.numel() - start)
+            x = torch.randn((n,), generator=generator, dtype=torch.float32,
+                            device=device)
+            flat[start:start + n].copy_(x.mul_(std))
+        return out
 
     def stacked(self, n: int, axis_name: str | None = None) -> "ParamDecl":
         return dataclasses.replace(
@@ -108,8 +126,10 @@ def stack_tree(tree: Any, n: int, axis_name: str | None = None) -> Any:
 
 
 def init_tree(tree: Any, seed: int | torch.Generator,
-              device: torch.device) -> Any:
-    """Materialise a decl tree on ``device``.
+              device: torch.device, dtype: torch.dtype | None = None) -> Any:
+    """Materialise a decl tree on ``device``, every leaf in ``dtype``
+    (default each decl's own), drawn straight in it
+    (:meth:`ParamDecl.materialize`).
 
     Leaves draw in sorted-key order from one ``torch.Generator`` on
     ``device`` (``seed`` may be an int or such a generator). The numbers
@@ -123,15 +143,10 @@ def init_tree(tree: Any, seed: int | torch.Generator,
     else:
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
-    return tree_map(lambda d: d.materialize(gen, device), tree)
+    return tree_map(lambda d: d.materialize(gen, device, dtype), tree)
 
 
 def count_params(tree: Any) -> int:
     """Elements over every leaf (decls or tensors)."""
     return sum(math.prod(leaf.shape) for leaf in tree_leaves(tree))
 
-
-def cast_tree(params: Any, dtype: torch.dtype) -> Any:
-    """Cast every floating-point leaf to ``dtype``."""
-    return tree_map(
-        lambda p: p.to(dtype) if p.is_floating_point() else p, params)

@@ -250,9 +250,8 @@ def test_prefill_scans_once_per_layer_and_decode_never(scan_impl):
     dispatch point on the 2-layer smoke model, whatever ``scan_impl``
     says."""
     cfg = dataclasses.replace(configs.smoke(ARCH), scan_impl=scan_impl)
-    from repro_torch.sharding.params import cast_tree, init_tree
-    params = cast_tree(init_tree(registry.decls(cfg), 0, "cpu"),
-                       torch.bfloat16)
+    from repro_torch.sharding.params import init_tree
+    params = init_tree(registry.decls(cfg), 0, "cpu", dtype=torch.bfloat16)
     calls, real = [], ssd_ops._scan
 
     def counted(*a):

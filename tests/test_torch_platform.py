@@ -426,10 +426,11 @@ def test_rules_waits_for_the_tensor_parallelism_slice():
 
 
 # ---------------------------------------------------------------------------
-# The five ported kernels register under "cuda"
+# The six ported kernels register under "cuda"
 # ---------------------------------------------------------------------------
 
-OPS = ["attention", "paged_attention", "rglru", "ssd", "conv1d"]
+OPS = ["attention", "paged_attention", "rglru", "ssd", "conv1d", "moe_ffn"]
+PACKAGE = {"moe_ffn": "moe"}      # the op's kernel package, where not its name
 
 
 def _ports(ports):
@@ -452,13 +453,16 @@ def test_kernels_register_under_cuda_with_the_references_contracts(op):
     assert _domain(spec.power_domain) == _domain(want.power_domain)
     # fn is the port's device-dispatching wrapper, and registering built
     # and loaded nothing
-    pkg = importlib.import_module(f"repro_torch.kernels.{op}")
+    pkg = importlib.import_module(
+        f"repro_torch.kernels.{PACKAGE.get(op, op)}")
     ops = importlib.import_module(f"{pkg.__name__}.ops")
     assert spec is ops.SPEC and spec.fn.__module__ == ops.__name__
     assert importlib.import_module(f"{pkg.__name__}.kernel")._lib is None
 
 
 def test_registry_holds_exactly_the_five_ops():
+    # the name dates from before the grouped matmul: the registry now holds
+    # six ops, one for each CUDA kernel package (``OPS``)
     import repro_torch.kernels  # noqa: F401
 
     assert xaif.REGISTRY.ops() == sorted(OPS)

@@ -330,13 +330,13 @@ def test_train_launcher_true_fan_in_init(capsys):
     """``--init true-fan-in`` trains from the rescaled attention
     projections: the first step's loss equals the loss function's on
     ``true_fan_in`` of the same seeded init."""
-    from repro_torch.sharding.params import cast_tree, init_tree
+    from repro_torch.sharding.params import init_tree
     argv = ["--smoke", "--device", "cpu", "--steps", "1", "--global-batch",
             "4", "--seq", "32", "--accum", "1", "--seed", "3"]
     run = train_main(argv + ["--init", "true-fan-in"])
     cfg = run.cfg
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    params = cast_tree(init_tree(registry.decls(cfg), 3, "cpu"), dtype)
+    params = init_tree(registry.decls(cfg), 3, "cpu", dtype=dtype)
     scaled = transformer.true_fan_in(params, cfg)
     attn = scaled["blocks"]["l0"]["attn"]
     ref_attn = params["blocks"]["l0"]["attn"]
