@@ -42,10 +42,13 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
 6. checks that ``torch.argmax`` on the card takes the first maximal index;
 7. flash kernel phase: the CUDA flash forward (o and lse) and backward (dq,
    dk, dv) against their plain versions on the reference's attention cases
-   in float32 and bfloat16, against float64 at one small shape, and at
-   granite's training shape (B 2, S 4096, H 32, K 8, D 64, bf16, causal),
-   each tensor at a bound scaled to its size (``close_scaled``); times
-   kernels, plain versions and SDPA forward and backward there;
+   in float32 and bfloat16, on the edges of the bf16 backward's tiles (D 8
+   and 120, ragged S over three tiles, G 4 over five key tiles, a window
+   ending inside a tile, non-causal Sq != Sk), against float64 at one small
+   shape, and at granite's training shape (B 2, S 4096, H 32, K 8, D 64,
+   bf16, causal), each tensor at a bound scaled to its size
+   (``close_scaled``); checks that two backward calls there give the same
+   bits; times kernels, plain versions and SDPA forward and backward there;
 8. train phase: full-width, full-depth granite-3-2b, 4 AdamW steps (lr
    3e-4, global batch 4 in 2 microbatches, seq 4096, remat full) through
    the training entry point ``repro_torch.launch.train`` (``--init
@@ -532,6 +535,13 @@ def dev_us(event) -> float:
             or event.self_cuda_time_total)
 
 
+def kernel_name(key: str) -> str:
+    """A profiler kernel's name without return type, namespace and
+    arguments: ``flash_bwd_dq_mma_kernel<64, 2>``."""
+    name = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0]
+
+
 def device_profile(torch, fn, n: int = 1):
     """Wall ms, device-busy ms and launches per call of ``fn`` under
     ``torch.profiler`` (``n`` calls), and the device kernels by time."""
@@ -651,6 +661,19 @@ ATTN_CASES = [
     (1, 96, 4, 1, 64, None, False),
     (2, 64, 4, 2, 120, None, True),
 ]
+# B, Sq, Sk, H, K, D, window, causal: the edges of the bf16 backward's tiles
+# (64 keys a dK/dV block; 64 query rows a step at D <= 64, 32 at D <= 128;
+# 64 queries a dQ block, 64 keys a step)
+FLASH_EDGES = [
+    (2, 80, 80, 4, 2, 8, None, True),        # D 8 (k depth padded to 16)
+    (1, 200, 200, 4, 2, 120, None, True),    # D 120, S 200: ragged 64 and 32 tiles
+    (2, 200, 200, 4, 2, 64, None, True),     # S over three tiles, ragged
+    (1, 300, 300, 8, 2, 32, None, True),     # G 4 over five key tiles
+    (2, 230, 230, 4, 1, 64, 40, True),       # a window that ends inside a tile
+    (1, 200, 200, 4, 2, 128, 50, True),      # the same at D 128 (32-row steps)
+    (1, 72, 136, 4, 2, 64, None, False),     # non-causal, Sq < Sk
+    (1, 150, 70, 4, 4, 16, None, False),     # non-causal, Sq > Sk
+]
 GRANITE_TRAIN = (2, 4096, 32, 8, 64)      # B, S, H, K, D: granite's training shape
 BF16_OPS_PER_S = 989e12                   # H100 SXM dense bf16 tensor cores
 # the backward's float32 tolerance: the reference's own for gradients of the
@@ -680,10 +703,11 @@ def grouped(torch, fn, q, k, v, *rest, n_out):
     return cat
 
 
-def flash_inputs(torch, gen, b, s, h, kh, d, dtype):
-    mk = lambda n: torch.randn((b, s, n, d), generator=gen,
-                               device="cuda").to(dtype)
-    return mk(h), mk(kh), mk(kh), mk(h)      # q, k, v, do
+def flash_inputs(torch, gen, b, s, h, kh, d, dtype, sk=None):
+    mk = lambda n, rows: torch.randn((b, rows, n, d), generator=gen,
+                                     device="cuda").to(dtype)
+    sk = s if sk is None else sk
+    return mk(h, s), mk(kh, sk), mk(kh, sk), mk(h, s)      # q, k, v, do
 
 
 def flash_check(torch, fkernel, fref, q, k, v, do, causal, window,
@@ -744,6 +768,15 @@ def flash_phase(torch, fkernel, fref) -> list[dict]:
                                name)
             print(f"flash case B,S,H,K,D,window,causal={case} {name}: max abs "
                   f"err {fmt_errs(errs)}")
+    for case in FLASH_EDGES:
+        b, sq, sk, h, kh, d, win, causal = case
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            q, k, v, do = flash_inputs(torch, gen, b, sq, h, kh, d, dt, sk=sk)
+            errs = flash_check(torch, fkernel, fref, q, k, v, do, causal, win,
+                               name)
+            print(f"flash edge B,Sq,Sk,H,K,D,window,causal={case} {name}: max "
+                  f"abs err {fmt_errs(errs)}")
 
     # float64 yardstick at one small shape: both float32 versions against it
     q, k, v, do = flash_inputs(torch, gen, 2, 96, 8, 2, 64, torch.float32)
@@ -769,10 +802,25 @@ def flash_phase(torch, fkernel, fref) -> list[dict]:
           f"tol * |plain|, tol {TOL['bfloat16']}; lse {TOL['float32']} + "
           f"{TOL['float32']} * |plain|)")
     o, lse = fkernel.flash_attention_fwd_cuda(q, k, v, causal=True)
+    # no atomics: the same inputs give the same bits
+    first, second = (fkernel.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                      causal=True)
+                     for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    del first, second
+    print("flash backward at the training shape: two calls give bitwise "
+          "equal dq, dk and dv")
     ms_fwd = time_ms(torch, lambda i: fkernel.flash_attention_fwd_cuda(
         q, k, v, causal=True), 1, inner=3, reps=7)
     ms_bwd = time_ms(torch, lambda i: fkernel.flash_attention_bwd_cuda(
         q, k, v, o, lse, do, causal=True), 1, inner=2, reps=5)
+    _, busy, launches, kernels = device_profile(
+        torch, lambda: fkernel.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                        causal=True), n=3)
+    print(f"flash backward at the training shape, one call under the "
+          f"profiler: {launches:.0f} launches, device {busy:.3f} ms: "
+          + "; ".join(f"{kernel_name(e.key)} {dev_us(e) / e.count / 1e3:.3f} ms"
+                      for e in kernels))
     plain_fwd = time_ms(torch, lambda i: grouped(
         torch, lambda *a: fref.flash_attention_ref(*a, causal=True), q, k, v,
         n_out=2), 1, inner=1, reps=3)

@@ -8,10 +8,11 @@
 //   `_flash_fwd_impl` (src/repro/models/layers.py:116) keeps for the
 //   backward: lse = m + log(max(l, 1e-30)).
 // - flash_attention_bwd: `_flash_bwd` (src/repro/models/layers.py:170), the
-//   pure-JAX custom-VJP backward of the reference's training path. Two
-//   kernels, no atomics, so the result is the same on every run:
-//   a dK/dV kernel and a dQ kernel, both recomputing score tiles from lse.
-//   delta = rowsum(dO * O) comes in from the wrapper.
+//   pure-JAX custom-VJP backward of the reference's training path. A pre-pass
+//   kernel writes delta = rowsum(dO * O) in float32 (`_flash_bwd` computes it
+//   outside its tile loops too, :188); then a dK/dV kernel and a dQ kernel,
+//   both recomputing score tiles from lse. No atomics, so the result is the
+//   same bits on every run.
 //
 // Layout: q, o, dO, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, K, D), all
 // contiguous; lse and delta (B, H, Sq) float32. Query head h reads KV head
@@ -26,10 +27,44 @@
 // dq, dk, dv, each once) are tens of MB. Against 989 TFLOP/s of bf16
 // tensor cores that is 0.139 ms forward and 0.347 ms backward.
 //
-// What this first design does: it is simple and exact, not yet fast. Every
-// product runs in float32 on the CUDA cores (no tensor cores), so it is
-// bound by the CUDA cores' float32 rate and shared-memory traffic, far from
-// the tensor-core bound. A block of 256 threads owns a 64-row tile; tiles
+// The backward by dtype. bfloat16 (the training path) runs on the tensor
+// cores, FlashAttention-2's backward from mma.sync m16n8k16 pieces (bf16 in,
+// float32 accumulators), 4 warps of 16 rows each:
+//   * dK/dV kernel, one block per (64-key tile, b, KV head): K and V stay in
+//     shared memory as bf16; for each of the G = H / K query heads and each
+//     query tile the mask lets reach the key tile, Q and dO tiles (QT rows:
+//     64 at D <= 64, 16 at D <= 128, where dK and dV alone hold 128 float32
+//     a thread) with their lse and delta rows pass through a cp.async double
+//     buffer. Each warp forms, for its 16 keys, S^T = K Q^T, then P^T =
+//     exp(S^T scale - lse) under the mask in float32 registers, splits P^T
+//     into bf16 hi + lo repacked as A fragments in registers, and adds P^T
+//     dO to dV (two mma on each B fragment, dO through ldmatrix.trans); then
+//     dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale with P^T read back from
+//     hi + lo, split the same way, and dK += dS^T Q. Formed in that order,
+//     no two of S^T, P^T, dP^T and dS^T are live at once, so the D 64
+//     instantiation fits 168 registers (3 blocks an SM) with no spill. dK
+//     and dV accumulate in float32 over all G heads.
+//   * dQ kernel, one block per (64-query tile, b, head), heaviest causal
+//     tiles first: Q, dO, lse and delta resident, 64-row K and V tiles
+//     through the double buffer; S and dP again, then dQ += dS K.
+//   Tiles are bf16 rows padded by 8 elements (ldmatrix reads no bank twice),
+//   loaded with 16-byte cp.async, zero past S and past D up to the next
+//   multiple of 16 (the k depth of an mma); each k step's B fragments are
+//   loaded together before their mma. Why hi + lo: one bf16 rounding of P
+//   and dS (FlashAttention-2's) takes all of the gradients' bound at S 4096,
+//   where the first rows' large terms meet a tensor whose scale the many
+//   small late rows set; the split leaves the outputs' own rounding. The
+//   tensor cores do 10 products' worth of mma where the bound counts 5 (S
+//   and dP are formed twice, the three A-operand products run twice). What
+//   bounds it now: mma.sync (not wgmma), 12 warps an SM to hide the chains
+//   of dependent mma, and the elementwise work between the products. Left
+//   for later: wgmma with TMA and a warp-specialised pipeline, and D 256.
+// float32 keeps the CUDA-core kernels below, as does the whole forward.
+//
+// The CUDA-core design (forward, float32 backward) is simple and exact, not
+// fast. Every product runs in float32 on the CUDA cores, so it is bound by
+// the CUDA cores' float32 rate and shared-memory traffic, far from the
+// tensor-core bound. A block of 256 threads owns a 64-row tile; tiles
 // of 64 rows of Q, K, V (and dO) are staged in shared memory as float32,
 // zero-padded to DMAX (64 or 128; the forward also 256) columns, rows
 // strided DMAX + 1 so that the 16 lanes of a half-warp reading 16 rows hit
@@ -461,6 +496,521 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// delta[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d] in float32, one thread
+// a row, the rows in memory order, 16-byte loads (D is a multiple of 8, the
+// rows 16-byte aligned).
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, long long rows, int Sq,
+                       int H, int D) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows) return;
+  const long long bs = i / H;  // row i is (b, s, h)
+  const int h = static_cast<int>(i % H), s = static_cast<int>(bs % Sq);
+  const size_t off = (size_t)i * D;
+  constexpr int kPer = 16 / sizeof(T);
+  const uint4* o4 = reinterpret_cast<const uint4*>(o + off);
+  const uint4* d4 = reinterpret_cast<const uint4*>(dout + off);
+  float acc = 0.f;
+  for (int c = 0; c < D / kPer; ++c) {
+    const uint4 a = o4[c], b = d4[c];
+    const T* ea = reinterpret_cast<const T*>(&a);
+    const T* eb = reinterpret_cast<const T*>(&b);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) acc = fmaf(to_float(eb[j]), to_float(ea[j]), acc);
+  }
+  delta[((size_t)(bs / Sq) * H + h) * Sq + s] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 backward on the tensor cores (mma.sync m16n8k16, float32
+// accumulators); see the header
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaThreads = 128;  // 4 warps of 16 rows
+constexpr int kMmaTile = 64;      // key rows of a dK/dV block, query rows of a
+                                  // dQ block, key rows of a dQ step
+constexpr int kStages = 2;        // steps in each kernel's cp.async ring (a
+                                  // double buffer: deeper rings measured no
+                                  // faster)
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kMmaTile == kTile, "the dQ kernel takes kv_range's query tile");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; bytes past src_bytes (0 or 16) are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// 4 bytes global -> shared; zero-filled when src_bytes is 0
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats -> one bf16x2 register, x0 in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// two floats -> two bf16x2 registers: hi = x cut to bf16 (its top 16
+// bits, x - hi exact in float32) and lo = bf16(x - hi); hi + lo carries x
+// to about 16 bits
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint32_t u0 = __float_as_uint(x0) & 0xffff0000u;
+  const uint32_t u1 = __float_as_uint(x1) & 0xffff0000u;
+  hi = __byte_perm(u0, u1, 0x7632);  // x0's top half low, x1's high
+  lo = pack_bf16(x0 - __uint_as_float(u0), x1 - __uint_as_float(u1));
+}
+
+// Rows [row0, row0 + ROWS) of a (S, stride) row-major bf16 view into
+// dst[ROWS][DMAX + 8], columns [0, round16(D)): zero past S and past D.
+template <int ROWS, int DMAX>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
+                                                int row0, int S, size_t stride,
+                                                int D) {
+  constexpr int LD = DMAX + 8;
+  const int chunks = (D + 15) / 16 * 2;  // of 8 columns
+  for (int i = threadIdx.x; i < ROWS * chunks; i += kMmaThreads) {
+    const int r = i / chunks, c = (i % chunks) * 8;
+    const bool in = row0 + r < S && c < D;
+    cp_async16(dst + r * LD + c, in ? src + (size_t)(row0 + r) * stride + c : src,
+               in ? 16 : 0);
+  }
+}
+
+// Rows [row0, row0 + ROWS) of a (S,) float32 vector; zero past S.
+template <int ROWS>
+__device__ __forceinline__ void load_rows_async(float* dst, const float* src,
+                                                int row0, int S) {
+  for (int r = threadIdx.x; r < ROWS; r += kMmaThreads) {
+    const bool in = row0 + r < S;
+    cp_async4(dst + r, in ? src + row0 + r : src, in ? 4 : 0);
+  }
+}
+
+// The products below load kBatch B fragments (ldmatrix.x4) at a time before
+// their mma, so the loads' latencies overlap one another.
+constexpr int kBatch = 4;
+
+// acc (16 x 8 NT) += A B^T: A the warp's 16 rows at a, B the NT * 8 rows at
+// b, both [rows][DMAX + 8] in shared memory, summed over columns
+// [0, 16 nk16).
+template <int NT, int DMAX>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const bf16* a,
+                                        const bf16* b, int nk16) {
+  constexpr int LD = DMAX + 8, NP = NT / 2, NB = NP < kBatch ? NP : kBatch;
+  static_assert(NP % NB == 0, "whole batches of B fragments");
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk) {
+    if (kk < nk16) {
+      uint32_t af[4];
+      ldmatrix_x4(af, a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int p0 = 0; p0 < NP; p0 += NB) {
+        // (rows 0-7 | 8-15 of pair p) x (k 0-7 | 8-15): b0, b1 of each n8
+        // tile
+        uint32_t bf[NB][4];
+#pragma unroll
+        for (int p = 0; p < NB; ++p)
+          ldmatrix_x4(bf[p], b + ((p0 + p) * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                                 kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int p = 0; p < NB; ++p) {
+          mma_bf16(acc[2 * (p0 + p)], af, bf[p][0], bf[p][1]);
+          mma_bf16(acc[2 * (p0 + p) + 1], af, bf[p][2], bf[p][3]);
+        }
+      }
+    }
+  }
+}
+
+// acc (16 x DMAX) += A B: A (16 x 16 NK) as bf16 A fragments hi + lo (two
+// products on each B fragment), B the 16 NK rows at b ([rows][DMAX + 8],
+// row-major, so through ldmatrix.trans), columns [0, 16 nd16).
+template <int NK, int DMAX>
+__device__ __forceinline__ void mma_ab(float (&acc)[DMAX / 8][4],
+                                       const uint32_t (&hi)[NK][4],
+                                       const uint32_t (&lo)[NK][4],
+                                       const bf16* b, int nd16) {
+  constexpr int LD = DMAX + 8, NP = DMAX / 16;
+  static_assert(NP % kBatch == 0, "whole batches of B fragments");
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+    for (int p0 = 0; p0 < NP; p0 += kBatch) {
+      if (p0 < nd16) {
+        uint32_t bf[kBatch][4];
+#pragma unroll
+        for (int p = 0; p < kBatch; ++p)
+          if (p0 + p < nd16)
+            ldmatrix_x4_trans(bf[p], b + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                         (p0 + p) * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int p = 0; p < kBatch; ++p) {
+          if (p0 + p < nd16) {
+            mma_bf16(acc[2 * (p0 + p)], hi[kk], bf[p][0], bf[p][1]);
+            mma_bf16(acc[2 * (p0 + p)], lo[kk], bf[p][0], bf[p][1]);
+            mma_bf16(acc[2 * (p0 + p) + 1], hi[kk], bf[p][2], bf[p][3]);
+            mma_bf16(acc[2 * (p0 + p) + 1], lo[kk], bf[p][2], bf[p][3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Accumulator fragments (16 x 16 NK: n8 tiles 2kk, 2kk + 1) split into bf16
+// hi + lo and repacked as the A fragments of the next product, in
+// registers: the C layout's (row g | g + 8, columns 2t, 2t + 1) is the A
+// layout's. Why hi + lo rather than one rounding: see the header.
+template <int NK>
+__device__ __forceinline__ void to_a_frags(uint32_t (&hi)[NK][4],
+                                           uint32_t (&lo)[NK][4],
+                                           const float (&c)[2 * NK][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float* x = c[2 * kk + (r >> 1)] + 2 * (r & 1);
+      split_bf16(x[0], x[1], hi[kk][r], lo[kk][r]);
+    }
+  }
+}
+
+// dS^T = P^T (dP^T - delta) scale in place of dP^T (fragment c), P^T read
+// back from its hi + lo A fragments (to about 16 bits), delta by query
+// column (dl).
+template <int NK>
+__device__ __forceinline__ void ds_from_p(float (&c)[2 * NK][4],
+                                          const uint32_t (&hi)[NK][4],
+                                          const uint32_t (&lo)[NK][4],
+                                          const float* dl, float scale) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float* x = c[2 * kk + (r >> 1)] + 2 * (r & 1);
+      const int qc = (2 * kk + (r >> 1)) * 8 + 2 * t;
+      const float p0 = __uint_as_float(hi[kk][r] << 16) + __uint_as_float(lo[kk][r] << 16);
+      const float p1 = __uint_as_float(hi[kk][r] & 0xffff0000u) +
+                       __uint_as_float(lo[kk][r] & 0xffff0000u);
+      x[0] = p0 * (x[0] - dl[qc]) * scale;
+      x[1] = p1 * (x[1] - dl[qc + 1]) * scale;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
+}
+
+// Store a warp's (16 x D) float32 accumulator as bf16 rows row0 + r (r < 16,
+// rows past S skipped) of a view with row stride `stride`.
+template <int DT>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DT][4],
+                                           int row0, int S, size_t stride,
+                                           int D) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < DT; ++nt) {
+    if (nt < D / 8) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = row0 + g + hf * 8;
+        if (row < S)
+          *reinterpret_cast<uint32_t*>(dst + (size_t)row * stride + nt * 8 + 2 * t) =
+              pack_bf16(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// Whether every (query, key) pair of a tile is visible (no mask to apply).
+__device__ __forceinline__ bool tile_visible(int q0, int qrows, int k0,
+                                             int krows, int Sq, int Sk,
+                                             int causal, int window) {
+  return q0 + qrows <= Sq && k0 + krows <= Sk &&
+         (!causal || q0 >= k0 + krows - 1) &&
+         (window <= 0 || q0 + qrows - 1 - k0 < window);
+}
+
+// One dK/dV step's Q and dO rows [q0, q0 + QT) of head h, with their lse
+// and delta, into buffer `buf`.
+template <int DMAX, int QT>
+__device__ __forceinline__ void load_q_step(
+    bf16* Qs, bf16* dOs, float* lse_s, float* dl_s, int buf,
+    const bf16* __restrict__ q, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta, int b,
+    int h, int q0, int Sq, int H, int D) {
+  constexpr int LD = DMAX + 8;
+  const size_t head = ((size_t)b * Sq * H + h) * D, row = ((size_t)b * H + h) * Sq;
+  load_tile_async<QT, DMAX>(Qs + buf * QT * LD, q + head, q0, Sq, (size_t)H * D, D);
+  load_tile_async<QT, DMAX>(dOs + buf * QT * LD, dout + head, q0, Sq, (size_t)H * D, D);
+  load_rows_async<QT>(lse_s + buf * QT, lse + row, q0, Sq);
+  load_rows_async<QT>(dl_s + buf * QT, delta + row, q0, Sq);
+}
+
+// dK, dV. grid: x = 64-key tiles, y = B * K. block: kMmaThreads; warp w owns
+// keys k0 + 16 w .. + 16. QT query rows a step.
+template <int DMAX, int QT>
+__global__ void __launch_bounds__(kMmaThreads, DMAX == 64 ? 3 : 1)  // 168 registers
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int Sq, int Sk, int H, int K,
+                          int D, int causal, int window, float scale) {
+  constexpr int LD = DMAX + 8, NT = QT / 8, NK = QT / 16, DT = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kMmaTile * LD;
+  bf16* Qs = Vs + kMmaTile * LD;       // [kStages][QT][LD]
+  bf16* dOs = Qs + kStages * QT * LD;  // [kStages][QT][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + kStages * QT * LD);  // [kStages][QT]
+  float* dl_s = lse_s + kStages * QT;  // [kStages][QT]
+
+  const int k0 = blockIdx.x * kMmaTile;
+  const int b = blockIdx.y / K, kh = blockIdx.y % K, G = H / K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t kv_stride = (size_t)K * D, kv_base = ((size_t)b * Sk * K + kh) * D;
+  const int n16 = (D + 15) / 16;
+
+  load_tile_async<kMmaTile, DMAX>(Ks, k + kv_base, k0, Sk, kv_stride, D);
+  load_tile_async<kMmaTile, DMAX>(Vs, v + kv_base, k0, Sk, kv_stride, D);
+
+  // the queries that can see a key of this tile: [q_lo, q_hi); steps of QT
+  // rows from q_first, for each of the G heads in turn
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(Sq, k0 + kMmaTile - 1 + window) : Sq;
+  const int q_first = (q_lo / QT) * QT;
+  const int n_q = q_hi > q_first ? (q_hi - q_first + QT - 1) / QT : 0;
+  const int n_it = G * n_q;
+  // the ring's first kStages - 1 steps (the first group also holds K and V)
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_it)
+      load_q_step<DMAX, QT>(Qs, dOs, lse_s, dl_s, st, q, dout, lse, delta, b,
+                            kh * G + st / n_q, q_first + (st % n_q) * QT, Sq,
+                            H, D);
+    cp_async_commit();
+  }
+
+  float dka[DT][4], dva[DT][4];
+  zero(dka);
+  zero(dva);
+  const int kw = k0 + warp * 16;  // this warp's first key
+  const float scale_l2 = scale * kLog2e;
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<kStages - 2>();  // step it has landed
+    __syncthreads();              // ... for every thread; and the stage
+                                  // refilled next was read last step
+    const int nx = it + kStages - 1;
+    if (nx < n_it)
+      load_q_step<DMAX, QT>(Qs, dOs, lse_s, dl_s, nx % kStages, q, dout, lse,
+                            delta, b, kh * G + nx / n_q,
+                            q_first + (nx % n_q) * QT, Sq, H, D);
+    cp_async_commit();
+    const int buf = it % kStages, q0 = q_first + (it % n_q) * QT;
+    const bf16* Qb = Qs + buf * QT * LD;
+    const bf16* dOb = dOs + buf * QT * LD;
+    const float* lse_b = lse_s + buf * QT;
+    const float* dl_b = dl_s + buf * QT;
+
+    // S^T, P^T, dP^T and dS^T (rows the warp's keys g, g + 8, columns
+    // queries) in turn, so that no two are live at once
+    const bool all = tile_visible(q0, QT, k0, kMmaTile, Sq, Sk, causal, window);
+    float x[NT][4];
+    uint32_t hi[NK][4], lo[NK][4];
+    zero(x);
+    mma_abt<NT, DMAX>(x, Ks + warp * 16 * LD, Qb, n16);  // S^T = K Q^T
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = j * 8 + 2 * t + (e & 1);
+        x[j][e] = all || visible(q0 + qc, kw + g + (e >> 1) * 8, Sq, Sk,
+                                 causal, window)
+                      ? exp2f(fmaf(x[j][e], scale_l2, -lse_b[qc] * kLog2e))
+                      : 0.f;
+      }
+    }
+    to_a_frags(hi, lo, x);                    // P^T as hi + lo
+    mma_ab<NK, DMAX>(dva, hi, lo, dOb, n16);  // dV += P^T dO
+    zero(x);
+    mma_abt<NT, DMAX>(x, Vs + warp * 16 * LD, dOb, n16);  // dP^T = V dO^T
+    ds_from_p(x, hi, lo, dl_b, scale);        // dS^T = P^T (dP^T - delta) scale
+    to_a_frags(hi, lo, x);
+    mma_ab<NK, DMAX>(dka, hi, lo, Qb, n16);   // dK += dS^T Q
+  }
+  cp_async_wait<0>();
+
+  store_rows(dk + kv_base, dka, kw, Sk, kv_stride, D);
+  store_rows(dv + kv_base, dva, kw, Sk, kv_stride, D);
+}
+
+// dQ. grid: x = 64-query tiles (heaviest causal first), y = B * H. block:
+// kMmaThreads; warp w owns queries q0 + 16 w .. + 16.
+template <int DMAX>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq,
+                        int Sq, int Sk, int H, int K, int D, int causal,
+                        int window, float scale) {
+  constexpr int LD = DMAX + 8, KT = kMmaTile, NT = KT / 8, NK = KT / 16,
+                DT = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + kMmaTile * LD;
+  bf16* Ks = dOs + kMmaTile * LD;     // [kStages][KT][LD]
+  bf16* Vs = Ks + kStages * KT * LD;  // [kStages][KT][LD]
+
+  const int n_qt = (Sq + kMmaTile - 1) / kMmaTile;
+  const int q0 = (n_qt - 1 - blockIdx.x) * kMmaTile;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / (H / K);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)K * D;
+  const int n16 = (D + 15) / 16;
+  const size_t q_head = ((size_t)b * Sq * H + h) * D;
+  const bf16* kb = k + ((size_t)b * Sk * K + kh) * D;
+  const bf16* vb = v + ((size_t)b * Sk * K + kh) * D;
+
+  load_tile_async<kMmaTile, DMAX>(Qs, q + q_head, q0, Sq, q_stride, D);
+  load_tile_async<kMmaTile, DMAX>(dOs, dout + q_head, q0, Sq, q_stride, D);
+
+  // lse and delta of this thread's two query rows (g, g + 8 of the warp's)
+  const int qw = q0 + warp * 16;
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = qw + g + hf * 8;
+    const size_t at = ((size_t)b * H + h) * Sq + row;
+    lse_r[hf] = row < Sq ? lse[at] * kLog2e : 0.f;  // in base 2
+    dl_r[hf] = row < Sq ? delta[at] : 0.f;
+  }
+  const float scale_l2 = scale * kLog2e;
+
+  int k_lo, k_hi;
+  kv_range(q0, Sq, Sk, causal, window, &k_lo, &k_hi);
+  const int k_first = (k_lo / KT) * KT;
+  const int n_it = k_hi > k_first ? (k_hi - k_first + KT - 1) / KT : 0;
+  // the ring's first kStages - 1 steps (the first group also holds Q and dO)
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_it) {
+      load_tile_async<KT, DMAX>(Ks + st * KT * LD, kb, k_first + st * KT, Sk,
+                                kv_stride, D);
+      load_tile_async<KT, DMAX>(Vs + st * KT * LD, vb, k_first + st * KT, Sk,
+                                kv_stride, D);
+    }
+    cp_async_commit();
+  }
+
+  float dqa[DT][4];
+  zero(dqa);
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<kStages - 2>();  // step it has landed
+    __syncthreads();              // ... for every thread; and the stage
+                                  // refilled next was read last step
+    const int nx = it + kStages - 1;
+    if (nx < n_it) {
+      const int nb = nx % kStages, nk0 = k_first + nx * KT;
+      load_tile_async<KT, DMAX>(Ks + nb * KT * LD, kb, nk0, Sk, kv_stride, D);
+      load_tile_async<KT, DMAX>(Vs + nb * KT * LD, vb, nk0, Sk, kv_stride, D);
+    }
+    cp_async_commit();
+    const int buf = it % kStages, kt0 = k_first + it * KT;
+    const bf16* Kb = Ks + buf * KT * LD;
+    const bf16* Vb = Vs + buf * KT * LD;
+
+    // S and dP: rows the warp's queries (g, g + 8), columns keys
+    float s[NT][4], dp[NT][4];
+    zero(s);
+    zero(dp);
+    mma_abt<NT, DMAX>(s, Qs + warp * 16 * LD, Kb, n16);
+    mma_abt<NT, DMAX>(dp, dOs + warp * 16 * LD, Vb, n16);
+    const bool all = tile_visible(q0, kMmaTile, kt0, KT, Sq, Sk, causal, window);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        const int kpos = kt0 + j * 8 + 2 * t + (e & 1);
+        const float p =
+            all || visible(qw + g + hf * 8, kpos, Sq, Sk, causal, window)
+                ? exp2f(fmaf(s[j][e], scale_l2, -lse_r[hf]))
+                : 0.f;
+        dp[j][e] = p * (dp[j][e] - dl_r[hf]) * scale;
+      }
+    }
+    uint32_t hi[NK][4], lo[NK][4];
+    to_a_frags(hi, lo, dp);
+    mma_ab<NK, DMAX>(dqa, hi, lo, Kb, n16);  // dQ += dS K
+  }
+  cp_async_wait<0>();
+
+  store_rows(dq + q_head, dqa, qw, Sq, q_stride, D);
+}
+
 template <typename F>
 cudaError_t set_smem(F* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -515,6 +1065,53 @@ cudaError_t bwd_typed(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int DMAX, int QT>
+cudaError_t bwd_mma(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
+                    int K, int D, int causal, int window, float scale,
+                    cudaStream_t stream) {
+  const bf16* tq = static_cast<const bf16*>(q);
+  const bf16* tk = static_cast<const bf16*>(k);
+  const bf16* tv = static_cast<const bf16*>(v);
+  const bf16* tdo = static_cast<const bf16*>(dout);
+  constexpr int LD = DMAX + 8;
+  // K, V; Q and dO, lse and delta in each stage
+  constexpr size_t smem_kv = sizeof(bf16) * (2 * kMmaTile + 2 * kStages * QT) * LD +
+                             sizeof(float) * 2 * kStages * QT;
+  cudaError_t err = set_smem(flash_bwd_dkdv_mma_kernel<DMAX, QT>, smem_kv);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_mma_kernel<DMAX, QT>
+      <<<dim3((Sk + kMmaTile - 1) / kMmaTile, B * K), kMmaThreads, smem_kv, stream>>>(
+          tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), Sq, Sk, H, K, D, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // Q, dO; K and V in each stage
+  constexpr size_t smem_q = sizeof(bf16) * (2 + 2 * kStages) * kMmaTile * LD;
+  err = set_smem(flash_bwd_dq_mma_kernel<DMAX>, smem_q);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_mma_kernel<DMAX>
+      <<<dim3((Sq + kMmaTile - 1) / kMmaTile, B * H), kMmaThreads, smem_q, stream>>>(
+          tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), Sq, Sk, H, K, D,
+          causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t delta_typed(const void* o, const void* dout, float* delta, int B,
+                        int Sq, int H, int D, cudaStream_t stream) {
+  const long long rows = (long long)B * H * Sq;
+  flash_bwd_delta_kernel<T><<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, Sq, H,
+      D);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // d_max: 256 for the forward, 128 for the backward
 bool bad_args(int B, int Sq, int Sk, int H, int K, int D, int dtype,
               int d_max) {
@@ -556,24 +1153,31 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
+// delta (B, H, Sq) float32 is written here (rowsum(dO * O)), then read by
+// the dK/dV and dQ kernels. q, k, v, o and dout must be 16-byte aligned.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
-                                   const void* dout, const void* lse,
-                                   const void* delta, void* dq, void* dk,
-                                   void* dv, int B, int Sq, int Sk, int H,
-                                   int K, int D, int causal, int window,
+                                   const void* o, const void* dout,
+                                   const void* lse, void* delta, void* dq,
+                                   void* dk, void* dv, int B, int Sq, int Sk,
+                                   int H, int K, int D, int causal, int window,
                                    float scale, int dtype, void* stream) {
   if (bad_args(B, Sq, Sk, H, K, D, dtype, 128)) return -1;
+  const void* tensors[] = {q, k, v, o, dout};
+  for (const void* p : tensors)
+    if (!aligned16(p)) return -1;
   const auto s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
+  float* dl = static_cast<float*>(delta);
   const int w = window > 0 ? window : 0;
-  cudaError_t err;
-  if (dtype == 0)
+  cudaError_t err = dtype == 0 ? delta_typed<float>(o, dout, dl, B, Sq, H, D, s)
+                               : delta_typed<bf16>(o, dout, dl, B, Sq, H, D, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype == 0)  // float32: the CUDA-core kernels
     err = D <= 64 ? bwd_typed<float, 64>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
                   : bwd_typed<float, 128>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s);
-  else
-    err = D <= 64 ? bwd_typed<__nv_bfloat16, 64>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
-                  : bwd_typed<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s);
+  else  // bfloat16: the tensor cores
+    err = D <= 64 ? bwd_mma<64, 64>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
+                  : bwd_mma<128, 16>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s);
   return static_cast<int>(err);
 }
 

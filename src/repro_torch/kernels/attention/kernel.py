@@ -3,9 +3,13 @@
 Replaces the Pallas TPU kernel ``flash_attention_hm``
 (``src/repro/kernels/attention/kernel.py:69``) with a CUDA forward that also
 writes the log-sum-exp, and the reference's pure-JAX backward ``_flash_bwd``
-(``src/repro/models/layers.py:170``) with a CUDA dK/dV kernel and a CUDA dQ
-kernel. The source is ``csrc/flash_attention.cu`` (its header gives the
-design and what bounds it). It is built with ``nvcc`` for ``sm_90a`` on first
+(``src/repro/models/layers.py:170``) with a CUDA pre-pass for ``delta =
+rowsum(do * o)`` (``flash_bwd_delta_kernel``), then a dK/dV kernel and a dQ
+kernel: for bfloat16 on the tensor cores (``flash_bwd_dkdv_mma_kernel``,
+``flash_bwd_dq_mma_kernel``: bf16 ``mma.sync`` with float32 accumulators),
+for float32 on the CUDA cores (``flash_bwd_dkdv_kernel``,
+``flash_bwd_dq_kernel``). The source is ``csrc/flash_attention.cu`` (its
+header gives the design and what bounds it). It is built with ``nvcc`` for ``sm_90a`` on first
 use into the ``build/`` directory beside this file (ignored by git) by
 :mod:`repro_torch.kernels.build`, and bound with ``ctypes``. Nothing is
 built or loaded when this module is imported.
@@ -15,7 +19,7 @@ launching wrappers: they check device, dtype, shape and contiguity,
 allocate outputs with ``torch.empty``, launch on PyTorch's current stream,
 raise if a launch fails, and count their calls in the module-level integers
 :data:`launches_fwd` and :data:`launches_bwd` (one backward call launches
-the dK/dV kernel and the dQ kernel).
+the delta pre-pass, the dK/dV kernel and the dQ kernel).
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ def _load():
             lib.flash_attention_fwd.argtypes = (
                 [ptr] * 5 + [i32] * 8 + [ctypes.c_float, i32, ptr])
             lib.flash_attention_bwd.argtypes = (
-                [ptr] * 9 + [i32] * 8 + [ctypes.c_float, i32, ptr])
+                [ptr] * 10 + [i32] * 8 + [ctypes.c_float, i32, ptr])
             lib.flash_attention_fwd.restype = i32
             lib.flash_attention_bwd.restype = i32
             lib.flash_attention_error_string.argtypes = [i32]
@@ -149,14 +153,22 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
     return o, lse
 
 
+def _aligned(t):
+    """``t``, or a copy of it where its data is not 16-byte aligned (a view
+    at an odd offset): the backward's kernels load rows 16 bytes at a
+    time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int | None = None):
     """Launch the backward: ``(dq, dk, dv)`` in the dtype of q.
 
     ``o`` and ``lse`` are the forward's outputs and ``do`` the gradient of
     ``o``; all as in :func:`flash_attention_fwd_cuda`, but ``D <= 128``.
-    ``delta = rowsum(do * o)`` is a float32 PyTorch reduction here, before the
-    kernels (``_flash_bwd`` computes it outside its tile loops too). The
+    ``delta = rowsum(do * o)`` (float32, ``(B, H, Sq)``) is the kernels'
+    scratch: a pre-pass kernel writes it before the dK/dV and dQ kernels
+    read it (``_flash_bwd`` computes it outside its tile loops too). The
     dK/dV kernel sums each KV head's gradient over its query heads in
     float32.
     """
@@ -173,14 +185,15 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     lib = _load()
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, sq, sk, h, kh, d, int(causal), w,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kh, d, int(causal), w,
             1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
     _raise_on(lib, err, "backward")
     launches_bwd += 1
