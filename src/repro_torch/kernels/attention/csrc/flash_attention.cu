@@ -27,66 +27,98 @@
 // dq, dk, dv, each once) are tens of MB. Against 989 TFLOP/s of bf16
 // tensor cores that is 0.139 ms forward and 0.347 ms backward.
 //
-// The backward by dtype. bfloat16 (the training path) runs on the tensor
-// cores, FlashAttention-2's backward from mma.sync m16n8k16 pieces (bf16 in,
-// float32 accumulators), 4 warps of 16 rows each:
+// Which kernel runs, by dtype and D (no flag or fallback chooses):
+//   forward   bfloat16, D <= 128   tensor cores   flash_fwd_mma_kernel
+//             bfloat16, D 256      CUDA cores     flash_fwd_kernel
+//             float32, any D       CUDA cores     flash_fwd_kernel
+//   backward  bfloat16, D <= 128   tensor cores   flash_bwd_dkdv_mma_kernel,
+//                                                 flash_bwd_dq_mma_kernel
+//             float32, D <= 128    CUDA cores     flash_bwd_dkdv_kernel,
+//                                                 flash_bwd_dq_kernel
+// and flash_bwd_delta_kernel before either backward.
+//
+// The tensor-core kernels are FlashAttention-2 built from mma.sync m16n8k16
+// pieces (bf16 in, float32 accumulators), 4 warps of 16 rows each:
+//   * forward, one block per (64-query tile, b, head), heaviest causal tiles
+//     first: the Q tile lands once in shared memory and each step reads its A
+//     fragments again through ldmatrix (held in registers instead, they cost a
+//     block an SM at D 64 and measured slower); 64-row K and V tiles pass
+//     through a cp.async double buffer (one barrier a step). Each warp forms
+//     S = Q K^T for its 16 queries in float32 registers, each k step's 16
+//     products summed in a fresh accumulator and added to S in float32 with
+//     Kahan's compensation. Why: an mma adds its products to its accumulator
+//     at the precision of the largest term, and a float32 add rounds at the
+//     precision of the running sum; on scores whose large terms cancel
+//     (grok-1's prefill at full width: lse about 0.3 from products summing
+//     in magnitude to thousands) a running sum in the accumulator, and
+//     fresh sums added in plain float32, both left a row's lse further than
+//     2e-5 + 2e-5 |lse| from float64 and from the float32 plain version;
+//     compensated, the only rounding left is inside each step's mma. The
+//     compensation costs about a quarter of the forward's time; at D 64 the
+//     launch bounds hold it to 128 registers (68 bytes spilled) and 4 blocks
+//     an SM, which measured faster than 184 registers and 2 blocks, or 168
+//     and 3. It masks S only
+//     on tiles not wholly visible, keeps the running max and its part of the
+//     normaliser in registers (row maxima from the 4 lanes that share a row,
+//     ex2.approx with log2 e folded into the scale), rescales its O accumulator
+//     (16 x D float32) once a step, splits P into bf16 hi + lo repacked as A
+//     fragments in registers and adds P V (two mma on each V fragment, through
+//     ldmatrix.trans). o = O / max(l, 1e-30), lse in nats.
 //   * dK/dV kernel, one block per (64-key tile, b, KV head): K and V stay in
 //     shared memory as bf16; for each of the G = H / K query heads and each
 //     query tile the mask lets reach the key tile, Q and dO tiles (QT rows:
 //     64 at D <= 64, 16 at D <= 128, where dK and dV alone hold 128 float32
-//     a thread) with their lse and delta rows pass through a cp.async double
+//     a thread) with their lse and delta rows pass through the double
 //     buffer. Each warp forms, for its 16 keys, S^T = K Q^T, then P^T =
 //     exp(S^T scale - lse) under the mask in float32 registers, splits P^T
-//     into bf16 hi + lo repacked as A fragments in registers, and adds P^T
-//     dO to dV (two mma on each B fragment, dO through ldmatrix.trans); then
-//     dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale with P^T read back from
-//     hi + lo, split the same way, and dK += dS^T Q. Formed in that order,
-//     no two of S^T, P^T, dP^T and dS^T are live at once, so the D 64
-//     instantiation fits 168 registers (3 blocks an SM) with no spill. dK
-//     and dV accumulate in float32 over all G heads.
+//     into hi + lo A fragments, and adds P^T dO to dV; then dP^T = V dO^T,
+//     dS^T = P^T (dP^T - delta) scale with P^T read back from hi + lo,
+//     split the same way, and dK += dS^T Q. Formed in that order, no two of
+//     S^T, P^T, dP^T and dS^T are live at once, so the D 64 instantiation
+//     fits 168 registers (3 blocks an SM) with no spill. dK and dV
+//     accumulate in float32 over all G heads.
 //   * dQ kernel, one block per (64-query tile, b, head), heaviest causal
 //     tiles first: Q, dO, lse and delta resident, 64-row K and V tiles
 //     through the double buffer; S and dP again, then dQ += dS K.
 //   Tiles are bf16 rows padded by 8 elements (ldmatrix reads no bank twice),
-//   loaded with 16-byte cp.async, zero past S and past D up to the next
-//   multiple of 16 (the k depth of an mma); each k step's B fragments are
-//   loaded together before their mma. Why hi + lo: one bf16 rounding of P
-//   and dS (FlashAttention-2's) takes all of the gradients' bound at S 4096,
-//   where the first rows' large terms meet a tensor whose scale the many
-//   small late rows set; the split leaves the outputs' own rounding. The
-//   tensor cores do 10 products' worth of mma where the bound counts 5 (S
-//   and dP are formed twice, the three A-operand products run twice). What
-//   bounds it now: mma.sync (not wgmma), 12 warps an SM to hide the chains
+//   loaded with 16-byte cp.async (so q, k, v, o and dO must be 16-byte
+//   aligned), zero past S and past D up to the next multiple of 16 (the k
+//   depth of an mma); each k step's B fragments are loaded together before
+//   their mma. Why hi + lo: one bf16 rounding of P and dS (FlashAttention-
+//   2's) takes all of the gradients' bound at S 4096, where the first rows'
+//   large terms meet a tensor whose scale the many small late rows set; in
+//   the forward one rounding of P takes most of o's bound at S 4096 and,
+//   through delta = rowsum(dO o), pushes dq to its bound; the split leaves
+//   the outputs' own rounding. So the forward does 3 products' worth of mma
+//   where the bound counts 2, the backward 10 where it counts 5. What bounds
+//   them now: mma.sync (not wgmma), the warps an SM has to hide the chains
 //   of dependent mma, and the elementwise work between the products. Left
 //   for later: wgmma with TMA and a warp-specialised pipeline, and D 256.
-// float32 keeps the CUDA-core kernels below, as does the whole forward.
 //
-// The CUDA-core design (forward, float32 backward) is simple and exact, not
-// fast. Every product runs in float32 on the CUDA cores, so it is bound by
-// the CUDA cores' float32 rate and shared-memory traffic, far from the
-// tensor-core bound. A block of 256 threads owns a 64-row tile; tiles
-// of 64 rows of Q, K, V (and dO) are staged in shared memory as float32,
-// zero-padded to DMAX (64 or 128; the forward also 256) columns, rows
-// strided DMAX + 1 so that the 16 lanes of a half-warp reading 16 rows hit
-// 16 banks. Each thread holds a 4 x 4 block of the 64 x 64 score tile (rows
-// ty + 16 i, keys tx + 16 j, with ty = tid / 16 and tx = tid % 16), so row
-// reductions are four xor-shuffles inside a half-warp. The forward keeps
+// The CUDA-core design (float32, and the bf16 forward at D 256) is simple
+// and exact, not fast. Every product runs in float32 on the CUDA cores, so
+// it is bound by the CUDA cores' float32 rate and shared-memory traffic, far
+// from the tensor-core bound. A block of 256 threads owns a 64-row tile;
+// tiles of 64 rows of Q, K, V (and dO) are staged in shared memory as
+// float32, zero-padded to DMAX (64 or 128; the forward also 256) columns,
+// rows strided DMAX + 1 so that the 16 lanes of a half-warp reading 16 rows
+// hit 16 banks. Each thread holds a 4 x 4 block of the 64 x 64 score tile
+// (rows ty + 16 i, keys tx + 16 j, with ty = tid / 16 and tx = tid % 16), so
+// row reductions are four xor-shuffles inside a half-warp. The forward keeps
 // the running max, normaliser and output accumulator of its 4 rows in
 // registers, skips the KV tiles the mask hides (causal: it stops at the
 // diagonal tile; window: it starts at the first tile inside the window) and
-// starts the heaviest causal query tiles first. Still to do for speed (a
-// later change): bf16 mma.sync / wgmma tiles with TMA loads, and a
-// warp-specialised pipeline.
+// starts the heaviest causal query tiles first.
 //
 // Head dim 256 (RecurrentGemma-2B: H 10, K 1, window 2048), forward only.
 // Q, K and V tiles of 64 x 257 floats and the score tile would take 214 KB
 // of the 227 KB a block may have. So at DMAX 256 the V tile reuses the K
 // tile's buffer: a KV step loads K, forms the scores and P, then loads V
 // over K and applies P (one more barrier per KV tile), and the block holds
-// 148 KB. The D <= 128 instantiations keep their separate K and V buffers
-// and their code. At RecurrentGemma's prefill shape (B 8, S 4096, bf16)
-// the forward does 5.15e11 FLOPs: 0.52 ms on the tensor cores. The backward
-// keeps D <= 128 (the hybrid family's training is a later slice).
+// 148 KB. The float32 D <= 128 instantiations keep their separate K and V
+// buffers and their code. At RecurrentGemma's prefill shape (B 8, S 4096,
+// bf16) the forward does 5.15e11 FLOPs: 0.52 ms on the tensor cores. The
+// backward keeps D <= 128 (the hybrid family's training is a later slice).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -537,6 +569,7 @@ constexpr int kStages = 2;        // steps in each kernel's cp.async ring (a
                                   // double buffer: deeper rings measured no
                                   // faster)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kMmaTile == kTile, "the dQ kernel takes kv_range's query tile");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -595,6 +628,28 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 out: a fresh
+// accumulator, its input taken as 0
+__device__ __forceinline__ void mma_bf16_fresh(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// 2^x on the special-function unit; a result below float32's normal range
+// is flushed to 0 (exp2f spends instructions to return it as a denormal)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // two floats -> one bf16x2 register, x0 in the low half (the lower column)
 __device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
@@ -642,37 +697,78 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* src,
 // their mma, so the loads' latencies overlap one another.
 constexpr int kBatch = 4;
 
-// acc (16 x 8 NT) += A B^T: A the warp's 16 rows at a, B the NT * 8 rows at
-// b, both [rows][DMAX + 8] in shared memory, summed over columns
-// [0, 16 nk16).
-template <int NT, int DMAX>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const bf16* a,
-                                        const bf16* b, int nk16) {
+// s += x in float32 with Kahan's compensation: comp carries the negative
+// of what the sums so far have lost, and s - comp is the sum
+__device__ __forceinline__ void kahan_add(float& s, float& comp, float x) {
+  const float y = x - comp, t = s + y;
+  comp = (t - s) - y;
+  s = t;
+}
+
+// How a k step's products meet the accumulator: kAdd, acc += A B^T inside
+// the mma; kFresh, acc = A B^T of this step alone (acc's input unread);
+// kKahan, this step's products (in a fresh accumulator) added to acc in
+// float32 by kahan_add, with comp the compensation.
+enum StepMode { kAdd, kFresh, kKahan };
+
+// One k step of acc (16 x 8 NT) += A B^T, columns [16 kk, 16 kk + 16): A
+// the warp's 16 rows at a, B the NT * 8 rows at b, both [rows][DMAX + 8] in
+// shared memory; see StepMode.
+template <int NT, int DMAX, StepMode MODE = kAdd>
+__device__ __forceinline__ void mma_abt_step(float (&acc)[NT][4],
+                                             const bf16* a, const bf16* b,
+                                             int kk, float (&comp)[NT][4]) {
   constexpr int LD = DMAX + 8, NP = NT / 2, NB = NP < kBatch ? NP : kBatch;
   static_assert(NP % NB == 0, "whole batches of B fragments");
   const int lane = threadIdx.x & 31;
+  uint32_t af[4];
+  ldmatrix_x4(af, a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-  for (int kk = 0; kk < DMAX / 16; ++kk) {
-    if (kk < nk16) {
-      uint32_t af[4];
-      ldmatrix_x4(af, a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+  for (int p0 = 0; p0 < NP; p0 += NB) {
+    // (rows 0-7 | 8-15 of pair p) x (k 0-7 | 8-15): b0, b1 of each n8 tile
+    uint32_t bf[NB][4];
 #pragma unroll
-      for (int p0 = 0; p0 < NP; p0 += NB) {
-        // (rows 0-7 | 8-15 of pair p) x (k 0-7 | 8-15): b0, b1 of each n8
-        // tile
-        uint32_t bf[NB][4];
+    for (int p = 0; p < NB; ++p)
+      ldmatrix_x4(bf[p], b + ((p0 + p) * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                             kk * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
-        for (int p = 0; p < NB; ++p)
-          ldmatrix_x4(bf[p], b + ((p0 + p) * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                                 kk * 16 + ((lane >> 3) & 1) * 8);
+    for (int p = 0; p < NB; ++p) {
+      const int j = 2 * (p0 + p);
+      if constexpr (MODE == kFresh) {
+        mma_bf16_fresh(acc[j], af, bf[p][0], bf[p][1]);
+        mma_bf16_fresh(acc[j + 1], af, bf[p][2], bf[p][3]);
+      } else if constexpr (MODE == kKahan) {
+        float c[2][4];
+        mma_bf16_fresh(c[0], af, bf[p][0], bf[p][1]);
+        mma_bf16_fresh(c[1], af, bf[p][2], bf[p][3]);
 #pragma unroll
-        for (int p = 0; p < NB; ++p) {
-          mma_bf16(acc[2 * (p0 + p)], af, bf[p][0], bf[p][1]);
-          mma_bf16(acc[2 * (p0 + p) + 1], af, bf[p][2], bf[p][3]);
-        }
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            kahan_add(acc[j + i][e], comp[j + i][e], c[i][e]);
+      } else {
+        mma_bf16(acc[j], af, bf[p][0], bf[p][1]);
+        mma_bf16(acc[j + 1], af, bf[p][2], bf[p][3]);
       }
     }
   }
+}
+
+template <int NT, int DMAX, StepMode MODE = kAdd>
+__device__ __forceinline__ void mma_abt_step(float (&acc)[NT][4],
+                                             const bf16* a, const bf16* b,
+                                             int kk) {
+  static_assert(MODE != kKahan, "kKahan needs its compensation");
+  mma_abt_step<NT, DMAX, MODE>(acc, a, b, kk, acc);
+}
+
+// acc (16 x 8 NT) += A B^T summed over columns [0, 16 nk16).
+template <int NT, int DMAX>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const bf16* a,
+                                        const bf16* b, int nk16) {
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk)
+    if (kk < nk16) mma_abt_step<NT, DMAX>(acc, a, b, kk);
 }
 
 // acc (16 x DMAX) += A B: A (16 x 16 NK) as bf16 A fragments hi + lo (two
@@ -1011,6 +1107,168 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows(dq + q_head, dqa, qw, Sq, q_stride, D);
 }
 
+// The bfloat16 forward at D <= 128 on the tensor cores (see the header).
+// grid: x = 64-query tiles (heaviest causal first), y = B * H. block:
+// kMmaThreads; warp w owns queries q0 + 16 w .. + 16. Scores and the
+// running max are in base 2 (scale * log2 e folded in); a masked score is
+// the reference's -1e30 in those units, so a row that has seen only masked
+// keys weighs them alike, as the reference does, until a visible key's
+// correction zeroes them.
+template <int DMAX>
+__global__ void __launch_bounds__(kMmaThreads, DMAX == 64 ? 4 : 2)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Sk, int H, int K,
+                     int D, int causal, int window, float scale) {
+  constexpr int LD = DMAX + 8, KT = kMmaTile, NT = KT / 8, NK = KT / 16,
+                DT = DMAX / 8;
+  constexpr float kNegInf2 = kNegInf * kLog2e;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + kMmaTile * LD;      // [kStages][KT][LD]
+  bf16* Vs = Ks + kStages * KT * LD;  // [kStages][KT][LD]
+
+  const int n_qt = (Sq + kMmaTile - 1) / kMmaTile;
+  const int q0 = (n_qt - 1 - blockIdx.x) * kMmaTile;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / (H / K);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)K * D;
+  const int n16 = (D + 15) / 16;
+  const size_t q_head = ((size_t)b * Sq * H + h) * D;
+  const bf16* kb = k + ((size_t)b * Sk * K + kh) * D;
+  const bf16* vb = v + ((size_t)b * Sk * K + kh) * D;
+  const int qw = q0 + warp * 16;  // this warp's first query
+
+  load_tile_async<kMmaTile, DMAX>(Qs, q + q_head, q0, Sq, q_stride, D);
+  int k_lo, k_hi;
+  kv_range(q0, Sq, Sk, causal, window, &k_lo, &k_hi);
+  const int k_first = (k_lo / KT) * KT;
+  const int n_it = k_hi > k_first ? (k_hi - k_first + KT - 1) / KT : 0;
+  // the ring's first kStages - 1 steps (the first group also holds Q)
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_it) {
+      load_tile_async<KT, DMAX>(Ks + st * KT * LD, kb, k_first + st * KT, Sk,
+                                kv_stride, D);
+      load_tile_async<KT, DMAX>(Vs + st * KT * LD, vb, k_first + st * KT, Sk,
+                                kv_stride, D);
+    }
+    cp_async_commit();
+  }
+
+  // the running max (base 2) and this thread's part of the normaliser of
+  // its two rows (g, g + 8), and their output rows
+  float m2[2] = {kNegInf2, kNegInf2}, l[2] = {0.f, 0.f};
+  float oacc[DT][4];
+  zero(oacc);
+  const float scale_l2 = scale * kLog2e;
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<kStages - 2>();  // step it has landed
+    __syncthreads();              // ... for every thread; and the stage
+                                  // refilled next was read last step
+    const int nx = it + kStages - 1;
+    if (nx < n_it) {
+      const int nb = nx % kStages, nk0 = k_first + nx * KT;
+      load_tile_async<KT, DMAX>(Ks + nb * KT * LD, kb, nk0, Sk, kv_stride, D);
+      load_tile_async<KT, DMAX>(Vs + nb * KT * LD, vb, nk0, Sk, kv_stride, D);
+    }
+    cp_async_commit();
+    const int buf = it % kStages, kt0 = k_first + it * KT;
+    const bf16* Kb = Ks + buf * KT * LD;
+    const bf16* Vb = Vs + buf * KT * LD;
+
+    // S = Q K^T: rows the warp's queries (g, g + 8), columns keys; each k
+    // step's 16 products in a fresh accumulator, added to S in float32
+    // with Kahan's compensation (see the header)
+    float s[NT][4], sc[NT][4];
+    mma_abt_step<NT, DMAX, kFresh>(s, Qs + warp * 16 * LD, Kb, 0);
+    zero(sc);
+#pragma unroll
+    for (int kk = 1; kk < DMAX / 16; ++kk)
+      if (kk < n16)
+        mma_abt_step<NT, DMAX, kKahan>(s, Qs + warp * 16 * LD, Kb, kk, sc);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] -= sc[j][e];
+
+    // online softmax: the mask only where the warp's tile is not wholly
+    // visible; row maxima over the 4 lanes that share a row
+    const bool all = tile_visible(qw, 16, kt0, KT, Sq, Sk, causal, window);
+    float mx[2] = {m2[0], m2[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        float x = s[j][e] * scale_l2;
+        if (!all && !visible(qw + g + hf * 8, kt0 + j * 8 + 2 * t + (e & 1),
+                             Sq, Sk, causal, window))
+          x = kNegInf2;
+        s[j][e] = x;
+        mx[hf] = fmaxf(mx[hf], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+      corr[hf] = ex2(m2[hf] - mx[hf]);
+      m2[hf] = mx[hf];
+      l[hf] *= corr[hf];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        s[j][e] = ex2(s[j][e] - m2[hf]);
+        l[hf] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < DT; ++nt) {
+      oacc[nt][0] *= corr[0];
+      oacc[nt][1] *= corr[0];
+      oacc[nt][2] *= corr[1];
+      oacc[nt][3] *= corr[1];
+    }
+
+    // O += P V, P as bf16 hi + lo A fragments in registers
+    uint32_t hi[NK][4], lo[NK][4];
+    to_a_frags(hi, lo, s);
+    mma_ab<NK, DMAX>(oacc, hi, lo, Vb, n16);
+  }
+  cp_async_wait<0>();
+
+  // o = O / max(l, 1e-30) (l summed over the row's 4 lanes), lse in nats
+  float lc[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+    lc[hf] = fmaxf(l[hf], 1e-30f);
+  }
+#pragma unroll
+  for (int nt = 0; nt < DT; ++nt) {
+    oacc[nt][0] /= lc[0];
+    oacc[nt][1] /= lc[0];
+    oacc[nt][2] /= lc[1];
+    oacc[nt][3] /= lc[1];
+  }
+  store_rows(o + q_head, oacc, qw, Sq, q_stride, D);
+  if (t == 0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = qw + g + hf * 8;
+      if (row < Sq)
+        lse[((size_t)b * H + h) * Sq + row] = m2[hf] * kLn2 + logf(lc[hf]);
+    }
+  }
+}
+
 template <typename F>
 cudaError_t set_smem(F* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1031,6 +1289,22 @@ cudaError_t fwd_typed(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, K, D,
       causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int Sq, int Sk, int H, int K, int D,
+                    int causal, int window, float scale, cudaStream_t stream) {
+  // Q; K and V in each stage
+  constexpr size_t smem = sizeof(bf16) * (1 + 2 * kStages) * kMmaTile * (DMAX + 8);
+  cudaError_t err = set_smem(flash_fwd_mma_kernel<DMAX>, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_mma_kernel<DMAX>
+      <<<dim3((Sq + kMmaTile - 1) / kMmaTile, B * H), kMmaThreads, smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk, H,
+          K, D, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -1119,18 +1393,6 @@ bool bad_args(int B, int Sq, int Sk, int H, int K, int D, int dtype,
          D > d_max || D % 8 != 0 || dtype < 0 || dtype > 1 || B * H > 65535;
 }
 
-template <typename T>
-cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* o,
-                         float* lse, int B, int Sq, int Sk, int H, int K,
-                         int D, int causal, int w, float scale,
-                         cudaStream_t s) {
-  if (D <= 64)
-    return fwd_typed<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, K, D, causal, w, scale, s);
-  if (D <= 128)
-    return fwd_typed<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, K, D, causal, w, scale, s);
-  return fwd_typed<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, K, D, causal, w, scale, s);
-}
-
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, dO, dq, dk, dv alike).
@@ -1138,18 +1400,38 @@ cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* o,
 // window <= 0 means no window. Each returns 0 on success, a cudaError_t from
 // a launch, or -1 for arguments the kernels do not take (the Python wrapper
 // checks these first).
+//
+// The forward's route is by dtype and D: bfloat16 at D <= 128 runs on the
+// tensor cores (q, k and v must be 16-byte aligned), float32 at any D and
+// bfloat16 at D 256 on the CUDA cores. *route is set to the route launched:
+// 1 for the tensor-core kernel, 0 for the CUDA-core one.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int Sq, int Sk,
                                    int H, int K, int D, int causal, int window,
-                                   float scale, int dtype, void* stream) {
+                                   float scale, int dtype, void* stream,
+                                   int* route) {
   if (bad_args(B, Sq, Sk, H, K, D, dtype, 256)) return -1;
   const auto s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const int w = window > 0 ? window : 0;
-  const cudaError_t err =
-      dtype == 0
-          ? fwd_dispatch<float>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
-          : fwd_dispatch<__nv_bfloat16>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s);
+  cudaError_t err;
+  if (dtype == 1 && D <= 128) {  // bfloat16: the tensor cores
+    const void* tensors[] = {q, k, v};
+    for (const void* p : tensors)
+      if (!aligned16(p)) return -1;
+    *route = 1;
+    err = D <= 64 ? fwd_mma<64>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
+                  : fwd_mma<128>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s);
+    return static_cast<int>(err);
+  }
+  *route = 0;
+  if (dtype == 1) {  // bfloat16 at D 256: the CUDA cores
+    err = fwd_typed<bf16, 256>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s);
+  } else {  // float32: the CUDA cores
+    err = D <= 64    ? fwd_typed<float, 64>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
+          : D <= 128 ? fwd_typed<float, 128>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
+                     : fwd_typed<float, 256>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s);
+  }
   return static_cast<int>(err);
 }
 

@@ -5,21 +5,29 @@ Replaces the Pallas TPU kernel ``flash_attention_hm``
 writes the log-sum-exp, and the reference's pure-JAX backward ``_flash_bwd``
 (``src/repro/models/layers.py:170``) with a CUDA pre-pass for ``delta =
 rowsum(do * o)`` (``flash_bwd_delta_kernel``), then a dK/dV kernel and a dQ
-kernel: for bfloat16 on the tensor cores (``flash_bwd_dkdv_mma_kernel``,
-``flash_bwd_dq_mma_kernel``: bf16 ``mma.sync`` with float32 accumulators),
-for float32 on the CUDA cores (``flash_bwd_dkdv_kernel``,
-``flash_bwd_dq_kernel``). The source is ``csrc/flash_attention.cu`` (its
-header gives the design and what bounds it). It is built with ``nvcc`` for ``sm_90a`` on first
-use into the ``build/`` directory beside this file (ignored by git) by
+kernel. The route is by dtype and head dim D, nothing else:
+
+- bfloat16 at D <= 128 runs on the tensor cores (bf16 ``mma.sync`` with
+  float32 accumulators): the forward ``flash_fwd_mma_kernel``, the backward
+  ``flash_bwd_dkdv_mma_kernel`` and ``flash_bwd_dq_mma_kernel``;
+- float32 at any D, and the bfloat16 forward at D 256, run on the CUDA
+  cores: ``flash_fwd_kernel``, ``flash_bwd_dkdv_kernel`` and
+  ``flash_bwd_dq_kernel``.
+
+The source is ``csrc/flash_attention.cu`` (its header gives the design and
+what bounds it). It is built with ``nvcc`` for ``sm_90a`` on first use into
+the ``build/`` directory beside this file (ignored by git) by
 :mod:`repro_torch.kernels.build`, and bound with ``ctypes``. Nothing is
 built or loaded when this module is imported.
 
 :func:`flash_attention_fwd_cuda` and :func:`flash_attention_bwd_cuda` are the
-launching wrappers: they check device, dtype, shape and contiguity,
-allocate outputs with ``torch.empty``, launch on PyTorch's current stream,
-raise if a launch fails, and count their calls in the module-level integers
-:data:`launches_fwd` and :data:`launches_bwd` (one backward call launches
-the delta pre-pass, the dK/dV kernel and the dQ kernel).
+launching wrappers: they check device, dtype, shape and contiguity, copy a
+view that is not 16-byte aligned, allocate outputs with ``torch.empty``,
+launch on PyTorch's current stream, raise if a launch fails, and count their
+calls in the module-level integers :data:`launches_fwd` and
+:data:`launches_bwd` (one backward call launches the delta pre-pass, the
+dK/dV kernel and the dQ kernel); :data:`launches_fwd_mma` counts the forward
+calls that the C entry reports it ran on the tensor-core kernel.
 """
 
 from __future__ import annotations
@@ -36,9 +44,12 @@ from repro_torch.kernels import build as _build
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 
-# calls of the CUDA forward / backward since the count was last set to 0
+# calls of the CUDA forward / backward since the count was last set to 0,
+# and of those forward calls the ones the C entry reports it ran on the
+# tensor-core kernel
 launches_fwd = 0
 launches_bwd = 0
+launches_fwd_mma = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -58,7 +69,8 @@ def _load():
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.flash_attention_fwd.argtypes = (
-                [ptr] * 5 + [i32] * 8 + [ctypes.c_float, i32, ptr])
+                [ptr] * 5 + [i32] * 8 + [ctypes.c_float, i32, ptr,
+                                         ctypes.POINTER(i32)])
             lib.flash_attention_bwd.argtypes = (
                 [ptr] * 10 + [i32] * 8 + [ctypes.c_float, i32, ptr])
             lib.flash_attention_fwd.restype = i32
@@ -128,10 +140,11 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
 
     q ``(B, Sq, H, D)``, k/v ``(B, Sk, K, D)``, one dtype (float32 or
     bfloat16), contiguous, on one CUDA device; ``D <= 256`` a multiple of 8;
-    scale ``1/sqrt(D)``. Raises on anything the kernel does not take and
-    when the launch fails.
+    scale ``1/sqrt(D)``. bfloat16 at ``D <= 128`` runs on the tensor cores,
+    the rest on the CUDA cores. Raises on anything the kernel does not take
+    and when the launch fails.
     """
-    global launches_fwd
+    global launches_fwd, launches_fwd_mma
     _check({"q": q, "k": k, "v": v}, q, k, d_max=256)
     _check_like("v", v, k)
     if k.dtype != q.dtype:
@@ -140,22 +153,25 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
     lib = _load()
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
+    q, k, v = (_aligned(t) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    route = ctypes.c_int(-1)      # set by the C entry to the kernel it ran
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, sq, sk, h, kh, d, int(causal), w,
-            1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
+            1.0 / math.sqrt(d), _DTYPES[q.dtype], stream, ctypes.byref(route))
     _raise_on(lib, err, "forward")
     launches_fwd += 1
+    launches_fwd_mma += int(route.value == 1)
     return o, lse
 
 
 def _aligned(t):
     """``t``, or a copy of it where its data is not 16-byte aligned (a view
-    at an odd offset): the backward's kernels load rows 16 bytes at a
+    at an odd offset): the tensor-core kernels load rows 16 bytes at a
     time."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -241,13 +241,20 @@ class PageTable:
         """Unpin a chain previously returned by :meth:`acquire`.
 
         Mirrors ``Platform.bank_release``: releasing a page more times than
-        it was acquired raises instead of driving the refcount negative."""
+        it was acquired raises instead of driving the refcount negative.
+        Atomic: every key is checked, a key repeated in ``keys`` needing as
+        many refs, before any refcount moves, so an over-release leaves the
+        other pins' refs as they were."""
+        need: dict[tuple, int] = {}
         for key in keys:
-            page = self._pages.get((ns, tuple(key)))
-            if page is None or page.refs <= 0:
+            loc = (ns, tuple(key))
+            need[loc] = need.get(loc, 0) + 1
+            page = self._pages.get(loc)
+            if page is None or page.refs < need[loc]:
                 raise ValueError(
                     f"page {key!r} (ns={ns!r}) released more than acquired")
-            page.refs -= 1
+        for loc, n in need.items():
+            self._pages[loc].refs -= n
 
     # -- cold-prefill dedup claims -------------------------------------------
 
