@@ -28,8 +28,7 @@
 // tensor cores that is 0.139 ms forward and 0.347 ms backward.
 //
 // Which kernel runs, by dtype and D (no flag or fallback chooses):
-//   forward   bfloat16, D <= 128   tensor cores   flash_fwd_mma_kernel
-//             bfloat16, D 256      CUDA cores     flash_fwd_kernel
+//   forward   bfloat16, any D      tensor cores   flash_fwd_mma_kernel
 //             float32, any D       CUDA cores     flash_fwd_kernel
 //   backward  bfloat16, D <= 128   tensor cores   flash_bwd_dkdv_mma_kernel,
 //                                                 flash_bwd_dq_mma_kernel
@@ -42,8 +41,9 @@
 //   * forward, one block per (64-query tile, b, head), heaviest causal tiles
 //     first: the Q tile lands once in shared memory and each step reads its A
 //     fragments again through ldmatrix (held in registers instead, they cost a
-//     block an SM at D 64 and measured slower); 64-row K and V tiles pass
-//     through a cp.async double buffer (one barrier a step). Each warp forms
+//     block an SM at D 64 and measured slower); K and V tiles of 64 rows (32
+//     at D 256, below) pass through a cp.async double buffer (one barrier a
+//     step). Each warp forms
 //     S = Q K^T for its 16 queries in float32 registers, each k step's 16
 //     products summed in a fresh accumulator and added to S in float32 with
 //     Kahan's compensation. Why: an mma adds its products to its accumulator
@@ -93,10 +93,24 @@
 //   where the bound counts 2, the backward 10 where it counts 5. What bounds
 //   them now: mma.sync (not wgmma), the warps an SM has to hide the chains
 //   of dependent mma, and the elementwise work between the products. Left
-//   for later: wgmma with TMA and a warp-specialised pipeline, and D 256.
+//   for later: wgmma with TMA and a warp-specialised pipeline.
 //
-// The CUDA-core design (float32, and the bf16 forward at D 256) is simple
-// and exact, not fast. Every product runs in float32 on the CUDA cores, so
+// The forward at head dim 256 (RecurrentGemma-2B's prefill: H 10, K 1,
+// window 2048) is the same kernel with a 32-key step. A warp's O
+// accumulator, 16 rows x 256 float32, is 128 registers a thread of the 255
+// a thread may have; at a 64-key step S, its compensation and P's hi + lo
+// fragments would add 96 more and spill, at 32 keys they add 48 (249
+// registers, no spill). The Q tile (64 x 264 bf16, 33.8 KB) and the
+// two-stage ring of 32-row K and V tiles (67.6 KB) take 101 KB of shared
+// memory: two blocks, 8 warps, an SM, as at D 128 and half D 64's. The
+// window's leading key steps are skipped (kv_range), and the masks,
+// numerics and outputs are those of D <= 128. At
+// RecurrentGemma's prefill shape (B 8, S 4096, bf16) the forward does
+// 5.15e11 FLOPs: 0.52 ms on the tensor cores. The backward keeps D <= 128
+// (the hybrid family's training is a later slice).
+//
+// The CUDA-core design (float32) is simple and exact, not fast. Every
+// product runs in float32 on the CUDA cores, so
 // it is bound by the CUDA cores' float32 rate and shared-memory traffic, far
 // from the tensor-core bound. A block of 256 threads owns a 64-row tile;
 // tiles of 64 rows of Q, K, V (and dO) are staged in shared memory as
@@ -110,15 +124,12 @@
 // diagonal tile; window: it starts at the first tile inside the window) and
 // starts the heaviest causal query tiles first.
 //
-// Head dim 256 (RecurrentGemma-2B: H 10, K 1, window 2048), forward only.
-// Q, K and V tiles of 64 x 257 floats and the score tile would take 214 KB
-// of the 227 KB a block may have. So at DMAX 256 the V tile reuses the K
-// tile's buffer: a KV step loads K, forms the scores and P, then loads V
-// over K and applies P (one more barrier per KV tile), and the block holds
-// 148 KB. The float32 D <= 128 instantiations keep their separate K and V
-// buffers and their code. At RecurrentGemma's prefill shape (B 8, S 4096,
-// bf16) the forward does 5.15e11 FLOPs: 0.52 ms on the tensor cores. The
-// backward keeps D <= 128 (the hybrid family's training is a later slice).
+// The float32 forward at head dim 256: Q, K and V tiles of 64 x 257 floats
+// and the score tile would take 214 KB of the 227 KB a block may have. So
+// at DMAX 256 the V tile reuses the K tile's buffer: a KV step loads K,
+// forms the scores and P, then loads V over K and applies P (one more
+// barrier per KV tile), and the block holds 148 KB. The D <= 128
+// instantiations keep their separate K and V buffers and their code.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,9 +149,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // reductions over the 16 lanes of a half-warp (one tile row's threads)
@@ -1107,7 +1115,13 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows(dq + q_head, dqa, qw, Sq, q_stride, D);
 }
 
-// The bfloat16 forward at D <= 128 on the tensor cores (see the header).
+// Keys a forward step takes: 64, and 32 at D 256, where the warp's O
+// accumulator alone holds 128 float32 a thread (see the header).
+__host__ __device__ constexpr int fwd_kt(int dmax) {
+  return dmax > 128 ? 32 : kMmaTile;
+}
+
+// The bfloat16 forward on the tensor cores (see the header).
 // grid: x = 64-query tiles (heaviest causal first), y = B * H. block:
 // kMmaThreads; warp w owns queries q0 + 16 w .. + 16. Scores and the
 // running max are in base 2 (scale * log2 e folded in); a masked score is
@@ -1120,7 +1134,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int Sq, int Sk, int H, int K,
                      int D, int causal, int window, float scale) {
-  constexpr int LD = DMAX + 8, KT = kMmaTile, NT = KT / 8, NK = KT / 16,
+  constexpr int LD = DMAX + 8, KT = fwd_kt(DMAX), NT = KT / 8, NK = KT / 16,
                 DT = DMAX / 8;
   constexpr float kNegInf2 = kNegInf * kLog2e;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1297,7 +1311,8 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
                     float* lse, int B, int Sq, int Sk, int H, int K, int D,
                     int causal, int window, float scale, cudaStream_t stream) {
   // Q; K and V in each stage
-  constexpr size_t smem = sizeof(bf16) * (1 + 2 * kStages) * kMmaTile * (DMAX + 8);
+  constexpr size_t smem =
+      sizeof(bf16) * (kMmaTile + 2 * kStages * fwd_kt(DMAX)) * (DMAX + 8);
   cudaError_t err = set_smem(flash_fwd_mma_kernel<DMAX>, smem);
   if (err != cudaSuccess) return err;
   flash_fwd_mma_kernel<DMAX>
@@ -1401,10 +1416,10 @@ bool bad_args(int B, int Sq, int Sk, int H, int K, int D, int dtype,
 // a launch, or -1 for arguments the kernels do not take (the Python wrapper
 // checks these first).
 //
-// The forward's route is by dtype and D: bfloat16 at D <= 128 runs on the
-// tensor cores (q, k and v must be 16-byte aligned), float32 at any D and
-// bfloat16 at D 256 on the CUDA cores. *route is set to the route launched:
-// 1 for the tensor-core kernel, 0 for the CUDA-core one.
+// The forward's route is by dtype: bfloat16 runs on the tensor cores (q, k
+// and v must be 16-byte aligned), float32 on the CUDA cores, at any D.
+// *route is set to the route launched: 1 for the tensor-core kernel, 0 for
+// the CUDA-core one.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int Sq, int Sk,
                                    int H, int K, int D, int causal, int window,
@@ -1415,23 +1430,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   float* l = static_cast<float*>(lse);
   const int w = window > 0 ? window : 0;
   cudaError_t err;
-  if (dtype == 1 && D <= 128) {  // bfloat16: the tensor cores
+  if (dtype == 1) {  // bfloat16: the tensor cores
     const void* tensors[] = {q, k, v};
     for (const void* p : tensors)
       if (!aligned16(p)) return -1;
     *route = 1;
-    err = D <= 64 ? fwd_mma<64>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
-                  : fwd_mma<128>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s);
+    err = D <= 64    ? fwd_mma<64>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
+          : D <= 128 ? fwd_mma<128>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
+                     : fwd_mma<256>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s);
     return static_cast<int>(err);
   }
-  *route = 0;
-  if (dtype == 1) {  // bfloat16 at D 256: the CUDA cores
-    err = fwd_typed<bf16, 256>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s);
-  } else {  // float32: the CUDA cores
-    err = D <= 64    ? fwd_typed<float, 64>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
-          : D <= 128 ? fwd_typed<float, 128>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
-                     : fwd_typed<float, 256>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s);
-  }
+  *route = 0;  // float32: the CUDA cores
+  err = D <= 64    ? fwd_typed<float, 64>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
+        : D <= 128 ? fwd_typed<float, 128>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s)
+                   : fwd_typed<float, 256>(q, k, v, o, l, B, Sq, Sk, H, K, D, causal, w, scale, s);
   return static_cast<int>(err);
 }
 

@@ -7,12 +7,12 @@ writes the log-sum-exp, and the reference's pure-JAX backward ``_flash_bwd``
 rowsum(do * o)`` (``flash_bwd_delta_kernel``), then a dK/dV kernel and a dQ
 kernel. The route is by dtype and head dim D, nothing else:
 
-- bfloat16 at D <= 128 runs on the tensor cores (bf16 ``mma.sync`` with
-  float32 accumulators): the forward ``flash_fwd_mma_kernel``, the backward
+- bfloat16 runs on the tensor cores (bf16 ``mma.sync`` with float32
+  accumulators): the forward ``flash_fwd_mma_kernel`` at any D (a 64-key
+  step at D <= 128, a 32-key step at D 256), the backward
   ``flash_bwd_dkdv_mma_kernel`` and ``flash_bwd_dq_mma_kernel``;
-- float32 at any D, and the bfloat16 forward at D 256, run on the CUDA
-  cores: ``flash_fwd_kernel``, ``flash_bwd_dkdv_kernel`` and
-  ``flash_bwd_dq_kernel``.
+- float32 runs on the CUDA cores: ``flash_fwd_kernel``,
+  ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``.
 
 The source is ``csrc/flash_attention.cu`` (its header gives the design and
 what bounds it). It is built with ``nvcc`` for ``sm_90a`` on first use into
@@ -140,8 +140,8 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
 
     q ``(B, Sq, H, D)``, k/v ``(B, Sk, K, D)``, one dtype (float32 or
     bfloat16), contiguous, on one CUDA device; ``D <= 256`` a multiple of 8;
-    scale ``1/sqrt(D)``. bfloat16 at ``D <= 128`` runs on the tensor cores,
-    the rest on the CUDA cores. Raises on anything the kernel does not take
+    scale ``1/sqrt(D)``. bfloat16 runs on the tensor cores at every D,
+    float32 on the CUDA cores. Raises on anything the kernel does not take
     and when the launch fails.
     """
     global launches_fwd, launches_fwd_mma

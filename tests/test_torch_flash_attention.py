@@ -331,8 +331,9 @@ def test_cuda_forward_takes_a_misaligned_view():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_forward_d256_matches_plain(dtype):
-    """The CUDA forward at head dim 256 (V staged over K's buffer) against
-    the plain version on the card (skips here)."""
+    """The CUDA forward at head dim 256 (bf16 on the tensor cores, float32
+    on the CUDA cores with V staged over K's buffer) against the plain
+    version on the card (skips here)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     b, s, h, k, d, win, causal = D256
@@ -509,13 +510,15 @@ def test_split_rounding_of_p_and_ds_keeps_the_card_bound():
     assert max(one) > 0.6, one
 
 
-def _emulated_fwd(q, kk, vv, split):
+def _emulated_fwd(q, kk, vv, split, kt=64, window=None):
     """The bf16 forward's arithmetic, causal, one KV head (K = 1), one query
     head at a time: float32 scores of the bf16 inputs in base 2 (scale *
-    log2 e folded in), an online softmax over 64-key tiles with the
+    log2 e folded in), an online softmax over ``kt``-key steps (64 at D <=
+    128, 32 at D 256) under the causal mask and ``window``, with the
     normaliser summed from float32 P, and P carried into P V as the kernel
     carries it (``split``: bf16 hi + lo; else one bf16 rounding,
-    FlashAttention-2's); o rounded to bf16 once, lse in nats."""
+    FlashAttention-2's); o rounded to bf16 once, lse in nats. Any D: the
+    kernel's zero padding of D adds nothing."""
     b, s, h, d = q.shape
     qf, kf, vf = (x.float()[0] for x in (q, kk, vv))
     kf, vf = kf[:, 0], vf[:, 0]
@@ -525,16 +528,19 @@ def _emulated_fwd(q, kk, vv, split):
     for j in range(h):
         m = torch.full((s,), -1e30)
         l, acc = torch.zeros(s), torch.zeros(s, d)
-        for k0 in range(0, s, 64):
-            sc = (qf[:, j] @ kf[k0:k0 + 64].T) * scale_l2
-            sc = torch.where(qpos >= torch.arange(k0, k0 + 64)[None], sc,
-                             torch.tensor(-1e30))
+        for k0 in range(0, s, kt):
+            kpos = torch.arange(k0, min(k0 + kt, s))[None]
+            sc = (qf[:, j] @ kf[k0:k0 + kt].T) * scale_l2
+            keep = qpos >= kpos
+            if window is not None:
+                keep &= qpos - kpos < window
+            sc = torch.where(keep, sc, torch.tensor(-1e30))
             m_new = torch.maximum(m, sc.amax(-1))
             corr = torch.exp2(m - m_new)
             p = torch.exp2(sc - m_new[:, None])
             l = l * corr + p.sum(-1)
             pa = _split_bf16(p) if split else p.to(torch.bfloat16).float()
-            acc = acc * corr[:, None] + pa @ vf[k0:k0 + 64]
+            acc = acc * corr[:, None] + pa @ vf[k0:k0 + kt]
             m = m_new
         lc = l.clamp_min(1e-30)
         o[:, j] = acc / lc[:, None]
@@ -577,3 +583,27 @@ def test_split_rounding_of_p_keeps_the_forward_and_its_backward_in_bound():
           f"of P {one}, hi + lo {split}")
     assert max(split) < 0.3, split
     assert max(one) > 1, one
+
+
+def test_emulated_d256_forward_keeps_the_card_bound():
+    """The bf16 forward at D 256 as the tensor-core kernel computes it (a
+    32-key step, P as hi + lo) at the hybrid family's geometry (MQA with
+    G 10, a window) holds the plain version at chip_smoke's bounds: o by
+    ``close_scaled`` at ``TOL["bfloat16"]``, lse within 2e-5 + 2e-5 |lse|.
+    Prints the worst err / bound of o and lse under ``pytest -s``."""
+    b, s, h, k, d, win = 1, 1024, 10, 1, 256, 512
+    q, kk, vv, _ = (_torch(a, "bfloat16") for a in _inputs(b, s, h, k, d,
+                                                            seed=5))
+    o, lse = ref.flash_attention_ref(q, kk, vv, causal=True, window=win)
+    eo, else_ = _emulated_fwd(q, kk, vv, True, kt=32, window=win)
+    cs = _chip_smoke()
+    tol = cs.TOL["bfloat16"]
+    _, scale = cs.close_scaled(eo, o, tol, tol)
+    cs.close(else_, lse, cs.TOL["float32"])
+    w = o.float()
+    worst_o = ((eo.float() - w).abs() / (tol * scale + tol * w.abs())).max()
+    t32 = cs.TOL["float32"]
+    worst_lse = ((else_ - lse).abs() / (t32 + t32 * lse.abs())).max()
+    print(f"emulated D 256 forward (32-key steps, hi + lo P) at B {b}, S {s}, "
+          f"H {h}, K {k}, window {win}: worst err / bound o "
+          f"{worst_o.item():.3f}, lse {worst_lse.item():.3f}")
