@@ -126,21 +126,28 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     ``classify``;
 19. gmm phase: the CUDA grouped matmul against its plain version on the
     reference's cases (float32 at 1e-4, bfloat16 at 5e-2), ragged C, D and
-    F, an input off 16-byte alignment, against float64, and at the four
-    shapes of grok-1's expert FFN (prefill gate/up and down, decode gate/up
-    and down, bf16); timed there against the plain version and
-    ``torch.bmm`` (the yardstick, never called by the port);
+    F, the edges of the bf16 TMA routes' tiles (C 1 to 129, D 8 to 1008,
+    F 8 to 264, one persistent block walking two experts' tiles), an input
+    off 16-byte alignment (the mma.sync route, bit for bit the aligned
+    wgmma result), against float64, and at the four shapes of grok-1's
+    expert FFN (prefill gate/up and down on the wgmma route, decode gate/up
+    and down on the split-D route, bf16); every call's route checked by
+    the C entry's report, two calls giving the same bits; timed at the four
+    shapes against the plain version and ``torch.bmm`` (the yardstick,
+    never called by the port);
 20. moe serve phase: full-width grok-1 cut to 4 of its 64 layers (42.58
     GB of bf16 weights) through the serve driver
     ``repro_torch.launch.serve.run`` (batch 8, a 1024-token prompt, 64
     greedy steps). Checks 12 grouped-matmul and 4 flash-forward launches in
-    the prefill (the flash forwards on the tensor-core kernel) and 12
-    grouped matmuls in each decode step, holds every grouped-matmul call of
+    the prefill (the grouped matmuls on the wgmma route, the flash forwards
+    on the tensor-core kernel) and 12 grouped matmuls on the split-D route
+    in each decode step, holds every grouped-matmul call of
     a prefill and of one decode step, and every flash forward of that
     prefill, to the plain version (the flash lse to the plain version in
     float64), counts the prefill's dropped slots, prints prefill time,
     decode-step time, tokens/s and peak memory, profiles a prefill and a
-    decode step, and frees the weights;
+    decode step (the grouped matmul's kernels checked by name), and frees
+    the weights;
 21. small MoE reference: the grok and llama4 smoke configs served on the
     card (through the kernel) and on the CPU's plain path: routing equal
     on every MoE call, logits and caches at the bf16 bound, clear-margin
@@ -2249,10 +2256,19 @@ def healthcare_phase(torch, np, ckernel, cref, card: str) -> int:
 # ---------------------------------------------------------------------------
 
 # E, C, D, F (tests/test_kernels.py:137-139), then ragged C, D and F (D or F
-# off a multiple of 8 takes the element-by-element loads)
+# off a multiple of 8 takes the mma.sync route's element-by-element loads)
 GMM_CASES = [(4, 16, 32, 64), (2, 128, 64, 128), (8, 8, 16, 16)]
 GMM_RAGGED = [(3, 37, 45, 77), (1, 1, 1, 1), (2, 200, 64, 136),
               (2, 130, 300, 129), (1, 300, 8, 8)]
+# the edges of the bf16 TMA routes' tiles (wgmma: 128 x 256 output tiles,
+# 64-deep D steps; split D: 16 x 128 tiles, chunks of 64-deep steps): C
+# around 16, 64 and 128 rows, D off the 64-deep step, F around 128 and 256
+# columns, 1 and 3 experts, and two cases where one persistent block walks
+# tiles of two experts (100 and 30 tiles an expert on 132 SMs)
+GMM_EDGES = ([(3, c, 72, 264) for c in (1, 8, 63, 64, 65, 127, 128, 129)]
+             + [(1, c, d, 136) for d in (8, 56, 64, 72, 1008) for c in (8, 129)]
+             + [(3, c, 56, f) for f in (8, 136, 256, 264) for c in (1, 65)]
+             + [(2, 1280, 64, 2560), (3, 300, 1008, 1000)])
 GMM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}      # tests/test_kernels.py:147
 GROK_LAYERS = 4                  # of grok-1's 64: 42.58 GB of bf16 weights
 GROK_SERVE = {"batch": 8, "prompt_len": 1024, "steps": 64}
@@ -2282,47 +2298,85 @@ def gmm_bound_ms(e, c, d, f, elt, ops_per_s) -> tuple[float, str, int]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", moved
 
 
+def gmm_route(gkernel, fn):
+    """``fn()`` and the route its grouped-matmul launch took, by the C
+    entry's report: ``"wgmma"``, ``"splitd"`` or ``"other"`` (the mma.sync
+    and float32 routes)."""
+    w0, s0 = gkernel.launches_wgmma, gkernel.launches_splitd
+    out = fn()
+    ran = ("wgmma" if gkernel.launches_wgmma > w0 else
+           "splitd" if gkernel.launches_splitd > s0 else "other")
+    return out, ran
+
+
+def gmm_case(torch, gen, gkernel, gref, e, c, d, f, dt, scaled=False):
+    """One call against the plain version at the reference's tolerance
+    (``close_scaled`` where ``scaled``), its route against the plan's, and a
+    second call's bits; returns the error and the route."""
+    x, w = gmm_inputs(torch, gen, e, c, d, f, dt)
+    y, ran = gmm_route(gkernel, lambda: gkernel.grouped_matmul_cuda(x, w))
+    want = gref.grouped_matmul(x, w)
+    tol = GMM_TOL[str(dt)[6:]]
+    err = (close_scaled(y, want, tol, tol) if scaled else
+           (close(y, want, tol), None))
+    route = gkernel.plan(e, c, d, f, dt).route
+    assert ran == (route if route in ("wgmma", "splitd") else "other"), \
+        ((e, c, d, f), dt, route, ran)
+    assert torch.equal(y, gkernel.grouped_matmul_cuda(x, w)), (e, c, d, f)
+    return err, route
+
+
 def gmm_phase(torch, gkernel, gref) -> dict:
     """The CUDA grouped matmul against its plain version: the reference's
-    cases in float32 (1e-4) and bf16 (5e-2), ragged C, D and F, an input
-    off 16-byte alignment, float32 against float64, and the four shapes of
-    grok-1's expert FFN (bf16, each held with :func:`close_scaled`); times
-    kernel, plain version and ``torch.bmm`` (the yardstick, never called by
-    the port) at those four shapes. Returns the kernel's JSON entry (no
-    launches), timed at the prefill's gate/up shape."""
+    cases in float32 (1e-4) and bf16 (5e-2), ragged C, D and F, the edges
+    of the TMA routes' tiles (``GMM_EDGES``), an input off 16-byte
+    alignment, float32 against float64, and the four shapes of grok-1's
+    expert FFN (bf16, each held with :func:`close_scaled`); every call's
+    route by the C entry's report (bf16 prefill shapes on wgmma, decode
+    shapes on split D), two calls giving the same bits; times kernel, plain
+    version and ``torch.bmm`` (the yardstick, never called by the port) at
+    the four shapes. Returns the kernel's JSON entry (no launches), timed
+    at the prefill's gate/up shape."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    for case in GMM_CASES + GMM_RAGGED:
+    routes = {}
+    for case in GMM_CASES + GMM_RAGGED + GMM_EDGES:
         for dt in (torch.float32, torch.bfloat16):
-            x, w = gmm_inputs(torch, gen, *case, dt)
-            err = close(gkernel.grouped_matmul_cuda(x, w),
-                        gref.grouped_matmul(x, w), GMM_TOL[str(dt)[6:]])
-            print(f"gmm E,C,D,F={case} {str(dt)[6:]}: max abs err {err:.3e}")
-    # an input whose data starts 2 bytes past a 16-byte boundary
+            err, route = gmm_case(torch, gen, gkernel, gref, *case, dt)
+            routes[route] = routes.get(route, 0) + 1
+            print(f"gmm E,C,D,F={case} {str(dt)[6:]} ({route}): max abs err "
+                  f"{err[0]:.3e}")
+    assert all(routes.get(r) for r in gkernel.ROUTES), routes
+    # an input whose data starts 2 bytes past a 16-byte boundary takes the
+    # mma.sync route, the aligned one wgmma
     x, w = gmm_inputs(torch, gen, 2, 64, 64, 64, torch.bfloat16)
     xo = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(
         x.shape)
     xo.copy_(x)
     assert xo.data_ptr() % 16 != 0 and xo.is_contiguous()
-    assert torch.equal(gkernel.grouped_matmul_cuda(xo, w),
-                       gkernel.grouped_matmul_cuda(x, w))
+    yo, ran_o = gmm_route(gkernel, lambda: gkernel.grouped_matmul_cuda(xo, w))
+    ya, ran_a = gmm_route(gkernel, lambda: gkernel.grouped_matmul_cuda(x, w))
+    assert (ran_o, ran_a) == ("other", "wgmma"), (ran_o, ran_a)
+    assert torch.equal(yo, ya)
     x, w = gmm_inputs(torch, gen, 4, 96, 1000, 72, torch.float32)
     want = torch.einsum("ecd,edf->ecf", x.double(), w.double())
     e_kernel = (gkernel.grouped_matmul_cuda(x, w).double() - want).abs().max().item()
     e_plain = (gref.grouped_matmul(x, w).double() - want).abs().max().item()
     assert e_kernel <= GMM_TOL["float32"], e_kernel
-    print(f"gmm against float64 (E 4, C 96, D 1000, F 72, float32): max abs "
-          f"err kernel {e_kernel:.3e}, plain {e_plain:.3e}; an input off "
-          f"16-byte alignment gives the aligned result bit for bit")
+    print(f"gmm routes of those calls: {routes}; against float64 (E 4, C 96, "
+          f"D 1000, F 72, float32): max abs err kernel {e_kernel:.3e}, plain "
+          f"{e_plain:.3e}; an input off 16-byte alignment (mma.sync route) "
+          f"gives the aligned result (wgmma route) bit for bit")
 
     entry = None
     for label, e, c, d, f in GMM_PATH:
-        x, w = gmm_inputs(torch, gen, e, c, d, f, torch.bfloat16)
-        err = close_scaled(gkernel.grouped_matmul_cuda(x, w),
-                           gref.grouped_matmul(x, w), GMM_TOL["bfloat16"],
-                           GMM_TOL["bfloat16"])
-        torch.cuda.empty_cache()
+        err, route = gmm_case(torch, gen, gkernel, gref, e, c, d, f,
+                              torch.bfloat16, scaled=True)
         prefill = c > 8
+        assert route == ("wgmma" if prefill else "splitd"), (label, route)
+        splits = gkernel.plan(e, c, d, f, torch.bfloat16).splits
+        torch.cuda.empty_cache()
+        x, w = gmm_inputs(torch, gen, e, c, d, f, torch.bfloat16)
         inner, reps = (3, 5) if prefill else (10, 11)
         ms = time_ms(torch, lambda i: gkernel.grouped_matmul_cuda(x, w), 1,
                      inner=inner, reps=reps)
@@ -2332,7 +2386,8 @@ def gmm_phase(torch, gkernel, gref) -> dict:
                            inner=1, reps=3)
         bound, by, moved = gmm_bound_ms(e, c, d, f, 2, BF16_OPS_PER_S)
         print(f"gmm at grok-1's {label} shape x ({e}, {c}, {d}) w ({e}, {d}, "
-              f"{f}) bf16: max abs err {err[0]:.3e} (scale {err[1]:.3e}); "
+              f"{f}) bf16, {route} route (S {splits}): max abs err "
+              f"{err[0]:.3e} (scale {err[1]:.3e}), two calls bit for bit; "
               f"kernel {ms:.4f} ms ({2 * e * c * d * f / ms / 1e9:.1f} "
               f"TFLOP/s, {moved / ms / 1e6:.0f} GB/s), plain {plain_ms:.3f} "
               f"ms, torch.bmm {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
@@ -2360,8 +2415,9 @@ def grok_serve_phase(torch, np, gkernel, gref, fkernel, fref,
     """Full-width grok-1 cut to 4 of its 64 layers, served by the serve
     driver (``repro_torch.launch.serve.run``): batch 8, a 1024-token
     prompt, 64 greedy steps, random bf16 weights from the seed. Checks the
-    launch counts of every call (12 grouped matmuls and 4 flash forwards
-    in the prefill, 12 and 0 in each decode step), then holds every
+    launch counts of every call (12 grouped matmuls on the wgmma route and
+    4 flash forwards in the prefill, 12 grouped matmuls on the split-D
+    route and no flash forward in each decode step), then holds every
     grouped-matmul call of a prefill of the same prompts and of one decode
     step, and every flash forward of that prefill (head dim 128), to the
     plain version on that call's own inputs (the flash lse to the plain
@@ -2382,17 +2438,22 @@ def grok_serve_phase(torch, np, gkernel, gref, fkernel, fref,
           f"{GROK_LAYERS} layers, batch {b}, prompt {s}, steps {steps}, seed "
           f"{SEED})", flush=True)
     gkernel.launches = fkernel.launches_fwd = fkernel.launches_fwd_mma = 0
+    gkernel.launches_wgmma = gkernel.launches_splitd = 0
     run, calls = counted_serve(
         launch_serve, lambda: launch_serve.run(cfg, b, s, steps, seed=SEED),
         lambda: (gkernel.launches, fkernel.launches_fwd,
-                 fkernel.launches_fwd_mma))
+                 fkernel.launches_fwd_mma, gkernel.launches_wgmma,
+                 gkernel.launches_splitd))
     launches = gkernel.launches
     per_call = 3 * cfg.n_layers                 # gate, up, down a layer
     assert cfg.param_count() == GROK_PARAMS, cfg.param_count()
-    # the flash forwards (bf16, D 128) on the tensor-core kernel
-    assert calls[0] == ("prefill", per_call, cfg.n_layers, cfg.n_layers), \
-        calls[0]
-    assert calls[1:] == [("decode", per_call, 0, 0)] * steps, calls[1:4]
+    # the flash forwards (bf16, D 128) on the tensor-core kernel; every
+    # grouped matmul of the prefill on the wgmma route, of a decode step on
+    # the split-D route
+    assert calls[0] == ("prefill", per_call, cfg.n_layers, cfg.n_layers,
+                        per_call, 0), calls[0]
+    assert calls[1:] == [("decode", per_call, 0, 0, 0, per_call)] * steps, \
+        calls[1:4]
     assert launches == per_call * (1 + steps), launches
     assert tuple(run.tokens.shape) == (b, steps)
     assert bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all())
@@ -2411,8 +2472,9 @@ def grok_serve_phase(torch, np, gkernel, gref, fkernel, fref,
           f"{run.decode_s[0] * 1e3:.3f} ms), {b * steps / sum(run.decode_s):.1f} "
           f"tokens/s; peak memory {run.peak_bytes / 1e9:.2f} GB; launches "
           f"{per_call} grouped matmuls and {cfg.n_layers} flash forwards (on "
-          f"the tensor-core kernel) in the prefill, {per_call} grouped "
-          f"matmuls in each of the {steps} decode steps ({launches} in the "
+          f"the tensor-core kernel) in the prefill, its grouped matmuls on "
+          f"the wgmma route, {per_call} grouped matmuls in each of the "
+          f"{steps} decode steps on the split-D route ({launches} in the "
           f"run)", flush=True)
 
     # every grouped-matmul call of a prefill of the same prompts and of one
@@ -2507,7 +2569,9 @@ def grok_serve_phase(torch, np, gkernel, gref, fkernel, fref,
 def moe_profile(torch, run, card: str) -> None:
     """One batch-8 prefill and three decode steps (each rewriting the last
     position) under ``torch.profiler``: device busy share and the grouped
-    matmul's share of device time."""
+    matmul's share of device time, its kernels checked by name (the
+    prefill's on ``gmm_wgmma_kernel``, a decode step's on
+    ``gmm_splitd_kernel`` and its reduce pass)."""
     sv, params = run.serve, run.params
 
     def step():
@@ -2520,12 +2584,17 @@ def moe_profile(torch, run, card: str) -> None:
         fn()
         wall_ms, busy_ms, launches, kernels = device_profile(torch, fn, n)
         gmm_ms = sum(dev_us(e) for e in kernels if "gmm_" in e.key) / 1e3 / n
+        gmm_names = {kernel_name(e.key) for e in kernels if "gmm_" in e.key}
+        assert gmm_names == ({"gmm_wgmma_kernel"} if name == "prefill" else
+                             {"gmm_splitd_kernel",
+                              "gmm_splitd_reduce_kernel"}), gmm_names
         top = "; ".join(f"{e.key[:44]} {dev_us(e) / 1e3 / n:.3f} ms x"
                         f"{e.count // n}" for e in kernels[:5])
         print(f"moe {name} profile on {card}: wall {wall_ms:.3f} ms (under "
               f"the profiler), device busy {busy_ms:.3f} ms "
               f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} kernel "
-              f"launches; grouped matmul {gmm_ms:.3f} ms "
+              f"launches; grouped matmul ({', '.join(sorted(gmm_names))}) "
+              f"{gmm_ms:.3f} ms "
               f"({100 * gmm_ms / busy_ms:.1f}% of device time); top device "
               f"time: {top}", flush=True)
 

@@ -2,12 +2,14 @@
 their XAIF registration.
 
 Port of ``src/repro/kernels/moe/ops.py``. :func:`grouped_matmul` sends a
-CUDA tensor to the hand-written kernel
-(:func:`repro_torch.kernels.moe.kernel.grouped_matmul_cuda`), a CPU tensor
-to the plain version (``ref.py``), and raises on any other device. There is
-no fallback from the kernel to the plain version. :func:`moe_ffn` makes its
-three products (gate, up, down) through it, so on the card an expert FFN is
-three launches of the kernel.
+CUDA tensor to the hand-written kernels
+(:func:`repro_torch.kernels.moe.kernel.grouped_matmul_cuda`, which plans
+the route: wgmma + TMA for bf16 prefill shapes, split D for bf16 at C <=
+16, ``mma.sync`` for bf16 TMA cannot read, CUDA cores for float32), a CPU
+tensor to the plain version (``ref.py``), and raises on any other device.
+There is no fallback from the kernels to the plain version. :func:`moe_ffn`
+makes its three products (gate, up, down) through it, so on the card an
+expert FFN is three calls of the kernel.
 
 The ``SPEC`` keeps the reference's op name, ports (one slave port for the
 routing configuration, master ports for the tokens and the three expert
@@ -60,8 +62,8 @@ SPEC = AcceleratorSpec(
         PortSpec("tokens_out", Axes(lx.EXPERT, None, lx.EMBED)),
     ),
     power_domain=PowerDomain("acc_moe", leak_uw=14.0, active_dyn_uw_mhz=52.0),
-    description=("Per-expert matmul: one block per (C tile, F tile, expert) "
-                 "walks D, bf16 tensor-core tiles; unrouted experts stay "
-                 "power-gated"),
+    description=("Per-expert matmul: bf16 prefill on persistent wgmma + "
+                 "TMA tiles, decode with D split over blocks and summed in "
+                 "a fixed order; unrouted experts stay power-gated"),
 )
 register(SPEC, allow_override=True)

@@ -128,6 +128,85 @@ def test_plain_grouped_matmul_takes_a_ragged_shape(dtype):
     _close(got, oracle, GMM_TOL[dtype])
 
 
+# grok-1's four expert-FFN shapes (chip_smoke.GMM_PATH) and their plans:
+# route, splits of D, float32 workspace bytes
+GROK_PLANS = [((8, 2560, 6144, 32768), ("wgmma", 1, 0)),
+              ((8, 2560, 32768, 6144), ("wgmma", 1, 0)),
+              ((8, 8, 6144, 32768), ("splitd", 1, 0)),
+              ((8, 8, 32768, 6144), ("splitd", 4, 4 * 8 * 8 * 6144 * 4))]
+
+
+@pytest.mark.parametrize("shape,want", GROK_PLANS)
+def test_plan_routes_grok_expert_ffn_shapes(shape, want):
+    """bf16 prefill (C 2560) on wgmma; decode (C 8) on split D, with D cut
+    into chunks until E x F tiles x S fills about 4 waves of 132 SMs (the
+    down projection's 384 tiles need S 4; gate/up's 2048 none)."""
+    e, c, d, f = shape
+    p = kernel.plan(e, c, d, f, torch.bfloat16)
+    assert (p.route, p.splits, p.workspace_bytes) == want
+    if p.route == "splitd":
+        assert e * -(-f // 128) * p.splits >= 4 * 132
+
+
+@pytest.mark.parametrize("shape,x_aligned,w_aligned", [
+    ((8, 2560, 6144, 32768), False, True),
+    ((8, 8, 32768, 6144), True, False),
+    ((8, 2560, 6140, 32768), True, True),      # D off a multiple of 8
+    ((8, 8, 6144, 32764), True, True),         # F off a multiple of 8
+    ((3, 37, 45, 77), True, True)])
+def test_plan_sends_what_tma_cannot_take_to_mma_sync(shape, x_aligned,
+                                                     w_aligned):
+    """TMA reads 16-byte aligned bases and rows; anything else stays on the
+    mma.sync kernel, and float32 on the CUDA cores, whatever the shape."""
+    p = kernel.plan(*shape, torch.bfloat16, x_aligned, w_aligned)
+    assert p == kernel.Plan("mma", 1, 0)
+    assert kernel.plan(*shape, torch.float32, x_aligned, w_aligned) == \
+        kernel.Plan("f32", 1, 0)
+
+
+def test_split_d_chunks_cover_d():
+    """Every split-D plan cuts D into S chunks of the C entry's
+    ``split_chunk`` (a multiple of the 64-deep step), none of them empty,
+    and asks for a workspace only when it splits."""
+    for e in (1, 3, 8):
+        for f in (8, 136, 6144):
+            for d in (8, 56, 64, 72, 1008, 4096, 6144, 32768):
+                p = kernel.plan(e, 8, d, f, torch.bfloat16)
+                chunk = -(-(-(-d // p.splits)) // 64) * 64
+                assert p.route == "splitd" and 1 <= p.splits <= 65535
+                assert (p.splits - 1) * chunk < d <= p.splits * chunk
+                assert p.workspace_bytes == (
+                    p.splits * e * 8 * f * 4 if p.splits > 1 else 0)
+
+
+def test_split_d_arithmetic_matches_pallas_and_float64():
+    """The split-D route's arithmetic emulated on the CPU at E 2, C 8,
+    D 4096, F 256 (S 8 chunks of 512): a float32 partial per chunk, the
+    partials added in split order, one bf16 rounding. Within the
+    reference's bf16 tolerance of the Pallas kernel (interpret mode), and
+    within the bf16 bound of float64: one rounding (2^-8 |y|) plus
+    float32's summation error ((chunk + S) 2^-24 sum |x| |w|, doubled)."""
+    e, c, d, f = 2, 8, 4096, 256
+    p = kernel.plan(e, c, d, f, torch.bfloat16)
+    assert (p.route, p.splits) == ("splitd", 8)
+    chunk = d // p.splits
+    x, w = _arr((e, c, d), 21), _arr((e, d, f), 22, d ** -0.5)
+    xt, wt = _torch(x, "bfloat16").float(), _torch(w, "bfloat16").float()
+    total = None
+    for k in range(0, d, chunk):
+        part = torch.einsum("ecd,edf->ecf", xt[..., k:k + chunk],
+                            wt[:, k:k + chunk])
+        total = part if total is None else total + part
+    emu = total.to(torch.bfloat16)
+    pallas = pallas_gmm(_jax(x, "bfloat16"), _jax(w, "bfloat16"), c_block=8,
+                        f_block=256, d_block=512)
+    _close(emu, pallas, GMM_TOL["bfloat16"])
+    f64 = torch.einsum("ecd,edf->ecf", xt.double(), wt.double())
+    mag = torch.einsum("ecd,edf->ecf", xt.double().abs(), wt.double().abs())
+    bound = 2 ** -8 * f64.abs() + 2 * (chunk + p.splits) * 2 ** -24 * mag
+    assert bool(((emu.double() - f64).abs() <= bound).all())
+
+
 def _ffn_params(e=4, d=32, f=64):
     return {"w_gate": _arr((e, d, f), 11, 0.1), "w_up": _arr((e, d, f), 12, 0.1),
             "w_down": _arr((e, f, d), 13, 0.1)}
