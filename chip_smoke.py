@@ -11,13 +11,22 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
    chunk-scan, depthwise causal conv1d and grouped-matmul kernels from
    ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, started together;
    reused when already built) and prints the compiler's resource reports;
-3. kernel phase: holds the paged CUDA kernel against its plain PyTorch
-   version on the card, on the reference's test cases in float32 and
-   bfloat16 and at granite-3-2b's decode shape (8 slots, 32 query / 8 KV
-   heads, head dim 64, 16-token pages, ragged lengths up to 1024, bf16 pool,
-   with and without a ring-table window), then times kernel, plain version
+3. kernel phase: holds the paged CUDA kernel (split-KV, splits merged in
+   the same launch) against its plain PyTorch version on the card, on the
+   reference's test cases in float32 and bfloat16, at granite-3-2b's decode
+   shape (8 slots, 32 query / 8 KV heads, head dim 64, 16-token pages,
+   ragged lengths up to 1024, bf16 pool, with and without a ring-table
+   window), and on the split design's edges (``PAGED_EDGES``: single-split
+   and merged slots in one call, one slot at 4096 positions and one past 64
+   splits, a slot of length 0, G 1 to 16, every load width, rings whose
+   window is not a multiple of the page size, page ids outside the pool in
+   unused entries) in all four dtype pairs, each call repeated bit for bit
+   with the merge's counters left zeroed; then times kernel, plain version
    and ``scaled_dot_product_attention`` (the yardstick, never called by the
-   port) with CUDA events;
+   port; on KV gathered in advance and with the gather) at the serve
+   phase's shape, one slot at 4096 positions and the decode shape, from a
+   CUDA graph and eagerly (``tools/paged_timing.py`` times any checkout's
+   kernel the same way);
 4. serve phase: full-width, full-depth granite-3-2b with random weights
    made on the card from a seed, served by ``ContinuousBatchingEngine``
    (8 slots, 16-token pages, prefill chunk 16): 16 requests sharing a
@@ -161,6 +170,7 @@ exits non-zero and prints no result; so does a machine without a card.
 
 from __future__ import annotations
 
+import itertools
 import json
 import pathlib
 import statistics
@@ -190,6 +200,31 @@ PAGED_CASES = [
 ]
 GRANITE_DECODE = (8, 32, 8, 64, 1024, 16)   # B, H, K, D, max_len, ps
 RING_WINDOW = 256
+LONG_CONTEXT = 4096        # granite-3-2b's context: one slot of it is timed
+# the edges of the split-KV kernel (``kernel.plan``: 64-position splits at
+# 16-token pages): B, H, K, D, ps, lengths, window, NP (None: a ring of
+# ceil(window / ps) + 1 entries). Unused entries of a contiguous table hold
+# page ids outside the pool.
+PAGED_EDGES = (
+    # single-split and merged slots in one call: 1, L - 1, L, L + 1, 2L
+    [(5, 32, 8, 64, 16, (1, 63, 64, 65, 128), None, 10),
+     # one slot at granite's context: 64 splits merged
+     (1, 32, 8, 64, 16, (LONG_CONTEXT,), None, 256),
+     # past 64 splits of 64: 64 splits of 128 positions, two tiles each
+     (1, 8, 2, 64, 16, (2 * LONG_CONTEXT - 5,), None, 512),
+     # a slot of length 0 (zeros) beside merged ones
+     (3, 8, 2, 64, 16, (0, 70, 130), None, 12)]
+    # G 1, 4, 8 and 16 (two chunks of 8 query heads a KV head)
+    + [(3, 4 * g, 4, 64, 16, (1, 64, 200), None, 13) for g in (1, 4, 8, 16)]
+    # every load width: bf16 rows of 32, 66, 68, 72, 128, 200 and 256 bytes
+    # take 16-, 2-, 4-, 8-, 16-, 8- and 16-byte loads; float32 16, 4, 8, 16
+    + [(3, 8, 2, d, 16, (17, 64, 150), None, 10)
+       for d in (16, 33, 34, 36, 64, 100, 128)]
+    # rings whose window is not a multiple of the page size, over 2 and 4
+    # splits, lengths below and past the window
+    + [(6, 8, 2, 64, 16, (1, 50, 100, 150, 300, 777), 100, None),
+       (6, 8, 2, 64, 16, (1, 64, 199, 200, 333, 777), 200, None),
+       (4, 8, 2, 64, 4, (3, 13, 40, 93), 13, None)])
 
 
 def card_line() -> str:
@@ -254,13 +289,16 @@ def attention_f64(torch, q, k_pool, v_pool, tables, lengths):
 
 
 def pool_case(torch, gen, b, h, kh, d, max_len, ps, window, q_dtype, kv_dtype,
-              copies=1, ring=False):
+              copies=1, ring=False, fixed=False):
     """Random pools (``copies`` layers of them), shuffled disjoint page
-    chains, ragged lengths in [1, max_len]; ``ring`` builds ring tables of
-    ceil(window/ps)+1 entries holding each slot's newest blocks."""
+    chains, ragged lengths in [1, max_len] (all ``max_len`` when ``fixed``);
+    ``ring`` builds ring tables of ceil(window/ps)+1 entries holding each
+    slot's newest blocks."""
     dev = "cuda"
-    lengths = torch.randint(1, max_len + 1, (b,), generator=gen, device=dev,
-                            dtype=torch.int32)
+    lengths = (torch.full((b,), max_len, device=dev, dtype=torch.int32)
+               if fixed else
+               torch.randint(1, max_len + 1, (b,), generator=gen, device=dev,
+                             dtype=torch.int32))
     np_slot = -(-window // ps) + 1 if ring else -(-max_len // ps)
     n_pages = b * np_slot + 1
     perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
@@ -270,6 +308,14 @@ def pool_case(torch, gen, b, h, kh, d, max_len, ps, window, q_dtype, kv_dtype,
     vp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
     q = torch.randn((b, h, d), generator=gen, device=dev).to(q_dtype)
     return q, kp, vp, tables, lengths
+
+
+def rotating(fn, copies: int):
+    """``fn(i)`` as a call of no arguments over i = 0, 1, .., copies - 1, 0,
+    .. (for :func:`graph_ms`, so that each captured call finds its inputs
+    cold in L2 as :func:`time_ms` does)."""
+    calls = itertools.count()
+    return lambda: fn(next(calls) % copies)
 
 
 def time_ms(torch, fn, copies: int, inner: int = 50, reps: int = 21) -> float:
@@ -290,6 +336,47 @@ def time_ms(torch, fn, copies: int, inner: int = 50, reps: int = 21) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def paged_case(torch, gen, kernel, ref, b, h, kh, d, ps, lengths, window,
+               np_slot, q_dt, kv_dt) -> tuple[float, object]:
+    """One call of the CUDA kernel on the given lengths against the plain
+    version (``TOL`` by q's dtype; a slot of length 0 gives zeros, where
+    the plain version averages v), a second call's bits, and the merge's
+    counters all zero after both. Unused entries of a contiguous table hold
+    page ids outside the pool (the plain version, which gathers every
+    entry, gets them clamped: they are masked). Returns the error and the
+    call's ``kernel.plan``."""
+    dev = "cuda"
+    if window is not None:
+        np_slot = -(-window // ps) + 1
+    n_pages = b * np_slot + 1
+    perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
+    tables = perm[:b * np_slot].reshape(b, np_slot).contiguous()
+    ref_tables = tables
+    if window is None:
+        used = torch.tensor([-(-n // ps) for n in lengths], device=dev)
+        unused = torch.arange(np_slot, device=dev)[None] >= used[:, None]
+        tables = torch.where(unused, n_pages + 3, tables).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kp = torch.randn((n_pages, ps, kh, d), generator=gen, device=dev).to(kv_dt)
+    vp = torch.randn((n_pages, ps, kh, d), generator=gen, device=dev).to(kv_dt)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(q_dt)
+    got = kernel.paged_attention_cuda(q, kp, vp, tables, lens, window=window)
+    again = kernel.paged_attention_cuda(q, kp, vp, tables, lens, window=window)
+    torch.cuda.synchronize()
+    counters = kernel.counter_buffer(q.device)
+    assert counters is None or not bool(counters.any()), "counters left set"
+    assert torch.equal(got, again), "two calls differ"
+    live = lens > 0
+    assert not bool(got[~live].any()), "a slot of length 0 is not zero"
+    want = ref.paged_attention(q, kp, vp, ref_tables, lens, window=window)
+    err = close(got[live], want[live], TOL[str(q_dt).split(".")[1]])
+    return err, kernel.plan(b, h, kh, d, np_slot, ps, window, q_dt, kv_dt)
+
+
+DTYPE_PAIRS = [("float32", "float32"), ("float32", "bfloat16"),
+               ("bfloat16", "float32"), ("bfloat16", "bfloat16")]
 
 
 def kernel_phase(torch, kernel, ref) -> dict:
@@ -317,43 +404,91 @@ def kernel_phase(torch, kernel, ref) -> dict:
               f"{'ring ' if ring else ''}q {q_dt} pool {kv_dt}: "
               f"max abs err {err:.3e} (tolerance {tol} + {tol} * |plain|)")
 
-    # timed at the serve phase's shape (10-entry tables, max_len 160) and at
-    # granite's decode shape with lengths up to 1024, which the JSON line
-    # reports
-    timing(torch, gen, kernel, ref, b, h, kh, d, 160, ps)
-    return timing(torch, gen, kernel, ref, b, h, kh, d, max_len, ps)
+    # the split-KV design's edges, in all four dtype pairs, each call
+    # repeated bit for bit with the counters left zeroed
+    widths = set()
+    for edge in PAGED_EDGES:
+        for q_dt, kv_dt in DTYPE_PAIRS:
+            err, p = paged_case(torch, gen, kernel, ref, *edge,
+                                getattr(torch, q_dt), getattr(torch, kv_dt))
+            widths.add((kv_dt, p.vec_bytes))
+            print(f"kernel edge B,H,K,D,ps,lengths,window,NP={edge} q {q_dt} "
+                  f"pool {kv_dt} (L {p.split_len}, {p.n_split} splits, "
+                  f"{p.vec_bytes}-byte loads, tile {p.tile}): max abs err "
+                  f"{err:.3e}, two calls bit for bit")
+    want = {("bfloat16", w) for w in (2, 4, 8, 16)} | {
+        ("float32", w) for w in (4, 8, 16)}
+    assert widths == want, widths
+    print(f"kernel edges: every load width ran ({sorted(widths)}); the "
+          f"merge's counters zero after every call")
+
+    # timed at the serve phase's shape (10-entry tables, max_len 160), at
+    # one slot of granite's 4096-token context, and at granite's decode
+    # shape with lengths up to 1024, which the JSON line reports
+    return paged_timings(torch, kernel, ref)[-1]
 
 
-def timing(torch, gen, kernel, ref, b, h, kh, d, max_len, ps) -> dict:
+def paged_timings(torch, kernel, ref) -> list[dict]:
+    """:func:`timing` at the serve phase's shape, one slot at 4096
+    positions and granite's decode shape, on inputs drawn from ``SEED``
+    (the same for any kernel module: ``tools/paged_timing.py``)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    b, h, kh, d, max_len, ps = GRANITE_DECODE
+    return [timing(torch, gen, kernel, ref, b, h, kh, d, 160, ps),
+            timing(torch, gen, kernel, ref, 1, h, kh, d, LONG_CONTEXT, ps,
+                   fixed=True),
+            timing(torch, gen, kernel, ref, b, h, kh, d, max_len, ps)]
+
+
+def timing(torch, gen, kernel, ref, b, h, kh, d, max_len, ps,
+           fixed=False) -> dict:
     """Kernel, plain version and SDPA times on one bf16 case, its bound, and
-    the kernel's error against the plain version."""
+    the kernel's error against the plain version; two kernel calls give the
+    same bits. Kernel and SDPA are timed from a CUDA graph (the device's
+    time, the JSON line's ``ms`` and ``library_ms``; each call's host time
+    to issue it is tens of us, more than the kernel's) and eagerly; SDPA on
+    KV gathered in advance and with the gather from the pool in each call.
+    """
     copies = 8
     q, kp, vp, tables, lengths = pool_case(
         torch, gen, b, h, kh, d, max_len, ps, None, torch.bfloat16,
-        torch.bfloat16, copies=copies)
+        torch.bfloat16, copies=copies, fixed=fixed)
     got = kernel.paged_attention_cuda(q, kp[0], vp[0], tables, lengths)
+    again = kernel.paged_attention_cuda(q, kp[0], vp[0], tables, lengths)
     want = ref.paged_attention(q, kp[0], vp[0], tables, lengths)
     max_err = close(got, want, TOL["bfloat16"])
-    ms = time_ms(torch, lambda i: kernel.paged_attention_cuda(
-        q, kp[i], vp[i], tables, lengths), copies)
+    assert torch.equal(got, again), "two calls differ"
+    call = lambda i: kernel.paged_attention_cuda(  # noqa: E731
+        q, kp[i], vp[i], tables, lengths)
+    ms = graph_ms(torch, rotating(call, copies), inner=48)
+    eager_ms = time_ms(torch, call, copies)
     plain_ms = time_ms(torch, lambda i: ref.paged_attention(
         q, kp[i], vp[i], tables, lengths), copies, inner=10, reps=11)
     # yardstick: SDPA on the same KV gathered contiguous (outside the timing)
     s = tables.shape[1] * ps
-    kc = kp[:, tables.long()].reshape(copies, b, s, kh, d).transpose(2, 3).contiguous()
-    vc = vp[:, tables.long()].reshape(copies, b, s, kh, d).transpose(2, 3).contiguous()
+    tl = tables.long()
     mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None]
     qs = q[:, :, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if tuple(int(x) for x in torch.__version__.split(".")[:2]) < (2, 5):
         # no enable_gqa before torch 2.5: give SDPA the KV heads repeated
-        kc = kc.repeat_interleave(h // kh, dim=2)
-        vc = vc.repeat_interleave(h // kh, dim=2)
-        gqa = {}
+        heads, gqa = (lambda x: x.repeat_interleave(h // kh, dim=-3)), {}
     else:
-        gqa = {"enable_gqa": True}
-    library_ms = time_ms(torch, lambda i: sdpa(qs, kc[i], vc[i], attn_mask=mask,
-                                               **gqa), copies)
+        heads, gqa = (lambda x: x), {"enable_gqa": True}
+
+    def gather(pool):           # (..., P, ps, K, D) -> (..., B, K, S, D)
+        return heads(pool[..., tl, :, :, :].reshape(
+            *pool.shape[:-4], b, s, kh, d).transpose(-3, -2))
+
+    kc, vc = gather(kp).contiguous(), gather(vp).contiguous()
+    pre = lambda i: sdpa(qs, kc[i], vc[i], attn_mask=mask, **gqa)  # noqa: E731
+    library_ms = graph_ms(torch, rotating(pre, copies), inner=48)
+    library_eager_ms = time_ms(torch, pre, copies)
+    gather_ms = graph_ms(torch, rotating(
+        lambda i: sdpa(qs, gather(kp[i]), gather(vp[i]), attn_mask=mask,
+                       **gqa), copies), inner=48)
+    del kc, vc
     n_pos = int(lengths.sum())
     elt = 2                                     # bf16
     moved = (2 * n_pos * kh * d * elt           # k and v, each read once
@@ -361,11 +496,19 @@ def timing(torch, gen, kernel, ref, b, h, kh, d, max_len, ps) -> dict:
              + tables.numel() * 4 + lengths.numel() * 4)
     ops = 4 * n_pos * h * d                     # q.k and p.v multiply-adds
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    # a kernel module without a plan (an earlier design) is timed alike
+    plan = getattr(kernel, "plan", None)
+    p = plan and plan(b, h, kh, d, tables.shape[1], ps, None, q.dtype, kp.dtype)
+    cut = (f" (L {p.split_len}, {p.n_split} splits, {p.vec_bytes}-byte "
+           f"loads)" if p else "")
     print(f"paged attention at B={b} H={h} K={kh} D={d} ps={ps} "
-          f"NP={tables.shape[1]}, {n_pos} positions: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-          f"{max(t_bytes, t_ops):.4f} ms ({moved} bytes), max abs err "
-          f"{max_err:.3e}")
+          f"NP={tables.shape[1]}, {n_pos} positions{cut}, from a CUDA graph "
+          f"(issued eagerly): kernel {ms:.4f} ms ({eager_ms:.4f}; "
+          f"{moved / ms / 1e6:.0f} GB/s), sdpa {library_ms:.4f} ms "
+          f"({library_eager_ms:.4f}) on KV gathered in advance, {gather_ms:.4f} "
+          f"ms with the gather; plain {plain_ms:.4f} ms; bound "
+          f"{max(t_bytes, t_ops):.4f} ms ({moved} bytes); max abs err "
+          f"{max_err:.3e}, two calls bit for bit", flush=True)
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:105",

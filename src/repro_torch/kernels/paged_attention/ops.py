@@ -75,7 +75,9 @@ SPEC = AcceleratorSpec(
     ),
     power_domain=PowerDomain("acc_paged_attention", leak_uw=10.0,
                              active_dyn_uw_mhz=42.0),
-    description=("Paged decode attention: one block per (slot, KV head), the "
-                 "chain's pages read through the block table, online softmax"),
+    description=("Paged decode attention: split-KV, one block per (split of "
+                 "64 positions, KV head, slot), the pages read through the "
+                 "block table, online softmax, the splits merged in order in "
+                 "the same launch"),
 )
 register(SPEC, allow_override=True)

@@ -6,8 +6,11 @@ kernel in interpret mode, as the JAX tests run it) on the reference's
 semantics; and the dispatch to its no-fallback rule. Tolerances are the
 reference's own: float32 2e-5, bfloat16 3e-2 (tests/test_paged_attention.py).
 The CUDA kernel itself is held to the plain version on the card by
-``chip_smoke.py`` and by ``test_cuda_kernel_matches_plain`` below, which
-skips without a card.
+``chip_smoke.py``, by ``test_cuda_kernel_matches_plain`` below and by
+``tests/test_torch_paged_attention_cuda.py``, which skip without a card.
+Here the kernel's cut (``kernel.plan``) is checked at the path's shapes, and
+its split-and-merge arithmetic, emulated in float32, is held to the JAX
+kernel in interpret mode and to float64.
 """
 
 import functools
@@ -237,3 +240,162 @@ def test_cuda_kernel_matches_plain(b, h, k, d, max_len, ps, win, dtype):
     want = ref.paged_attention(tq, tkp, tvp, tt, tl, window=win)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+# the split-KV kernel's cut (kernel.plan) at the path's shapes: (B, H, K, D,
+# NP, ps, window) -> (split_len, n_split, workspace bytes). Granite-3-2b's
+# decode shape (lengths up to 1024), the serve phase's (10-entry tables),
+# one slot at its 4096-token context, and a ring of window 256.
+PLAN_SHAPES = [
+    ((8, 32, 8, 64, 64, 16, None), (64, 16, 8 * 8 * 16 * (2 * 4 + 4 * 64) * 4)),
+    ((8, 32, 8, 64, 10, 16, None), (64, 3, 8 * 8 * 3 * (2 * 4 + 4 * 64) * 4)),
+    ((1, 32, 8, 64, 256, 16, None), (64, 64, 1 * 8 * 64 * (2 * 4 + 4 * 64) * 4)),
+    ((8, 32, 8, 64, 17, 16, 256), (64, 4, 8 * 8 * 4 * (2 * 4 + 4 * 64) * 4)),
+]
+
+
+@pytest.mark.parametrize("shape,want", PLAN_SHAPES)
+def test_plan_at_the_path_shapes(shape, want):
+    """L a multiple of the page size, enough splits for the longest range
+    the table holds, 16-byte loads at D 64 bf16, one float32 (m, l, acc[G][D])
+    per split of each (slot, KV head), one counter per (slot, KV head)."""
+    b, h, k, d, np_, ps, window = shape
+    p = kernel.plan(*shape, torch.bfloat16, torch.bfloat16)
+    assert (p.split_len, p.n_split, 4 * p.work_floats) == want
+    assert p.split_len % ps == 0 and p.vec_bytes == 16 and p.tile == 64
+    span = np_ * ps if window is None else min(np_ * ps, window)
+    assert (p.n_split - 1) * p.split_len < span <= p.n_split * p.split_len
+    assert p.n_counters == b * k
+
+
+def test_plan_narrows_the_load_to_what_rows_and_pools_allow():
+    """D 36 and D 100 in bf16 (72- and 200-byte rows) take 8-byte loads,
+    D 34 4-byte and odd D 2-byte ones; a pool 8 bytes off a 16-byte
+    boundary takes 8; float32 rows of 144 and 400 bytes keep 16; a call
+    whose longest range fits one split needs no workspace."""
+    bf, f32 = torch.bfloat16, torch.float32
+    width = lambda d, dt, align=16: kernel.plan(  # noqa: E731
+        8, 32, 8, d, 64, 16, None, bf, dt, align).vec_bytes
+    assert [width(d, bf) for d in (64, 36, 100, 34, 33)] == [16, 8, 8, 4, 2]
+    assert [width(d, f32) for d in (36, 100, 33)] == [16, 16, 4]
+    assert width(64, bf, align=8) == 8
+    one = kernel.plan(3, 8, 2, 64, 4, 8, None, f32, f32)
+    assert (one.n_split, one.work_floats, one.n_counters) == (1, 0, 0)
+    # pages longer than a split's target: one page a split, in tiles
+    long = kernel.plan(2, 8, 2, 128, 4, 256, None, f32, f32)
+    assert long.split_len == 256 and long.tile < 64
+
+
+@pytest.mark.parametrize("np_,ps,window", [(1024, 16, None), (600, 7, None),
+                                           (4096, 16, 100_000)])
+def test_plan_caps_the_splits(np_, ps, window):
+    """Past 64 splits of 64 positions the split grows by whole pages
+    instead, so the merge never weighs more than 64 splits."""
+    p = kernel.plan(2, 32, 8, 64, np_, ps, window, torch.bfloat16,
+                    torch.bfloat16)
+    span = np_ * ps if window is None else min(np_ * ps, window)
+    assert p.n_split <= kernel.MAX_SPLITS and p.split_len % ps == 0
+    assert (p.n_split - 1) * p.split_len < span <= p.n_split * p.split_len
+    assert p.split_len - ps < -(-span // kernel.MAX_SPLITS)
+
+
+def _emulate_split_kv(q, kp, vp, tables, lengths, window, split_len):
+    """The kernel's arithmetic in float32 (numpy): per split of
+    ``split_len`` positions its (m, l, acc) by the online softmax from
+    m = -1e30, a slot with one split normalised directly, several merged in
+    split order. Returns o in float32, before the cast to q's dtype."""
+    f32 = np.float32
+    b, h, d = q.shape
+    _, ps, kh, _ = kp.shape
+    n_entries = tables.shape[1]
+    g = h // kh
+    scale = f32(1.0 / np.sqrt(d))
+    out = np.zeros((b, h, d), f32)
+    for bi in range(b):
+        n = max(int(lengths[bi]), 0)
+        lo = hi = 0
+        if n > 0 and window is not None:
+            cur = (n - 1) // ps
+            start = max(0, n - window)
+            lo = max(start, max(start // ps, cur - n_entries + 1, 0) * ps)
+            hi = n
+        elif n > 0:
+            hi = min(n, n_entries * ps)
+        n_active = max(1, -(-(hi - lo) // split_len))
+        for k in range(kh):
+            qg = q[bi, k * g:(k + 1) * g].astype(f32)
+            parts = []
+            for s in range(n_active):
+                pos = np.arange(lo + s * split_len,
+                                min(hi, lo + (s + 1) * split_len))
+                blk = pos // ps
+                page = tables[bi, blk % n_entries if window else blk]
+                kr = kp[page, pos % ps, k].astype(f32)
+                vr = vp[page, pos % ps, k].astype(f32)
+                sc = (qg @ kr.T) * scale
+                m = np.maximum(f32(-1e30), sc.max(axis=1, initial=f32(-1e30)))
+                p = np.exp(sc - m[:, None])
+                parts.append((m, p.sum(axis=1), p @ vr))
+            if n_active == 1:
+                m, l, acc = parts[0]
+                o = acc / np.maximum(l, f32(1e-30))[:, None]
+            else:
+                mx = np.max([m for m, _, _ in parts], axis=0)
+                num, den = np.zeros((g, d), f32), np.zeros(g, f32)
+                for m, l, acc in parts:
+                    w = np.exp(m - mx)
+                    num += acc * w[:, None]
+                    den += l * w
+                o = num / np.maximum(den, f32(1e-30))[:, None]
+            out[bi, k * g:(k + 1) * g] = o
+    return out
+
+
+def _attend_f64(q, kp, vp, tables, lengths, window):
+    """Softmax attention in float64 over each slot's positions: ``[0,
+    len)`` through a contiguous table, the last ``window`` through a ring
+    (whose entries cover the window)."""
+    b, h, d = q.shape
+    _, ps, kh, _ = kp.shape
+    out = np.zeros((b, h, d))
+    for bi in range(b):
+        n = int(lengths[bi])
+        pos = np.arange(max(0, n - window) if window else 0, n)
+        blk = pos // ps
+        page = tables[bi, blk % tables.shape[1] if window else blk]
+        kr = kp[page, pos % ps].astype(np.float64)          # (n, K, D)
+        vr = vp[page, pos % ps].astype(np.float64)
+        for hi in range(h):
+            s = kr[:, hi // (h // kh)] @ q[bi, hi].astype(np.float64) / np.sqrt(d)
+            p = np.exp(s - s.max())
+            out[bi, hi] = p @ vr[:, hi // (h // kh)] / p.sum()
+    return out
+
+
+@pytest.mark.parametrize("n", [7, 8, 9, 26])      # L - 1, L, L + 1, 3L + 2
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 19])
+def test_split_and_merge_emulation_matches_jax(n, dtype, window):
+    """The kernel's split-and-merge arithmetic (L 8 at ps 4, so slots of
+    one, two and four splits) against the JAX kernel in interpret mode at
+    the reference's tolerance, and against float64 at float32's: its sums
+    are float32 on the same (bf16-rounded) inputs."""
+    rng = np.random.default_rng(n)
+    b, h, kh, d, ps, split_len = 3, 8, 2, 64, 4, 8
+    lengths = np.array([n, 1, 3 * split_len + 2], np.int32)
+    np_slot = -(-window // ps) + 1 if window else -(-lengths.max() // ps) + 1
+    n_pages = b * np_slot + 1
+    tables = rng.permutation(n_pages)[:b * np_slot].reshape(b, np_slot)
+    tables = tables.astype(np.int32)
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    kp = rng.normal(size=(n_pages, ps, kh, d)).astype(np.float32)
+    vp = rng.normal(size=(n_pages, ps, kh, d)).astype(np.float32)
+    (jq, jkp, jvp, jt, jl), _ = _both([q, kp, vp, tables, lengths], dtype)
+    q, kp, vp = (np.asarray(x, np.float32) for x in (jq, jkp, jvp))  # rounded
+    got = _emulate_split_kv(q, kp, vp, tables, lengths, window, split_len)
+    want = _jax_paged(jq, jkp, jvp, jt, jl, impl="pallas", window=window)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    exact = _attend_f64(q, kp, vp, tables, lengths, window)
+    np.testing.assert_allclose(got, exact, atol=TOL["float32"],
+                               rtol=TOL["float32"])
