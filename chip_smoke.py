@@ -102,18 +102,25 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
 13. small hybrid reference: the recurrentgemma smoke config served on the
     card (through the kernels) and on the CPU's plain path: logits, caches
     and clear-margin greedy tokens agree;
-14. SSD phase: the CUDA SSD chunk scan against its plain version on the
-    reference's cases (float32 and bf16 x), ragged S, bf16 B and C shared
-    by the heads with stride 0, against a float64 oracle, and at
-    mamba2-370m's prefill shape (b 8, s 4096, 32 heads, p 64, n 128, chunk
-    256), timed there;
+14. SSD phase: the CUDA SSD chunk scan against its plain version: float32
+    B and C (the CUDA-core route) on the reference's cases and ragged S,
+    bf16 B and C (the tensor-core route) on its edges (``SSD_EDGES``: S 1,
+    ragged last chunks, chunks of 8 to 1024, P 8 to 64, N 4 to 128),
+    contiguous and shared by the heads with stride 0, in float32 and bf16
+    x, each call's route by the C entry's report and a second call's bits;
+    both routes against a float64 oracle; and at mamba2-370m's prefill
+    shape (b 8, s 4096, 32 heads, p 64, n 128, chunk 256) against the plain
+    version in float64, two calls bit for bit; timed there with its
+    kernels' device times, both bounds (the tensor cores' TF32 and the CUDA
+    cores' float32), registers, spills, shared memory and workspace;
 15. mamba2 serve phase: full-width mamba2-370m through the serve driver
     ``repro_torch.launch.serve`` (batch 8, a 4096-token prompt, 64 greedy
-    steps). Checks 48 SSD launches in the prefill and none in a decode
-    step, holds every SSD call of one prompt's prefill to the plain
-    version, prints prefill time, decode-step time, tokens/s and peak
-    memory, profiles a prefill and a decode step, and counts the launches
-    that the decode step's SiLU (rounded as XLA rounds it) takes;
+    steps). Checks 48 SSD launches in the prefill, every one on the
+    tensor-core route, and none in a decode step, holds every SSD call of
+    one prompt's prefill to the plain version in float64 and checks its
+    route, prints prefill time, decode-step time, tokens/s and peak memory,
+    profiles a prefill and a decode step, and counts the launches that the
+    decode step's SiLU (rounded as XLA rounds it) takes;
 16. small mamba2 reference: the mamba2 smoke config served on the card
     (through the kernel) and on the CPU's plain path: logits, caches and
     clear-margin greedy tokens agree;
@@ -173,6 +180,7 @@ from __future__ import annotations
 import itertools
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -1767,9 +1775,17 @@ def small_hybrid_reference_phase(torch, np) -> None:
 # b, s, h, p, n, chunk (tests/test_kernels.py:68-72), then ragged S
 SSD_CASES = [(2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 8, 32), (2, 32, 8, 8, 64, 8)]
 SSD_RAGGED = [(2, 37, 3, 16, 16, 16), (1, 300, 2, 64, 128, 256), (1, 1, 2, 8, 4, 8)]
+# the edges of the tensor-core route (bf16 B and C): S 1, ragged last chunks
+# against its 64-row tiles and 128-row blocks, chunks of 8, 100, 256 and
+# 1024, P 8, 16 and 64, N 4, 16 and 128, and odd P and N (narrow copies)
+SSD_EDGES = [(1, 1, 2, 8, 4, 8), (2, 37, 3, 16, 16, 16), (1, 300, 2, 8, 4, 100),
+             (2, 520, 3, 64, 128, 256), (1, 77, 2, 64, 128, 8),
+             (1, 2100, 2, 16, 16, 1024), (1, 1100, 2, 64, 128, 1024),
+             (2, 130, 3, 33, 5, 64), (1, 200, 4, 64, 16, 100)]
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}      # tests/test_kernels.py:83
 M2_PREFILL = (8, 4096, 32, 64, 128, 256)   # b, s, h, p, n, chunk: mamba2-370m
 M2_SERVE = {"batch": 8, "prompt_len": 4096, "steps": 64}
+TF32_OPS_PER_S = 495e12                    # H100 SXM dense TF32 tensor cores
 
 
 def ssd_inputs(torch, gen, b, s, h, p, n, x_dtype=None, bc_dtype=None,
@@ -1789,6 +1805,13 @@ def ssd_inputs(torch, gen, b, s, h, p, n, x_dtype=None, bc_dtype=None,
     return x, dA, B, C
 
 
+def model_decay(torch, gen, b, s, h):
+    """dA = dt A with dt = softplus(N(0, 1)) and A = -1: the reference
+    init's decay, whose cumsum reaches about -200 over a chunk of 256."""
+    return -torch.nn.functional.softplus(torch.randn(
+        (b, s, h), generator=gen, device="cuda"))
+
+
 def ssd_check(torch, skernel, sref, x, dA, B, C, chunk, tol, f64=False):
     """Kernel against the plain chunked version on the same inputs, y and
     the final state each at :func:`close_scaled`'s bound; with ``f64`` the
@@ -1802,52 +1825,119 @@ def ssd_check(torch, skernel, sref, x, dA, B, C, chunk, tol, f64=False):
     return close_scaled(y, wy, tol, tol), close_scaled(st, wst, tol, tol)
 
 
+def ssd_route(skernel, fn):
+    """``fn()`` and the route its SSD launch took, by the C entry's report:
+    ``"tc"`` or ``"fma"``."""
+    tc0 = skernel.launches_tc
+    out = fn()
+    return out, "tc" if skernel.launches_tc > tc0 else "fma"
+
+
+def ssd_case(torch, gen, skernel, sref, b, s, h, p, n, chunk, x_dtype,
+             bc_dtype, shared=False):
+    """One call against the plain version at the reference's tolerance for
+    x's dtype (:func:`close_scaled`), its route by the C entry's report
+    against :func:`kernel.plan`'s, and a second call's bits. Returns the
+    errors of y and the state, and the route."""
+    x, dA, B, C = ssd_inputs(torch, gen, b, s, h, p, n, x_dtype=x_dtype,
+                             bc_dtype=bc_dtype, heads_share_bc=shared)
+    (y, st), ran = ssd_route(skernel,
+                             lambda: skernel.ssd_cuda(x, dA, B, C, chunk=chunk))
+    route = skernel.plan(b, s, h, p, n, chunk, x.dtype, B.dtype).route
+    assert ran == route, ((b, s, h, p, n, chunk), x_dtype, bc_dtype, ran)
+    wy, wst = sref.ssd_chunked(x, dA, B, C, chunk=chunk)
+    tol = SSD_TOL[str(x_dtype).split(".")[1]]
+    ey, es = close_scaled(y, wy, tol, tol), close_scaled(st, wst, tol, tol)
+    y2, st2 = skernel.ssd_cuda(x, dA, B, C, chunk=chunk)
+    assert torch.equal(y, y2) and torch.equal(st, st2), (b, s, h, p, n, chunk)
+    return ey, es, route
+
+
 def ssd_bound_ms(b, s, h, p, n, chunk, x_bytes, bc_bytes, bc_bf16, shared):
-    """Least time for one call: the larger of its operations at the card's
-    peak for their type and its bytes (x, dA, the stored B and C read
-    once; y and the state written once) over the memory rate. Operations
-    (2 a multiply-add), per chunk of L steps over its L (L + 1) / 2 pairs
-    j <= i: the C.B^T scores, 2 n a pair, are products of B and C alone, so
-    they run on the bf16 tensor cores when B and C are bf16 (float32
-    accumulation, as the plain version computes them), and once for all
-    heads when the heads share B and C (``shared``: stride 0); the rest is
-    float32 on the CUDA cores per (b, h): the decayed scores' product with
-    x (2 p a pair), the C.S^T term and the state update (4 L n p).
-    Returns ``(ms, bound_by, float32 ops, score ops, bytes)``."""
-    score = f32 = 0
+    """Least time for one call, two ways: the larger of its operations at
+    the card's peak for their type and its bytes (x, dA, the stored B and C
+    read once; y and the state written once) over the memory rate.
+    Operations (2 a multiply-add), per chunk of L steps over its L (L + 1) /
+    2 pairs j <= i: the C.B^T scores, 2 n a pair, are products of B and C
+    alone, so they run on the bf16 tensor cores when B and C are bf16
+    (float32 accumulation, as the plain version computes them), and once
+    for all heads when the heads share B and C (``shared``: stride 0); the
+    rest per (b, h): the decayed scores' product with x (2 p a pair), the
+    C.S^T term and the state update (4 L n p). ``"cuda_core"`` counts that
+    rest as float32 on the CUDA cores (67 TFLOP/s); ``"tc"`` as the TF32
+    products a float32-accurate tensor-core kernel runs (495 TFLOP/s): 3
+    per product of two float32 operands (x float32 in scores . x), 2 where
+    one operand is bf16 (C and B in C.S^T and the state update, bf16 x).
+    Returns ``{"cuda_core": (ms, by), "tc": (ms, by), "f32": ops, "tf32":
+    ops, "score": ops, "bytes": n}``."""
+    score = sx = sn = 0
     for t0 in range(0, s, chunk):
         length = min(chunk, s - t0)
         pairs = length * (length + 1) // 2
         score += 2 * pairs * n
-        f32 += 2 * pairs * p + 4 * length * n * p
+        sx += 2 * pairs * p
+        sn += 4 * length * n * p
     score *= b * (1 if shared else h)
-    f32 *= b * h
+    sx, sn = sx * b * h, sn * b * h
+    f32, tf32 = sx + sn, (3 if x_bytes == 4 else 2) * sx + 2 * sn
     moved = 2 * b * s * h * p * x_bytes + b * s * h * 4 + bc_bytes \
         + b * h * p * n * 4
-    t_ops = (f32 / FP32_OPS_PER_S
-             + score / (BF16_OPS_PER_S if bc_bf16 else FP32_OPS_PER_S)) * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            f32, score, moved)
+    t_score = score / (BF16_OPS_PER_S if bc_bf16 else FP32_OPS_PER_S) * 1e3
+    out = {"f32": f32, "tf32": tf32, "score": score, "bytes": moved}
+    for key, t_ops in (("cuda_core", f32 / FP32_OPS_PER_S * 1e3 + t_score),
+                       ("tc", tf32 / TF32_OPS_PER_S * 1e3 + t_score)):
+        out[key] = (max(t_ops, t_bytes),
+                    "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def ptxas_report(lib) -> dict:
+    """Registers and spilled bytes of each kernel in a library's ``-Xptxas
+    -v`` report (kept beside it as ``.log``), by kernel name and first
+    template argument."""
+    kinds = {"f": "<float>", "13__nv_bfloat16": "<bf16>", None: ""}
+    out = {}
+    for block in lib.with_suffix(".log").read_text().split(
+            "Compiling entry function")[1:]:
+        m = re.search(r"(ssd_chunk_scan_kernel|ssd_tc_[a-z]+_kernel)"
+                      r"(?:I(f|13__nv_bfloat16))?", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        if m and regs and spill:
+            out[m.group(1) + kinds[m.group(2)]] = (int(regs.group(1)),
+                                                   int(spill.group(1)))
+    return out
 
 
 def ssd_phase(torch, skernel, sref) -> dict:
-    """The CUDA SSD chunk scan against its plain version on the
-    reference's cases (float32 and bfloat16 x), on ragged S, on B and C
-    broadcast over the heads with stride 0, against a float64 oracle, and
-    at mamba2-370m's prefill shape; then times kernel and plain version
-    there. Returns the kernel's JSON entry (no launches)."""
+    """The CUDA SSD chunk scan against its plain version: float32 B and C
+    (the CUDA-core route) on the reference's cases and ragged S, bf16 B and
+    C (the tensor-core route) on its edges (``SSD_EDGES``), contiguous and
+    broadcast over the heads with stride 0, each in float32 and bf16 x,
+    each call's route by the C entry's report and a second call's bits;
+    both routes against a float64 oracle; and at mamba2-370m's prefill
+    shape against the plain version in float64, where two calls give the
+    same bits. Times kernel and plain version there and prints both bounds,
+    the kernels' registers, spills and shared memory, and the workspace.
+    Returns the kernel's JSON entry (no launches)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    for case in SSD_CASES + SSD_RAGGED:
-        b, s, h, p, n, chunk = case
-        for dt in (torch.float32, torch.bfloat16):
-            name = str(dt).split(".")[1]
-            x, dA, B, C = ssd_inputs(torch, gen, b, s, h, p, n, x_dtype=dt)
-            ey, es = ssd_check(torch, skernel, sref, x, dA, B, C, chunk,
-                               SSD_TOL[name])
-            print(f"ssd case b,s,h,p,n,chunk={case} x {name}: max abs err y "
-                  f"{ey[0]:.3e} (scale {ey[1]:.3e}), state {es[0]:.3e}")
+    routes = {}
+    runs = ([(case, dt, torch.float32, False) for case in SSD_CASES + SSD_RAGGED
+             for dt in (torch.float32, torch.bfloat16)]
+            + [(case, dt, torch.bfloat16, shared) for case in SSD_EDGES
+               for dt in (torch.float32, torch.bfloat16)
+               for shared in (False, True)])
+    for case, dt, bc_dt, shared in runs:
+        ey, es, route = ssd_case(torch, gen, skernel, sref, *case, dt, bc_dt,
+                                 shared)
+        routes[route] = routes.get(route, 0) + 1
+        print(f"ssd case b,s,h,p,n,chunk={case} x {str(dt)[6:]} B/C "
+              f"{str(bc_dt)[6:]}{' shared' if shared else ''} ({route}): max "
+              f"abs err y {ey[0]:.3e} (scale {ey[1]:.3e}), state {es[0]:.3e}")
+    assert routes.get("fma") == 2 * len(SSD_CASES + SSD_RAGGED) and \
+        routes.get("tc") == 4 * len(SSD_EDGES), routes
     # the model's inputs: float32 x, bf16 B and C shared by the heads
     x, dA, B, C = ssd_inputs(torch, gen, 2, 520, 8, 64, 128,
                              bc_dtype=torch.bfloat16, heads_share_bc=True)
@@ -1858,28 +1948,36 @@ def ssd_phase(torch, skernel, sref) -> dict:
           f"chunk 256: max abs err y {ey[0]:.3e} (scale {ey[1]:.3e}), state "
           f"{es[0]:.3e}")
 
-    # float64 yardstick at one small shape: both float32 versions against it
-    x, dA, B, C = ssd_inputs(torch, gen, 2, 200, 4, 32, 64)
-    y, st = skernel.ssd_cuda(x, dA, B, C, chunk=64)
-    py, pst = sref.ssd_chunked(x, dA, B, C, chunk=64)
-    ey, est = sref.ssd_ref(*(t.double() for t in (x, dA, B, C)))
-    err = lambda a, b: max((a[0].double() - b[0]).abs().max().item(),
-                           (a[1].double() - b[1]).abs().max().item())
-    e_kernel, e_plain = err((y, st), (ey, est)), err((py, pst), (ey, est))
-    assert e_kernel <= SSD_TOL["float32"], e_kernel
-    print(f"ssd against float64 (b 2, s 200, h 4, p 32, n 64, chunk 64): max "
-          f"abs err of y and state: kernel {e_kernel:.3e}, plain "
-          f"{e_plain:.3e}")
+    # float64 yardstick at one small shape: both routes and the float32
+    # plain version against it
+    for bc_dt in (torch.float32, torch.bfloat16):
+        x, dA, B, C = ssd_inputs(torch, gen, 2, 200, 4, 32, 64, bc_dtype=bc_dt)
+        (y, st), ran = ssd_route(
+            skernel, lambda: skernel.ssd_cuda(x, dA, B, C, chunk=64))
+        py, pst = sref.ssd_chunked(x, dA, B, C, chunk=64)
+        ey, est = sref.ssd_ref(*(t.double() for t in (x, dA, B, C)))
+        err = lambda a, b: max((a[0].double() - b[0]).abs().max().item(),
+                               (a[1].double() - b[1]).abs().max().item())
+        e_kernel, e_plain = err((y, st), (ey, est)), err((py, pst), (ey, est))
+        assert e_kernel <= SSD_TOL["float32"], e_kernel
+        print(f"ssd against float64 (b 2, s 200, h 4, p 32, n 64, chunk 64, B "
+              f"and C {str(bc_dt)[6:]}, {ran} route): max abs err of y and "
+              f"state: kernel {e_kernel:.3e}, plain {e_plain:.3e}")
 
     # mamba2-370m's prefill shape with the model's dtypes and dA of its size
     b, s, h, p, n, chunk = M2_PREFILL
     x, _, B, C = ssd_inputs(torch, gen, b, s, h, p, n,
                             bc_dtype=torch.bfloat16, heads_share_bc=True)
-    # dt = softplus(N(0, 1)) and A = -1: the reference init's decay
-    dA = -torch.nn.functional.softplus(torch.randn(
-        (b, s, h), generator=gen, device="cuda"))
-    ey, es = ssd_check(torch, skernel, sref, x, dA, B, C, chunk,
-                       SSD_TOL["float32"], f64=True)
+    dA = model_decay(torch, gen, b, s, h)
+    pl = skernel.plan(b, s, h, p, n, chunk, x.dtype, B.dtype, 1)
+    (ey, es), ran = ssd_route(skernel, lambda: ssd_check(
+        torch, skernel, sref, x, dA, B, C, chunk, SSD_TOL["float32"],
+        f64=True))
+    assert ran == pl.route == "tc", (ran, pl)
+    y1, s1 = skernel.ssd_cuda(x, dA, B, C, chunk=chunk)
+    y2, s2 = skernel.ssd_cuda(x, dA, B, C, chunk=chunk)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    del y1, s1, y2, s2
     py, _ = sref.ssd_chunked(x, dA, B, C, chunk=chunk)
     wy, _ = sref.ssd_chunked(x.double(), dA, B, C, chunk=chunk)
     e_plain = (py.double() - wy).abs().max().item()
@@ -1890,21 +1988,41 @@ def ssd_phase(torch, skernel, sref) -> dict:
                                                          chunk=chunk),
                        1, inner=1, reps=3)
     bc_bytes = 2 * b * s * n * B.element_size()     # B and C as stored
-    bound, by, f32_ops, score_ops, moved = ssd_bound_ms(
-        b, s, h, p, n, chunk, 4, bc_bytes, B.dtype == torch.bfloat16,
-        B.stride(2) == 0)
-    ops = f32_ops + score_ops
+    bd = ssd_bound_ms(b, s, h, p, n, chunk, 4, bc_bytes,
+                      B.dtype == torch.bfloat16, B.stride(2) == 0)
+    (bound, by), (core_bound, core_by) = bd["tc"], bd["cuda_core"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            skernel.ssd_cuda(x, dA, B, C, chunk=chunk)
+        torch.cuda.synchronize()
+    parts = {kernel_name(ev.key): dev_us(ev) / ev.count / 1e3
+             for ev in prof.key_averages() if "ssd_tc" in ev.key}
+    regs = ptxas_report(skernel.build())
+    smem = {k: skernel.smem_bytes(k, x.dtype, chunk) for k in ("state", "out")}
     print(f"ssd at mamba2-370m's prefill shape b={b} s={s} h={h} p={p} n={n} "
-          f"chunk {chunk} (x float32, B and C bf16 shared by the heads): "
-          f"against the plain version in float64, max abs err y {ey[0]:.3e} "
-          f"(scale {ey[1]:.3e}), state {es[0]:.3e} (the float32 plain "
-          f"version's y: {e_plain:.3e}); "
-          f"kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s), plain "
-          f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}; {f32_ops:.4e} "
-          f"float32 operations at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s, "
-          f"{score_ops:.4e} bf16 C.B^T score operations, once for all heads, "
-          f"at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; {moved} bytes); no "
-          f"single PyTorch call computes the SSD scan")
+          f"chunk {chunk} (x float32, B and C bf16 shared by the heads), "
+          f"{ran} route, 3 launches a call: against the plain version in "
+          f"float64, max abs err y {ey[0]:.3e} (scale {ey[1]:.3e}), state "
+          f"{es[0]:.3e} (the float32 plain version's y: {e_plain:.3e}); two "
+          f"calls bit for bit; kernel {ms:.4f} ms ({bd['tf32'] / ms / 1e9:.1f} "
+          f"TFLOP/s of TF32 products), its launches "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+          + f"; plain {plain_ms:.3f} ms; tensor-core bound {bound:.4f} ms "
+          f"({by}; {bd['tf32']:.4e} TF32 operations at "
+          f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s, {bd['score']:.4e} bf16 C.B^T "
+          f"score operations, once for all heads, at "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; {bd['bytes']} bytes); "
+          f"CUDA-core bound {core_bound:.4f} ms ({core_by}; {bd['f32']:.4e} "
+          f"float32 operations at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s); "
+          f"workspace {pl.workspace_bytes} bytes; -Xptxas -v "
+          + ", ".join(f"{k} {r} registers, {sp} B spilled"
+                      for k, (r, sp) in regs.items())
+          + f"; dynamic shared memory a block: state {smem['state']} B, out "
+          f"{smem['out']} B; no single PyTorch call computes the SSD scan",
+          flush=True)
+    assert all(sp == 0 for _, sp in regs.values()), regs
+    assert ms > bound, (ms, bound)
     return {"name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk_scan.cu",
             "replaces": "src/repro/kernels/ssd/kernel.py:67",
@@ -1916,9 +2034,10 @@ def mamba2_serve_phase(torch, np, skernel, sref, card: str) -> int:
     """Full-width mamba2-370m served by the serve driver
     (``repro_torch.launch.serve``): batch 8, a 4096-token prompt, 64 greedy
     steps, random bf16 weights from the seed. Checks the launch counts of
-    every call (48 SSD scans in the prefill, none in a decode step), then
-    holds every SSD call of one prompt's prefill to the plain version on
-    that call's own inputs, and profiles a prefill and a decode step.
+    every call (48 SSD scans in the prefill, every one on the tensor-core
+    route, none in a decode step), then holds every SSD call of one
+    prompt's prefill to the plain version in float64 on that call's own
+    inputs and checks its route, and profiles a prefill and a decode step.
     Returns the run's SSD launch count."""
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.launch import serve as launch_serve
@@ -1929,16 +2048,16 @@ def mamba2_serve_phase(torch, np, skernel, sref, card: str) -> int:
             "--steps", str(M2_SERVE["steps"]), "--seed", str(SEED)]
     print(f"mamba2 serve: python -m repro_torch.launch.serve {' '.join(argv)}",
           flush=True)
-    skernel.launches = 0
+    skernel.launches = skernel.launches_tc = 0
     run, calls = counted_serve(launch_serve, lambda: launch_serve.main(argv),
                                lambda: (skernel.launches,))
-    launches = skernel.launches
+    launches, launches_tc = skernel.launches, skernel.launches_tc
     cfg = run.cfg
     b, steps = M2_SERVE["batch"], M2_SERVE["steps"]
     assert cfg.n_layers == 48 and cfg.param_count() == 368_227_840
     assert calls[0] == ("prefill", cfg.n_layers), calls[0]
     assert calls[1:] == [("decode", 0)] * steps, calls[1:4]
-    assert launches == cfg.n_layers, launches
+    assert launches == launches_tc == cfg.n_layers, (launches, launches_tc)
     assert tuple(run.tokens.shape) == (b, steps)
     assert bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all())
     assert bool(torch.isfinite(run.logits.float()).all())
@@ -1952,9 +2071,11 @@ def mamba2_serve_phase(torch, np, skernel, sref, card: str) -> int:
           f"({b * M2_SERVE['prompt_len'] / run.prefill_s:.0f} tokens/s); "
           f"decode step {step_ms:.3f} ms (median of {steps}; first "
           f"{run.decode_s[0] * 1e3:.3f} ms), {b * steps / sum(run.decode_s):.1f} "
-          f"tokens/s; peak memory {run.peak_bytes / 1e9:.2f} GB; launches "
-          f"{launches} SSD scans in the prefill, 0 in each of the {steps} "
-          f"decode steps")
+          f"tokens/s; peak memory {run.peak_bytes / 1e9:.2f} GB "
+          f"({run.peak_bytes} B); launches {launches} SSD scans in the "
+          f"prefill ({launches_tc} on the tensor-core route, each with a "
+          f"workspace of {skernel.plan(b, M2_SERVE['prompt_len'], cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, torch.float32, torch.bfloat16, 1).workspace_bytes} "
+          f"B), 0 in each of the {steps} decode steps")
 
     # every SSD call of one prompt's prefill against the plain version on
     # that call's own inputs, computed in float64 (see ssd_check); the
@@ -1962,7 +2083,9 @@ def mamba2_serve_phase(torch, np, skernel, sref, card: str) -> int:
     errs, plain_errs, kernel_scan = [], [], ssd_ops._scan
 
     def checked_scan(x, dA, B, C, chunk):
-        y, st = kernel_scan(x, dA, B, C, chunk)
+        (y, st), ran = ssd_route(skernel,
+                                 lambda: kernel_scan(x, dA, B, C, chunk))
+        assert ran == "tc", ran
         wy, wst = sref.ssd_chunked(x.double(), dA, B, C, chunk=chunk)
         tol = SSD_TOL["float32"]
         errs.append(max(close_scaled(y, wy, tol, tol),
@@ -1978,7 +2101,8 @@ def mamba2_serve_phase(torch, np, skernel, sref, card: str) -> int:
     assert bool(torch.isfinite(one.float()).all())
     assert len(errs) == cfg.n_layers, len(errs)
     print(f"mamba2 serve: every SSD call of one prompt's prefill held to the "
-          f"plain version in float64 on its own inputs: {len(errs)} calls, "
+          f"plain version in float64 on its own inputs, each on the "
+          f"tensor-core route: {len(errs)} calls, "
           f"max abs err {max(e for e, _ in errs):.3e}, scales "
           f"{min(s for _, s in errs):.3e} to {max(s for _, s in errs):.3e} "
           f"(bound {SSD_TOL['float32']} * scale + {SSD_TOL['float32']} * "

@@ -7,12 +7,12 @@
 //   y[i, p] = sum_{j <= i} (C_i . B_j) exp(a_i - a_j) x[j, p]
 //             + exp(a_i) sum_n C[i, n] S[p, n]
 //   S[p, n] <- S[p, n] exp(a_last) + sum_j x[j, p] B[j, n] exp(a_last - a_j)
-// and the last S is the final state. Float32 arithmetic and accumulation
-// throughout, but for the cumsum a of dA, which is kept in float64: at the
-// model's decay a reaches -200 within a chunk of 256 steps, where a float32
-// difference a_i - a_j near the diagonal keeps only about 5 of its digits
-// (the reference kernel's float32 difference loses them there). y is
-// written in x's dtype, the state in float32.
+// and the last S is the final state. Float32-accurate arithmetic and float32
+// accumulation throughout, but for the cumsum a of dA, which is kept in
+// float64: at the model's decay a reaches -200 within a chunk of 256 steps,
+// where a float32 difference a_i - a_j near the diagonal keeps only about 5
+// of its digits (the reference kernel's float32 difference loses them
+// there). y is written in x's dtype, the state in float32.
 //
 // Differences from the TPU kernel, all in what it takes, none in what it
 // computes: any S >= 1 (the ragged last chunk is cut to its length inside
@@ -22,37 +22,69 @@
 // B and C of the model (stride 0 over h) are never copied per head, and y is
 // written in the same layout; float32 or bfloat16 x, B and C.
 //
+// Two routes, chosen by the wrapper's `plan` from the dtypes alone (no
+// fallback from one to the other):
+//
+// "tc", bf16 B and C (the model's types; x float32 or bf16): the tensor
+// cores, the SSD decomposition with the chunks in parallel, three launches
+// a call, no float atomics, every sum in a fixed order:
+//   (a)+(b) ssd_tc_state_kernel, a block of 8 warps per (b, h, chunk): the
+//       chunk's cumsum a in float64 (written to a workspace that (c) reads),
+//       then its own state S_c = (x * exp(a_last - a))^T B, P x N, into a
+//       float32 workspace (b, h, chunk, P, N). The last of a (b, h) row's
+//       blocks to finish (an integer counter a row, which it leaves at 0)
+//       passes the states along the row in chunk order, S_in[c] =
+//       S_in[c-1] exp(a_last[c-1]) + S_{c-1}, over the workspace in place,
+//       while they are still in L2; the last sum is the final state;
+//   (s) ssd_tc_scores_kernel, a block per 64 x 64 tile of the lower
+//       triangle of each chunk's scores G = C B^T, once for all heads where
+//       they share B and C (stride 0 over h), into a float32 workspace (33.5
+//       MB at mamba2-370m's prefill shape, which stays in L2 for the heads);
+//   (c) ssd_tc_out_kernel, a block of 8 warps per (b, h, chunk, 128 rows):
+//       exp(a_i) C_i . S_in^T, then for each 64-column tile j at or before
+//       the rows, G decayed by exp(a_i - a_j) only where j <= i (tiles
+//       above the diagonal skipped, a warp's 16 rows take only the 8-column
+//       steps at or before its last row) times x.
+// Every product is an `mma.sync`. C B^T is bf16 m16n8k16: bf16 products are
+// exact and the sums float32, so that product is float32-accurate in one
+// pass. A product with a float32 operand runs as TF32 m16n8k8 with the
+// float32 operand split, hi = tf32(v), lo = tf32(v - hi) (rounded to
+// nearest by two integer operations: cvt.rna.tf32.f32 runs at the 16-a-
+// clock conversion rate, and the kernels round about 10^8 warps' values a
+// call): two float32
+// operands take three products (lo.hi + hi.lo + hi.hi), one float32 operand
+// against bf16 (exact in TF32) or bf16 x takes two. One TF32 pass misses the
+// float32 bound by about 20x at the model's decay, a bf16 pass by about 230x
+// (measured by emulation, tests/test_torch_ssd.py), so no product is single-
+// pass. The decayed scores are the TF32 product's A fragment as loaded: the
+// k index of scores . x is permuted so that a thread's A elements (k = t,
+// t + 4) are columns (2t, 2t + 1), and x's B fragment is read with the same
+// permutation; likewise C's bf16 pairs are the A fragment of C . S_in^T.
+// S_in, which every warp of (c) reads, is split once a block into a hi and a
+// lo tile. Tiles reach shared memory by `cp.async` (16-byte copies where the
+// strides allow, else 8, 4, or plain 2-byte copies for bf16 off 4-byte
+// alignment) into two-stage rings, the next tile's copy in flight under the
+// current tile's products, one barrier a step; B and C fragments come by
+// `ldmatrix`. (c) takes 110,592 B of shared memory a block at x float32 and
+// chunk 256, 2 blocks an SM.
+//
 // What bounds it: operations. At mamba2-370m's prefill shape (b 8, s 4096,
-// 32 heads, P 64, N 128, Q 256) one call does about 9e10 float32 operations
-// (the C.B scores and their product with x over the j <= i half of each
-// chunk, the C.S^T term and the state update: 1.3 ms at the card's 67
-// TFLOP/s outside the tensor cores) and moves about 0.57 GB (x read and y
-// written in float32, B and C read once per (b, s) in bf16: 0.17 ms at
-// 3.35 TB/s).
+// 32 heads, P 64, N 128, Q 256) the float32-accurate products are 1.205e11
+// TF32 operations (0.243 ms at 495 TFLOP/s) and the C.B^T scores 1.08e9 bf16
+// operations once for the heads that share B and C; the kernel moves about
+// 0.57 GB of inputs and outputs (0.169 ms at 3.35 TB/s). The workspace (176
+// MB at that shape: chunk states 134 MB, cumsums 8 MB, scores 34 MB) adds
+// traffic the bound does not count, and `mma.sync` does not reach the TF32
+// rate that the bound assumes (wgmma does).
 //
-// What the design does about it. The TPU kernel holds a whole chunk's
-// (Q, Q) decay and score tile (256 KB in float32 at Q 256) in VMEM, over the
-// 227 KB a block may have here. This kernel gives one block of 256 threads
-// to one (b, h) row; the chunk loop is a loop inside the block, and the
-// state (P x N float32, 32 KB) stays in shared memory for the whole
-// sequence. Within a chunk the rows are taken 64 at a time: a row tile's C
-// is staged in shared memory, its C.S^T term formed first, then for each
-// 64-row tile of columns j at or before it, B and x are staged, the 64 x 64
-// score tile is formed, masked and decayed (exp only where j <= i, so no inf
-// is formed; tiles above the diagonal are skipped), and multiplied into y
-// in registers. The last row tile's column loop has seen every tile of the
-// chunk, so the state update is accumulated there, in registers, and
-// written back once the chunk's y no longer reads the old state. Each
-// thread owns a 4 x 4 micro-tile of every 64 x 64 product and a 8 x 4 one of
-// the state. B and C stay in their input type in shared memory: 106 KB a
-// block for bf16, so two blocks share an SM and the 256 (b, h) rows of the
-// prefill run in one wave on the 132 SMs (140 KB, one block an SM, for
-// float32 B and C).
-//
-// The limit of this simple design: float32 FMAs on the CUDA cores fed from
-// shared memory (8 shared loads per 16 FMAs in the score and y products), a
-// bf16 tensor-core version (mma.sync/wgmma tiles) is the later step, and
-// only b * h blocks of parallelism (256 at the prefill shape).
+// "fma", float32 B and C: the first port's kernel, unchanged. One block of
+// 256 threads per (b, h) row walks the chunks in order with the state (32
+// KB) in shared memory; within a chunk the rows are taken 64 at a time, each
+// 64 x 64 score tile formed, masked, decayed and multiplied into y by float32
+// FMAs on the CUDA cores (a 4 x 4 micro-tile a thread), and the last row
+// tile accumulates the state update. Only b * h blocks run, and every
+// product is a CUDA-core FMA fed from shared memory: 5.2 ms at the prefill
+// shape with bf16 B and C, before the tc route served them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -326,34 +358,806 @@ int launch(const void* x, const void* dA, const void* B, const void* C,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core route (bf16 B and C)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcLdB = kMaxN + 8;   // B and C tile rows (bf16): 272 B, so
+                                    // ldmatrix's 8 rows hit 8 bank groups
+constexpr int kTcLdS = kMaxN + 8;   // S_in rows (float): a half-warp's
+                                    // float2 reads on 32 distinct banks
+constexpr int kTcLdG = kTile + 8;   // scores rows (float), likewise
+constexpr int kStateThreads = 256;  // (a): 8 warps, 16 p x 64 n each
+constexpr int kOutRows = 128;       // (c): rows a block
+constexpr int kOutThreads = 2 * kOutRows;   // (c): a warp per 16 rows
+constexpr int kStateStages = 2;     // (a): tiles in the ring
+constexpr int kOutStages = 2;       // (c): tiles in the ring
+constexpr int kScoreThreads = 128;  // (s): 4 warps, 16 rows each
+constexpr int kPassGroup = 4;       // (b): chunk states loaded at once
+
+// x tile rows: 68 floats or 72 bf16, so that the fragment reads
+// x[j0 + 2t (+1)][p0 + g] of a warp fall on 32 distinct banks
+template <typename TX>
+__host__ __device__ constexpr int tc_ldx() {
+  return sizeof(TX) == 4 ? kMaxP + 4 : kMaxP + 8;
+}
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// one stage of (a)'s ring: an x tile and a B tile, 64 rows each
+template <typename TX>
+__host__ __device__ constexpr int tc_x_bytes() {
+  return kTile * tc_ldx<TX>() * (int)sizeof(TX);
+}
+template <typename TX>
+__host__ __device__ constexpr int tc_state_stage_bytes() {
+  return tc_x_bytes<TX>() + kTile * kTcLdB * 2;
+}
+// one stage of (c)'s ring: an x tile (64 rows) and a scores tile (kOutRows
+// x 64), or S_in (P rows of N floats) or its lo half, or a C tile
+template <typename TX>
+__host__ __device__ constexpr int tc_out_stage_bytes() {
+  return cmax(tc_x_bytes<TX>() + kOutRows * kTcLdG * 4,
+              cmax(kMaxP * kTcLdS * 4, kOutRows * kTcLdB * 2));
+}
+constexpr int kScoreSmem = 2 * kTile * kTcLdB * 2;   // (s): a C and a B tile
+
+template <typename TX>
+__host__ __device__ constexpr size_t tc_state_smem(int q_pad) {
+  return kStateStages * (size_t)tc_state_stage_bytes<TX>() +
+         q_pad * (sizeof(double) + sizeof(float));
+}
+
+template <typename TX>
+__host__ __device__ constexpr size_t tc_out_smem(int q_pad) {
+  return kOutStages * (size_t)tc_out_stage_bytes<TX>() +
+         round_up(q_pad, kOutRows) * sizeof(double);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// one copy of `vec` bytes into shared memory, zeros when !in
+__device__ __forceinline__ void copy_async(void* dst, const void* src, int vec,
+                                           bool in) {
+  const uint32_t d = smem_addr(dst);
+  const int n = in ? vec : 0;
+  switch (vec) {
+    case 16:
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   :: "r"(d), "l"(src), "r"(n));
+      break;
+    case 8:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                   :: "r"(d), "l"(src), "r"(n));
+      break;
+    case 4:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                   :: "r"(d), "l"(src), "r"(n));
+      break;
+    default:   // bf16 rows off 4-byte alignment: a plain copy
+      *static_cast<uint16_t*>(dst) =
+          in ? *static_cast<const uint16_t*>(src) : static_cast<uint16_t>(0);
+  }
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most `pending` committed groups are in flight
+template <int pending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
+}
+
+// a tile of `rows` rows of `ld` elements: row r < rows_in from src + r * rs,
+// columns < width; zeros elsewhere up to `wpad` columns (a multiple of the
+// copy). `vec` divides the base, the row stride and the width in bytes.
+// A thread keeps one column of copies and steps over the rows.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, int ld, const T* src,
+                                           long long rs, int rows_in,
+                                           int width, int wpad, int vec,
+                                           int rows = kTile) {
+  const int per = vec / (int)sizeof(T);
+  const int cpr = wpad / per;                 // copies a row, <= blockDim.x
+  const int rows_a_pass = blockDim.x / cpr;
+  const int r0 = threadIdx.x / cpr;
+  if (r0 >= rows_a_pass) return;
+  const int c = (threadIdx.x - r0 * cpr) * per;
+  const bool col_in = c < width;
+  for (int r = r0; r < rows; r += rows_a_pass) {
+    const bool in = col_in && r < rows_in;
+    copy_async(dst + r * ld + c, in ? src + r * rs + c : src, vec, in);
+  }
+}
+
+// v rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 rounds, by two integer operations: the
+// conversion instruction runs at the 16-a-clock conversion rate, and the
+// kernels round about 10^8 warps' values a call
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo + O(2^-22 |v|), both TF32
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// the two bf16 of a packed pair as float32 bits (exact in TF32)
+__device__ __forceinline__ uint32_t bf_lo(uint32_t r) { return r << 16; }
+__device__ __forceinline__ uint32_t bf_hi(uint32_t r) { return r & 0xffff0000u; }
+
+__device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t bits(bf16 v) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(v)) << 16;
+}
+
+// d += a (16 x 8, row) b (8 x 8, col), TF32 in, float32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16 x 16, row) b (16 x 8, col), bf16 in, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// 2^v, the SFU's approximation (relative error about 2^-22)
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+
+constexpr double kLog2e = 1.4426950408889634;
+
+
+__device__ __forceinline__ float decay_add(float s, float f, float v) {
+  return s * f + v;
+}
+__device__ __forceinline__ float4 decay_add(float4 s, float f, float4 v) {
+  return make_float4(s.x * f + v.x, s.y * f + v.y, s.z * f + v.z, s.w * f + v.w);
+}
+
+// The states passed along one (b, h) row by a whole block, in chunk order:
+// the row's chunk states S_c (P N floats each, ws) are replaced by the
+// states entering each chunk, S_in[c] = S_in[c-1] exp(a_last[c-1]) +
+// S_{c-1}, and the state leaving the last chunk is the final state. V = 4
+// (T float4) where P N % 4 == 0, else 1 (T float). Other blocks wrote ws and
+// acs, so both are read from L2.
+template <typename T>
+__device__ __forceinline__ void pass_row(float* __restrict__ ws,
+                                         const double* __restrict__ acs,
+                                         float* __restrict__ state, int PN,
+                                         int Q, int nc) {
+  constexpr int kV = sizeof(T) / sizeof(float);
+  const int cols = PN / kV;
+  T* w = reinterpret_cast<T*>(ws);
+  for (int e = threadIdx.x; e < cols; e += blockDim.x) {
+    T carry{};
+    for (int c0 = 0; c0 < nc; c0 += kPassGroup) {   // a group's loads in flight
+      T v[kPassGroup];
+      float f[kPassGroup];
+#pragma unroll
+      for (int u = 0; u < kPassGroup; ++u) {
+        if (c0 + u < nc) {
+          v[u] = __ldcg(w + (long long)(c0 + u) * cols + e);
+          f[u] = expf(static_cast<float>(__ldcg(acs + (long long)(c0 + u) * Q + Q - 1)));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kPassGroup; ++u) {
+        if (c0 + u < nc) {
+          w[(long long)(c0 + u) * cols + e] = carry;
+          carry = decay_add(carry, f[u], v[u]);
+        }
+      }
+    }
+    reinterpret_cast<T*>(state)[e] = carry;
+  }
+}
+
+// (a) grid: b * H * nc blocks, one (b, h, chunk) each. block: 8 warps; warp
+// w owns state rows p in [16 (w & 3), +16), columns n in [64 (w >> 2), +64).
+template <typename TX>
+__global__ void __launch_bounds__(kStateThreads, 3)
+ssd_tc_state_kernel(const TX* __restrict__ x, const float* __restrict__ dA,
+                    const bf16* __restrict__ Bm, float* __restrict__ ws_state,
+                    double* __restrict__ ws_acs, float* __restrict__ state,
+                    int* __restrict__ counters, int H, int S, int P, int N,
+                    int Q, int nc, int q_pad, Strides st, int vec_x,
+                    int vec_b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kLdX = tc_ldx<TX>();
+  constexpr int kStage = tc_state_stage_bytes<TX>();
+  double* acs = reinterpret_cast<double*>(smem + kStateStages * kStage);
+  float* w_end = reinterpret_cast<float*>(acs + q_pad);
+
+  const long long bhi = blockIdx.x / nc;
+  const int c = blockIdx.x % nc;
+  const int bi = (int)(bhi / H), hi = (int)(bhi % H);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int pw = warp & 3, nw = warp >> 2;
+  const int t0 = c * Q, len = min(Q, S - t0);
+  const int ntiles = (len + kTile - 1) / kTile;
+  const int xpad = round_up(P, 16), npad = round_up(N, 16);
+
+  const TX* xc = x + bi * st.xb + hi * st.xh + (long long)t0 * st.xs;
+  const bf16* bc = Bm + bi * st.bb + hi * st.bh + (long long)t0 * st.bs;
+  // tile J into stage J % kStateStages; a group is committed for every J,
+  // empty past the last tile, so that the wait below counts alike
+  auto load = [&](int J) {
+    if (J < ntiles) {
+      unsigned char* s = smem + (J % kStateStages) * kStage;
+      const int rows = min(kTile, len - J * kTile);
+      stage_tile(reinterpret_cast<TX*>(s), kLdX,
+                 xc + (long long)J * kTile * st.xs, st.xs, rows, P, xpad, vec_x);
+      stage_tile(reinterpret_cast<bf16*>(s + tc_x_bytes<TX>()), kTcLdB,
+                 bc + (long long)J * kTile * st.bs, st.bs, rows, N, npad, vec_b);
+    }
+    copy_commit();
+  };
+  for (int J = 0; J < kStateStages - 1; ++J) load(J);
+
+  // the chunk's inclusive cumsum of dA in float64 (loads by every thread,
+  // the scan by warp 0, 32 steps a pass); steps past len add 0, so they
+  // hold a_last. Written out for (b) and (c).
+  const float* dc = dA + bi * st.db + hi * st.dh + (long long)t0 * st.ds;
+  for (int k = tid; k < q_pad; k += kStateThreads)
+    acs[k] = k < len ? static_cast<double>(dc[(long long)k * st.ds]) : 0.0;
+  __syncthreads();
+  if (warp == 0) {
+    double carry = 0.0;
+    for (int base = 0; base < q_pad; base += 32) {
+      double v = acs[base + lane];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const double u = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v += u;
+      }
+      v += carry;
+      acs[base + lane] = v;
+      carry = __shfl_sync(0xffffffffu, v, 31);
+    }
+  }
+  __syncthreads();
+  const double a_last = acs[len - 1];
+  double* acs_out = ws_acs + (bhi * nc + c) * Q;
+  for (int k = tid; k < q_pad; k += kStateThreads) {
+    if (k < Q) acs_out[k] = acs[k];
+    w_end[k] = k < len ? expf(static_cast<float>(a_last - acs[k])) : 0.f;
+  }
+
+  // S_c[p, n] = sum_j (x[j, p] w_end[j]) B[j, n]: TF32 with x w split (two
+  // products: B is exact in TF32). The k index of a step of 8 is permuted,
+  // k = t <-> j = 2t, k = t + 4 <-> j = 2t + 1, so that B's fragment is one
+  // transposed ldmatrix of bf16 pairs (j 2t, 2t + 1).
+  float acc[8][4] = {};
+  const bool active = 16 * pw < P;
+  for (int J = 0; J < ntiles; ++J) {
+    copy_wait<kStateStages - 2>();
+    __syncthreads();   // tile J is in; every warp is done with tile J - 1
+    load(J + kStateStages - 1);
+    if (active) {
+      const unsigned char* s = smem + (J % kStateStages) * kStage;
+      const TX* xs = reinterpret_cast<const TX*>(s);
+      const bf16* bs = reinterpret_cast<const bf16*>(s + tc_x_bytes<TX>());
+      const float* w = w_end + J * kTile;
+#pragma unroll 2
+      for (int ks = 0; ks < kTile / 8; ++ks) {
+        const int j = 8 * ks + 2 * t;
+        const float w0 = w[j], w1 = w[j + 1];
+        const TX* xr = xs + j * kLdX + 16 * pw + g;
+        uint32_t ah[4], al[4];
+        split_tf32(to_f(xr[0]) * w0, ah[0], al[0]);          // (p g, j 2t)
+        split_tf32(to_f(xr[8]) * w0, ah[1], al[1]);          // (p g + 8, j 2t)
+        split_tf32(to_f(xr[kLdX]) * w1, ah[2], al[2]);       // (p g, j 2t + 1)
+        split_tf32(to_f(xr[kLdX + 8]) * w1, ah[3], al[3]);   // (p g + 8, j 2t + 1)
+        // B of 8 n-tiles; the lo products of all 8, then the hi products,
+        // so that no mma waits on the one before it
+        uint32_t r[2][4];
+        const bool q_in[2] = {64 * nw < N, 64 * nw + 32 < N};
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          if (q_in[q])
+            ldsm_x4_t(r[q], bs + (8 * ks + (lane & 7)) * kTcLdB + 64 * nw +
+                                32 * q + 8 * (lane >> 3));
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          if (q_in[q])
+#pragma unroll
+            for (int m = 0; m < 4; ++m)
+              mma_tf32(acc[4 * q + m], al, bf_lo(r[q][m]), bf_hi(r[q][m]));
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          if (q_in[q])
+#pragma unroll
+            for (int m = 0; m < 4; ++m)
+              mma_tf32(acc[4 * q + m], ah, bf_lo(r[q][m]), bf_hi(r[q][m]));
+      }
+    }
+  }
+
+  if (active) {
+    float* out = ws_state + (bhi * nc + c) * P * N;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int n = 64 * nw + 8 * nt + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = 16 * pw + g + 8 * half;
+        if (p >= P) continue;
+        if (n < N) out[p * N + n] = acc[nt][2 * half];
+        if (n + 1 < N) out[p * N + n + 1] = acc[nt][2 * half + 1];
+      }
+    }
+  }
+
+  // (b): the last of the row's nc blocks to finish passes the states along
+  // it, and leaves the row's counter at 0 for the next call
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(counters + bhi, 1) == nc - 1;
+    if (last) counters[bhi] = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int PN = P * N;
+  float* row_ws = ws_state + bhi * nc * PN;
+  const double* row_acs = ws_acs + bhi * nc * Q;
+  if (PN % 4 == 0)
+    pass_row<float4>(row_ws, row_acs, state + bhi * PN, PN, Q, nc);
+  else
+    pass_row<float>(row_ws, row_acs, state + bhi * PN, PN, Q, nc);
+}
+
+// (s) grid: b * HB * nc * T (T + 1) / 2 blocks, T = q_pad / 64, HB = 1
+// where the heads share B and C (stride 0 over h), else H: one 64 x 64 tile
+// (I, J <= I) of a chunk's scores G = C B^T, bf16 m16n8k16 (exact products,
+// float32 sums), written in float32 to a workspace (b, HB, nc, q_pad,
+// q_pad) that every head's (c) reads. block: 4 warps of 16 rows.
+__global__ void __launch_bounds__(kScoreThreads)
+ssd_tc_scores_kernel(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
+                     float* __restrict__ ws_g, int H, int HB, int S, int N,
+                     int Q, int nc, int q_pad, Strides st, int vec_b,
+                     int vec_c) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* cs = reinterpret_cast<bf16*>(smem);
+  bf16* bs = cs + kTile * kTcLdB;
+  const int nt = q_pad / kTile, tiles = nt * (nt + 1) / 2;
+  const long long row = blockIdx.x / tiles;
+  int k = blockIdx.x % tiles, I = 0;
+  while (k > I) k -= ++I;          // tile (I, J = k) of the lower triangle
+  const int J = k;
+  const long long bhb = row / nc;
+  const int c = (int)(row % nc);
+  const int bi = (int)(bhb / HB), hb = (int)(bhb % HB);
+  const int t0 = c * Q, len = min(Q, S - t0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int npad = round_up(N, 16), nks16 = npad / 16;
+  // tiles past the chunk's length are zeros (their base stays in the chunk)
+  const int ci = I * kTile < len ? I * kTile : 0, bj = J * kTile < len ? J * kTile : 0;
+  const bf16* cc = Cm + bi * st.cb + hb * st.ch + (long long)(t0 + ci) * st.cs;
+  const bf16* bc = Bm + bi * st.bb + hb * st.bh + (long long)(t0 + bj) * st.bs;
+  stage_tile(cs, kTcLdB, cc, st.cs, max(0, min(kTile, len - I * kTile)), N,
+             npad, vec_c);
+  stage_tile(bs, kTcLdB, bc, st.bs, max(0, min(kTile, len - J * kTile)), N,
+             npad, vec_b);
+  copy_commit();
+  copy_wait<0>();
+  __syncthreads();
+  float acc[8][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    if (ks >= nks16) continue;
+    uint32_t a[4];
+    ldsm_x4(a, cs + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * kTcLdB +
+                   16 * ks + 8 * (lane >> 4));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t r[4];
+      ldsm_x4(r, bs + (16 * q + (lane & 7) + 8 * (lane >> 4)) * kTcLdB +
+                     16 * ks + 8 * ((lane >> 3) & 1));
+      mma_bf16(acc[2 * q], a, r[0], r[1]);
+      mma_bf16(acc[2 * q + 1], a, r[2], r[3]);
+    }
+  }
+  float* out = ws_g + row * q_pad * q_pad +
+               (long long)(I * kTile + 16 * warp + g) * q_pad + J * kTile + 2 * t;
+#pragma unroll
+  for (int n8 = 0; n8 < 8; ++n8) {
+    *reinterpret_cast<float2*>(out + 8 * n8) = make_float2(acc[n8][0], acc[n8][1]);
+    *reinterpret_cast<float2*>(out + 8 * q_pad + 8 * n8) =
+        make_float2(acc[n8][2], acc[n8][3]);
+  }
+}
+
+// (c) grid: b * H * nc * ceil(Q / kOutRows) blocks, a chunk's row tiles
+// adjacent (the last, which reads most, first), so that they find the
+// chunk's x, scores and S_in in L2. block: a warp per 16 rows: warp w owns
+// rows i0 + 16 w + [0, 16) of its row tile and all P columns. The ring
+// takes, in order: the C tile, S_in, nothing (its stage takes S_in's TF32
+// lo half), then the x tile and the scores tile (the block's rows x 64
+// columns) of columns j0 = 0, 64, .. up to the row tile's last row.
+template <typename TX>
+__global__ void __launch_bounds__(kOutThreads, 2)
+ssd_tc_out_kernel(const TX* __restrict__ x, const bf16* __restrict__ Cm,
+                  const float* __restrict__ ws_state,
+                  const double* __restrict__ ws_acs,
+                  const float* __restrict__ ws_g, TX* __restrict__ y, int H,
+                  int HB, int S, int P, int N, int Q, int nc, int q_pad,
+                  Strides st, int vec_x, int vec_c) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kLdX = tc_ldx<TX>();
+  constexpr int kStage = tc_out_stage_bytes<TX>();
+  constexpr int kGOff = tc_x_bytes<TX>();   // the scores tile in a stage
+  double* acs = reinterpret_cast<double*>(smem + kOutStages * kStage);
+
+  const int rt = (Q + kOutRows - 1) / kOutRows;
+  const long long row = blockIdx.x / rt;
+  const long long bhi = row / nc;
+  const int c = (int)(row % nc), I = rt - 1 - (int)(blockIdx.x % rt);
+  const int bi = (int)(bhi / H), hi = (int)(bhi % H);
+  const int t0 = c * Q, len = min(Q, S - t0), i0 = I * kOutRows;
+  if (i0 >= len) return;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int xpad = round_up(P, 16), npad = round_up(N, 16);
+  const int nks16 = npad / 16, nks8 = round_up(N, 8) / 8;
+  const int np8 = round_up(P, 8) / 8;
+  const int vec_s = N % 4 == 0 ? 16 : 4;
+
+  const TX* xc = x + bi * st.xb + hi * st.xh + (long long)t0 * st.xs;
+  const bf16* cc = Cm + bi * st.cb + hi * st.ch + (long long)(t0 + i0) * st.cs;
+  const float* s_in = ws_state + (bhi * nc + c) * P * N;
+  const long long row_g = ((long long)bi * HB + (HB == 1 ? 0 : hi)) * nc + c;
+  const float* gc = ws_g + row_g * q_pad * q_pad + (long long)i0 * q_pad;
+  // j tiles up to the one holding the block's last row
+  const int nj = (min(i0 + kOutRows, len) + kTile - 1) / kTile;
+  const int nload = 3 + nj;
+  static_assert(kOutStages >= 2, "S_in and its lo half in two stages");
+  constexpr int kLoStage = 2 % kOutStages;   // the stage of load 2
+  // load k into stage k % kOutStages; a group is committed for every k,
+  // empty for load 2 and past the last load, so that the wait counts alike
+  auto load = [&](int k) {
+    unsigned char* s = smem + (k % kOutStages) * kStage;
+    if (k == 2 || k >= nload) {
+    } else if (k == 0) {
+      stage_tile(reinterpret_cast<bf16*>(s), kTcLdB, cc, st.cs,
+                 min(kOutRows, len - i0), N, npad, vec_c, kOutRows);
+    } else if (k == 1) {
+      stage_tile(reinterpret_cast<float*>(s), kTcLdS, s_in, N, P, N,
+                 round_up(N, 8), vec_s);
+    } else {
+      const int j0 = (k - 3) * kTile;
+      const int rows = min(kTile, len - j0);
+      stage_tile(reinterpret_cast<TX*>(s), kLdX, xc + (long long)j0 * st.xs,
+                 st.xs, rows, P, xpad, vec_x);
+      // the scores of the rows that read this tile: those of 64-row groups
+      // at or past it
+      const int r0 = max(0, j0 - i0);
+      stage_tile(reinterpret_cast<float*>(s + kGOff) + r0 * kTcLdG, kTcLdG,
+                 gc + (long long)r0 * q_pad + j0, q_pad,
+                 min(kOutRows, q_pad - i0) - r0, kTile, kTile, 16,
+                 kOutRows - r0);
+    }
+    copy_commit();
+  };
+  for (int k = 0; k < kOutStages - 1; ++k) load(k);
+  // the cumsum up to the tile's last row, times log2(e) (the decays are
+  // powers of 2); rows past Q repeat a_last
+  const double* acs_in = ws_acs + (bhi * nc + c) * Q;
+  for (int k = tid; k < i0 + kOutRows; k += kOutThreads)
+    acs[k] = acs_in[min(k, Q - 1)] * kLog2e;
+
+  const int r_lo = 16 * warp + g;               // the warp's rows in the tile
+  const int i_lo = i0 + r_lo, i_hi = i_lo + 8;  // and in the chunk
+  const int jt = (i0 + 16 * warp) / kTile;      // the j tile of its diagonal
+  const int jq = (16 * warp) % kTile / 16;      // its 16 columns there
+  const bool active = i0 + 16 * warp < len;
+  uint32_t cf[8][4];        // C's rows as bf16 pairs, 16 n a step
+  double a_lo = 0.0, a_hi = 0.0;
+  float acc[8][4] = {};     // y, 16 rows x 64 p
+
+  for (int k = 0; k < nload; ++k) {
+    copy_wait<kOutStages - 2>();
+    __syncthreads();   // load k is in; every warp is done with load k - 1
+    load(k + kOutStages - 1);
+    const unsigned char* s = smem + (k % kOutStages) * kStage;
+    if (k == 1 && c > 0) {
+      // every warp reads all of S_in: split it once, its TF32 hi in place
+      // and its lo into the stage that load 2 leaves empty
+      float* shi = reinterpret_cast<float*>(smem + kStage);
+      float* slo = reinterpret_cast<float*>(smem + kLoStage * kStage);
+      const int q4 = round_up(N, 8) / 4, rows_a_pass = kOutThreads / q4;
+      const int r0 = tid / q4, c4 = 4 * (tid - r0 * q4);
+      if (r0 < rows_a_pass) {
+        for (int r = r0; r < P; r += rows_a_pass) {
+          float4 v = *reinterpret_cast<const float4*>(shi + r * kTcLdS + c4);
+          uint32_t h[4], l[4];
+          split_tf32(v.x, h[0], l[0]);
+          split_tf32(v.y, h[1], l[1]);
+          split_tf32(v.z, h[2], l[2]);
+          split_tf32(v.w, h[3], l[3]);
+          *reinterpret_cast<uint4*>(shi + r * kTcLdS + c4) = make_uint4(h[0], h[1], h[2], h[3]);
+          *reinterpret_cast<uint4*>(slo + r * kTcLdS + c4) = make_uint4(l[0], l[1], l[2], l[3]);
+        }
+      }
+      __syncthreads();
+    }
+    if (!active || k == 2) {
+    } else if (k == 0) {
+      const bf16* cs = reinterpret_cast<const bf16*>(s);
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        if (ks < nks16)
+          ldsm_x4(cf[ks], cs + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                   kTcLdB + 16 * ks + 8 * (lane >> 4));
+      a_lo = acs[i_lo];
+      a_hi = acs[i_hi];
+    } else if (k == 1) {
+      // exp(a_i) C_i . S_in: C exact in TF32, S_in split (two products).
+      // The k index of a step of 8 is permuted as n = n0 + 2t, n0 + 2t + 1,
+      // which makes the A fragment the halves of C's bf16 pairs.
+      if (c > 0) {
+        const float* ss = reinterpret_cast<const float*>(s);
+        const float* sl = reinterpret_cast<const float*>(smem + kLoStage * kStage);
+#pragma unroll
+        for (int ks8 = 0; ks8 < 16; ++ks8) {
+          if (ks8 >= nks8) continue;
+          const uint32_t rg = cf[ks8 >> 1][2 * (ks8 & 1)];
+          const uint32_t rg8 = cf[ks8 >> 1][2 * (ks8 & 1) + 1];
+          const uint32_t a[4] = {bf_lo(rg), bf_lo(rg8), bf_hi(rg), bf_hi(rg8)};
+#pragma unroll
+          for (int pt = 0; pt < 8; ++pt) {
+            if (pt >= np8) continue;
+            const int o = (8 * pt + g) * kTcLdS + 8 * ks8 + 2 * t;
+            const float2 sh = *reinterpret_cast<const float2*>(ss + o);
+            const float2 slv = *reinterpret_cast<const float2*>(sl + o);
+            mma_tf32(acc[pt], a, bits(slv.x), bits(slv.y));
+            mma_tf32(acc[pt], a, bits(sh.x), bits(sh.y));
+          }
+        }
+        const float e_lo = ex2(static_cast<float>(a_lo));
+        const float e_hi = ex2(static_cast<float>(a_hi));
+#pragma unroll
+        for (int pt = 0; pt < 8; ++pt) {
+          acc[pt][0] *= e_lo;
+          acc[pt][1] *= e_lo;
+          acc[pt][2] *= e_hi;
+          acc[pt][3] *= e_hi;
+        }
+      }
+    } else {
+      const int J = k - 3, j0 = J * kTile;
+      const TX* xs = reinterpret_cast<const TX*>(s);
+      const float* gs = reinterpret_cast<const float*>(s + kGOff);
+      // 8-column steps of the tile at or before the warp's last row, and
+      // before len
+      int steps = J < jt ? 8 : J == jt ? 2 * jq + 2 : 0;
+      steps = min(steps, (len - j0 + 7) / 8);
+      for (int n8 = 0; n8 < steps; ++n8) {
+        const int jl = 8 * n8 + 2 * t;   // the tile's columns of this thread
+        const int j = j0 + jl;
+        const float2 g_lo = *reinterpret_cast<const float2*>(gs + r_lo * kTcLdG + jl);
+        const float2 g_hi = *reinterpret_cast<const float2*>(gs + (r_lo + 8) * kTcLdG + jl);
+        const double aj0 = acs[j], aj1 = acs[j + 1];
+        // the scores decayed by 2^(log2(e) (a_i - a_j)) only where j <= i:
+        // the power is never positive
+        const float s0 = j <= i_lo ? g_lo.x * ex2(static_cast<float>(a_lo - aj0)) : 0.f;
+        const float s1 = j + 1 <= i_lo ? g_lo.y * ex2(static_cast<float>(a_lo - aj1)) : 0.f;
+        const float s2 = j <= i_hi ? g_hi.x * ex2(static_cast<float>(a_hi - aj0)) : 0.f;
+        const float s3 = j + 1 <= i_hi ? g_hi.y * ex2(static_cast<float>(a_hi - aj1)) : 0.f;
+        // y += scores . x. The A fragment with k = t <-> column 2t, k = t + 4
+        // <-> 2t + 1: a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3
+        // (g + 8, t + 4); x's B fragment read with the same permutation
+        uint32_t ah[4], al[4];
+        split_tf32(s0, ah[0], al[0]);
+        split_tf32(s2, ah[1], al[1]);
+        split_tf32(s1, ah[2], al[2]);
+        split_tf32(s3, ah[3], al[3]);
+        const TX* xr = xs + jl * kLdX + g;
+#pragma unroll
+        for (int pt = 0; pt < 8; ++pt) {
+          if (pt >= np8) continue;
+          if constexpr (sizeof(TX) == 4) {
+            uint32_t xh0, xl0, xh1, xl1;
+            split_tf32(to_f(xr[8 * pt]), xh0, xl0);
+            split_tf32(to_f(xr[kLdX + 8 * pt]), xh1, xl1);
+            mma_tf32(acc[pt], al, xh0, xh1);
+            mma_tf32(acc[pt], ah, xl0, xl1);
+            mma_tf32(acc[pt], ah, xh0, xh1);
+          } else {   // bf16 x is exact in TF32
+            const uint32_t x0 = bits(xr[8 * pt]), x1 = bits(xr[kLdX + 8 * pt]);
+            mma_tf32(acc[pt], al, x0, x1);
+            mma_tf32(acc[pt], ah, x0, x1);
+          }
+        }
+      }
+    }
+  }
+
+  if (!active) return;
+  const long long y_rs = (long long)H * P;
+  TX* yb = y + ((long long)bi * S * H + hi) * P;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = (half ? i_hi : i_lo);
+    if (i >= len) continue;
+    TX* yr = yb + (long long)(t0 + i) * y_rs;
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt) {
+      const int p = 8 * pt + 2 * t;
+      if constexpr (sizeof(TX) == 4) {   // float32 y, even P: one 8-byte store
+        if ((P & 1) == 0 && p < P) {
+          *reinterpret_cast<float2*>(yr + p) =
+              make_float2(acc[pt][2 * half], acc[pt][2 * half + 1]);
+          continue;
+        }
+      }
+      if (p < P) from_f(acc[pt][2 * half], yr + p);
+      if (p + 1 < P) from_f(acc[pt][2 * half + 1], yr + p + 1);
+    }
+  }
+}
+
+// a copy width stage_tile takes: 16, 8 or 4 bytes, or 2 for bf16
+__host__ __device__ constexpr bool copy_width_ok(int vec, int is_bf16) {
+  return vec == 16 || vec == 8 || vec == 4 || (vec == 2 && is_bf16);
+}
+
+// (a) and (c) take more than 48 KB of dynamic shared memory
+template <typename TX>
+int tc_attributes(int q_pad) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_tc_state_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)tc_state_smem<TX>(q_pad));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        ssd_tc_out_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)tc_out_smem<TX>(q_pad));
+  return static_cast<int>(err);
+}
+
+// (a) with (b), (s), (c) in order on one stream
+template <typename TX>
+int launch_tc(const void* x, const void* dA, const void* B, const void* C,
+              void* y, void* state, void* ws_state, void* ws_acs, void* ws_g,
+              int* counters, int b, int S, int H, int HB, int P, int N, int Q,
+              const Strides& st, int vec_x, int vec_b, int vec_c,
+              cudaStream_t stream) {
+  const int nc = (S + Q - 1) / Q;
+  const int q_pad = round_up(Q, kTile);
+  const long long bh = (long long)b * H;
+  int code = tc_attributes<TX>(q_pad);
+  if (code != 0) return code;
+  ssd_tc_state_kernel<TX><<<(unsigned)(bh * nc), kStateThreads,
+                            tc_state_smem<TX>(q_pad), stream>>>(
+      static_cast<const TX*>(x), static_cast<const float*>(dA),
+      static_cast<const bf16*>(B), static_cast<float*>(ws_state),
+      static_cast<double*>(ws_acs), static_cast<float*>(state), counters, H, S,
+      P, N, Q, nc, q_pad, st, vec_x, vec_b);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int nt = q_pad / kTile;
+  ssd_tc_scores_kernel<<<(unsigned)((long long)b * HB * nc * (nt * (nt + 1) / 2)),
+                         kScoreThreads, kScoreSmem, stream>>>(
+      static_cast<const bf16*>(B), static_cast<const bf16*>(C),
+      static_cast<float*>(ws_g), H, HB, S, N, Q, nc, q_pad, st, vec_b, vec_c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int rt = (Q + kOutRows - 1) / kOutRows;
+  ssd_tc_out_kernel<TX><<<(unsigned)(bh * nc * rt), kOutThreads,
+                          tc_out_smem<TX>(q_pad), stream>>>(
+      static_cast<const TX*>(x), static_cast<const bf16*>(C),
+      static_cast<const float*>(ws_state), static_cast<const double*>(ws_acs),
+      static_cast<const float*>(ws_g), static_cast<TX*>(y), H, HB, S, P, N, Q,
+      nc, q_pad, st, vec_x, vec_c);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x (b, S, H, P), dA (b, S, H), B/C (b, S, H, N), each through its element
 // strides (the last dimension of x, B and C contiguous); y (b, S, H, P)
 // contiguous in x's dtype, state (b, H, P, N) contiguous float32.
-// x_bf16 / bc_bf16: 1 for bfloat16, 0 for float32. Returns 0 on success, a
-// cudaError_t, or -1 for arguments the kernel does not take (the Python
-// wrapper checks these first).
+// route: 0 "fma" (float32 B and C), 1 "tc" (bf16 B and C), which also takes
+// the workspaces ws_state (float32, b H nc P N), ws_acs (float64, b H nc Q)
+// and ws_g (float32, b HB nc q_pad q_pad), nc = ceil(S / Q), q_pad = Q
+// rounded up to 64, HB = 1 where the heads share B and C (stride 0 over h)
+// and H otherwise, and the copy widths vec_x, vec_b, vec_c (16, 8, 4 or 2
+// bytes, dividing each tensor's base, row strides and row bytes).
+// x_bf16 / bc_bf16: 1 for bfloat16, 0 for float32. Sets *ran to the route
+// it launched. Returns 0 on success, a cudaError_t, or -1 for arguments
+// the kernels do not take (the Python wrapper checks these first).
 extern "C" int ssd_chunk_scan(const void* x, const void* dA, const void* B,
-                              const void* C, void* y, void* state, int x_bf16,
-                              int bc_bf16, int b, int S, int H, int P, int N,
-                              int Q, long long sxb, long long sxs,
-                              long long sxh, long long sdb, long long sds,
-                              long long sdh, long long sbb, long long sbs,
-                              long long sbh, long long scb, long long scs,
-                              long long sch, void* stream) {
+                              const void* C, void* y, void* state,
+                              void* ws_state, void* ws_acs, void* ws_g,
+                              int* counters, int route, int x_bf16,
+                              int bc_bf16, int b, int S,
+                              int H, int HB, int P, int N, int Q, int vec_x,
+                              int vec_b, int vec_c, long long sxb,
+                              long long sxs, long long sxh, long long sdb,
+                              long long sds, long long sdh, long long sbb,
+                              long long sbs, long long sbh, long long scb,
+                              long long scs, long long sch, void* stream,
+                              int* ran) {
   if (b < 1 || S < 1 || H < 1 || P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
       Q < 1 || Q > kMaxChunk || (long long)b * H > 0x7fffffffLL)
     return -1;
   const Strides st{sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs, sbh, scb, scs, sch};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-  if (x_bf16) {
-    return bc_bf16 ? launch<bf16, bf16>(x, dA, B, C, y, state, b, S, H, P, N, Q, st, s)
-                   : launch<bf16, float>(x, dA, B, C, y, state, b, S, H, P, N, Q, st, s);
-  }
-  return bc_bf16 ? launch<float, bf16>(x, dA, B, C, y, state, b, S, H, P, N, Q, st, s)
+  int err = -1;
+  if (route == 1) {
+    const long long nc = (S + Q - 1) / Q;
+    const long long rows = (long long)b * H * nc * ((Q + kOutRows - 1) / kOutRows);
+    const bool vec_ok = copy_width_ok(vec_b, 1) && copy_width_ok(vec_c, 1) &&
+                        copy_width_ok(vec_x, x_bf16);
+    if (!bc_bf16 || !vec_ok || (HB != 1 && HB != H) || rows > 0x7fffffffLL)
+      return -1;
+    err = x_bf16 ? launch_tc<bf16>(x, dA, B, C, y, state, ws_state, ws_acs,
+                                   ws_g, counters, b, S, H, HB, P, N, Q, st,
+                                   vec_x, vec_b, vec_c, s)
+                 : launch_tc<float>(x, dA, B, C, y, state, ws_state, ws_acs,
+                                    ws_g, counters, b, S, H, HB, P, N, Q, st,
+                                    vec_x, vec_b, vec_c, s);
+  } else if (route == 0 && !bc_bf16) {
+    err = x_bf16 ? launch<bf16, float>(x, dA, B, C, y, state, b, S, H, P, N, Q, st, s)
                  : launch<float, float>(x, dA, B, C, y, state, b, S, H, P, N, Q, st, s);
+  }
+  if (err == 0) *ran = route;
+  return err;
+}
+
+// dynamic shared memory of the tc route's kernels a block: kernel 0 (a),
+// 1 (c); x_bf16 as for ssd_chunk_scan
+extern "C" int ssd_chunk_scan_smem(int kernel, int x_bf16, int Q) {
+  const int q_pad = round_up(Q, kTile);
+  if (kernel == 0)
+    return (int)(x_bf16 ? tc_state_smem<bf16>(q_pad) : tc_state_smem<float>(q_pad));
+  return (int)(x_bf16 ? tc_out_smem<bf16>(q_pad) : tc_out_smem<float>(q_pad));
 }
 
 extern "C" const char* ssd_chunk_scan_error_string(int code) {

@@ -60,6 +60,7 @@ SPEC = AcceleratorSpec(
         PortSpec("y", Axes(lx.BATCH, lx.SEQ, lx.HEADS, lx.HEAD_DIM)),
     ),
     power_domain=PowerDomain("acc_ssd", leak_uw=9.0, active_dyn_uw_mhz=40.0),
-    description="SSD chunk scan: one block per (b, h) row, state in shared memory",
+    description="SSD chunk scan: chunks in parallel on the tensor cores (bf16 B, C), "
+                "one block per (b, h) row on the CUDA cores (float32 B, C)",
 )
 register(SPEC, allow_override=True)

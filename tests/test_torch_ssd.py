@@ -213,3 +213,195 @@ def test_cuda_kernel_takes_bf16_head_broadcast_b_and_c():
     wy, wst = ref.ssd_chunked(x, dA, Bh, Ch, chunk=256)
     torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(st, wst, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' routes, and the tensor-core route's arithmetic emulated
+# on the CPU
+# ---------------------------------------------------------------------------
+
+M2_SCALE = (1, 1024, 4, 64, 128, 256)   # b, s, h, p, n, chunk at the model's decay
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bc_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,bc_heads", [
+    (8, 4096, 32, 64, 128, 256, 1),     # mamba2-370m's prefill
+    (2, 37, 3, 16, 16, 16, 3),          # a ragged last chunk, B and C per head
+    (1, 1, 2, 8, 4, 8, 1),              # S 1
+    (1, 100, 2, 33, 5, 1024, 2),        # chunk past S, Q not a multiple of 64
+])
+def test_plan_routes_by_dtype_and_shape(b, s, h, p, n, chunk, bc_heads,
+                                        bc_dtype, x_dtype):
+    """bf16 B and C take the tensor cores whatever x is, float32 B and C
+    the CUDA cores; chunks of min(chunk, s); the tc route's workspace holds
+    the chunk states, the cumsums and the scores of the distinct B/C
+    heads."""
+    pl = kernel.plan(b, s, h, p, n, chunk, getattr(torch, x_dtype),
+                     getattr(torch, bc_dtype), bc_heads)
+    q = min(chunk, s)
+    nc = -(-s // q)
+    assert (pl.chunk, pl.n_chunks, pl.bc_heads) == (q, nc, bc_heads)
+    if bc_dtype == "float32":
+        assert (pl.route, pl.workspace_bytes) == ("fma", 0)
+        return
+    q_pad = -(-q // 64) * 64
+    assert pl.route == "tc"
+    assert pl.workspace_bytes == (b * h * nc * (p * n * 4 + q * 8)
+                                  + b * bc_heads * nc * q_pad * q_pad * 4)
+    assert set(kernel.ROUTES) == {"fma", "tc"}
+
+
+def test_plan_prefill_workspace_and_refusals():
+    """At mamba2-370m's prefill shape the workspace is 134,217,728 B of
+    chunk states, 8,388,608 B of cumsums and 33,554,432 B of scores; B/C
+    heads other than 1 or h are refused."""
+    pl = kernel.plan(8, 4096, 32, 64, 128, 256, torch.float32, torch.bfloat16,
+                     1)
+    assert pl.workspace_bytes == 134_217_728 + 8_388_608 + 33_554_432
+    assert kernel.plan(8, 4096, 32, 64, 128, 256, torch.float32,
+                       torch.bfloat16).bc_heads == 32
+    with pytest.raises(ValueError, match="neither 1 nor h"):
+        kernel.plan(1, 8, 4, 8, 4, 8, torch.float32, torch.bfloat16, 2)
+
+
+@pytest.mark.parametrize("make,width", [
+    (lambda: torch.zeros(2, 8, 3, 64), 16),                        # float32 rows of 256 B
+    (lambda: torch.zeros(2, 8, 3, 33), 4),                         # float32 rows of 132 B
+    (lambda: torch.zeros(2, 8, 1, 128, dtype=torch.bfloat16).expand(2, 8, 4, 128), 16),
+    (lambda: torch.zeros(2, 8, 1, 4, dtype=torch.bfloat16).expand(2, 8, 4, 4), 8),
+    (lambda: torch.zeros(2, 8, 3, 5, dtype=torch.bfloat16), 2),    # odd bf16 rows
+    (lambda: torch.zeros(2, 8, 3, 65)[..., 1:], 4),                # a base 4 B past 16
+])
+def test_copy_width_divides_base_strides_and_rows(make, width):
+    """The tc route's copies: the widest of 16, 8, 4 or 2 bytes dividing
+    the base address, the (b, s, h) strides and a row's bytes."""
+    t = make()
+    assert kernel._copy_width(t) == width
+    elt = t.element_size()
+    for v in (t.data_ptr(), *(st * elt for st in t.stride()[:3]),
+              t.shape[3] * elt):
+        assert v % width == 0
+
+
+def _tf32(v):
+    """float32 -> TF32 (10 mantissa bits), to nearest with ties away from
+    zero, by the kernel's integer rounding: add half a TF32 ulp to the
+    bits, clear the 13 low bits."""
+    i = v.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(v, split):
+    """``(hi, lo)``: the kernel's split of a float32 operand into two TF32
+    values; with ``split`` False, one TF32 rounding and no lo."""
+    hi = _tf32(v)
+    return hi, (_tf32(v - hi) if split else torch.zeros_like(v))
+
+
+def _emulate_tc(x, dA, B, C, chunk, split=True):
+    """The tensor-core route's arithmetic on the CPU in float32, in its
+    order: chunk states, states passed in order, chunk outputs. The cumsum
+    of dA is float64 within a chunk; TF32 operands are rounded by bit mask;
+    bf16 B and C (and bf16 x) are exact in TF32; every float32 operand is
+    split in hi + lo and its product taken as lo.hi + hi.lo + hi.hi (two
+    products against a bf16 operand), or, with ``split`` False, as one TF32
+    product. Returns ``(y in x's dtype, final state float32)``."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    pad = nc * q - s
+    f32 = torch.float32
+    xf, Bf, Cf = (torch.nn.functional.pad(t.to(f32), (0, 0, 0, 0, 0, pad))
+                  for t in (x, B, C))
+    dAf = torch.nn.functional.pad(dA.to(f32), (0, 0, 0, pad))
+    xq = xf.reshape(b, nc, q, h, p)
+    Bq, Cq = (t.reshape(b, nc, q, h, n) for t in (Bf, Cf))
+    a = torch.cumsum(dAf.reshape(b, nc, q, h).double(), dim=2)    # float64
+    a_last = a[:, :, -1:]
+    ein = torch.einsum
+    # (a) each chunk's own state, (x w_end)^T B: two products against bf16 B
+    xw = xq * torch.exp((a_last - a).to(f32))[..., None]
+    hi, lo = _split(xw, split)
+    own = ein("bcjhp,bcjhn->bchpn", lo, Bq) + ein("bcjhp,bcjhn->bchpn", hi, Bq)
+    # (b) the states entering each chunk, in chunk order
+    decay_c = torch.exp(a_last[:, :, 0].to(f32))                  # (b, nc, h)
+    s_in, st = [], torch.zeros((b, h, p, n), dtype=f32)
+    for c in range(nc):
+        s_in.append(st)
+        st = st * decay_c[:, c, :, None, None] + own[:, c]
+    s_in = torch.stack(s_in, dim=1)                               # (b, nc, h, p, n)
+    # (c) the outputs: exp(a_i) C_i . S_in (two products against bf16 C),
+    # then the scores C.B^T (bf16 products, exact, summed in float32)
+    # decayed by 2^(log2(e) (a_i - a_j)) where j <= i, times x (three
+    # products; two with bf16 x)
+    a2 = a * (1 / np.log(2.0))
+    sh, sl = _split(s_in, split)
+    inter = ein("bcihn,bchpn->bcihp", Cq, sl) + ein("bcihn,bchpn->bcihp", Cq, sh)
+    inter = inter * torch.exp2(a2.to(f32))[..., None]
+    g = ein("bcihn,bcjhn->bchij", Cq, Bq)
+    diff = (a2[:, :, :, None, :] - a2[:, :, None, :, :]).permute(0, 1, 4, 2, 3)
+    lower = torch.ones((q, q), dtype=torch.bool).tril()
+    sc = torch.where(lower, g * torch.exp2(diff.to(f32).clamp(max=0)), 0.0)
+    s_hi, s_lo = _split(sc, split)
+    x_hi, x_lo = ((xq, torch.zeros_like(xq)) if x.dtype == torch.bfloat16
+                  else _split(xq, split))
+    intra = (ein("bchij,bcjhp->bcihp", s_lo, x_hi)
+             + ein("bchij,bcjhp->bcihp", s_hi, x_lo)
+             + ein("bchij,bcjhp->bcihp", s_hi, x_hi))
+    y = (inter + intra).reshape(b, nc * q, h, p)[:, :s]
+    return y.to(x.dtype), st
+
+
+def _bf16_values(a):
+    """float32 numpy values rounded to bf16 (the model's B and C)."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("impl", ["chunked", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", CASES)
+def test_emulated_tc_route_matches_jax(b, s, h, p, n, chunk, dtype, impl):
+    """The tensor-core route's arithmetic (bf16 B and C, TF32 splits, the
+    chunk-parallel order) against JAX's ``ssd_chunked`` and the Pallas
+    kernel in interpret mode, on the reference's cases with B and C rounded
+    to bf16, at the reference's tolerances."""
+    x, dA, B, C = _inputs(b, s, h, p, n)
+    arrays = (x, dA, _bf16_values(B), _bf16_values(C))
+    tx, tdA, tB, tC = _torch(arrays, dtype)
+    got = _emulate_tc(tx, tdA, tB.to(torch.bfloat16), tC.to(torch.bfloat16),
+                      chunk)
+    _close(got, _jax(impl, arrays, chunk, dtype), TOL[dtype])
+
+
+def _scaled_ratio(got, want, tol):
+    """The largest error over chip_smoke's ``close_scaled`` allowance,
+    tol * min(1, rms|want|) + tol * |want|: under 1 passes."""
+    scale = min(1.0, want.square().mean().sqrt().item())
+    return ((got.double() - want).abs() / (tol * scale + tol * want.abs())).max().item()
+
+
+def test_emulated_tc_route_at_model_decay_against_float64():
+    """At the model's scale (dA = -softplus(N(0, 1)), bf16 B and C shared
+    by the heads, s 1024, p 64, n 128, chunk 256) the route's arithmetic
+    is within the card's float64 check (1e-4 under ``close_scaled``) with a
+    wide margin, and one TF32 product for each float32 operand misses it:
+    why every float32 operand is split."""
+    b, s, h, p, n, chunk = M2_SCALE
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(b, s, h, p)) * 0.5).float()
+    dA = -torch.nn.functional.softplus(torch.from_numpy(
+        rng.normal(size=(b, s, h))).float())
+    B, C = (torch.from_numpy(rng.normal(size=(b, s, 1, n)) * 0.3).float()
+            .to(torch.bfloat16).expand(b, s, h, n) for _ in range(2))
+    wy, wst = ref.ssd_chunked(x.double(), dA, B, C, chunk=chunk)
+    ratios = {}
+    for split in (True, False):
+        y, st = _emulate_tc(x, dA, B, C, chunk, split=split)
+        ratios[split] = max(_scaled_ratio(y, wy, 1e-4),
+                            _scaled_ratio(st, wst, 1e-4))
+    print(f"error over the float64 check's allowance: split TF32 "
+          f"{ratios[True]:.4f}, one TF32 product {ratios[False]:.2f}")
+    assert ratios[True] < 0.1, ratios
+    assert ratios[False] > 1.0, ratios
