@@ -162,15 +162,39 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     prefill, to the plain version (the flash lse to the plain version in
     float64), counts the prefill's dropped slots, prints prefill time,
     decode-step time, tokens/s and peak memory, profiles a prefill and a
-    decode step (the grouped matmul's kernels checked by name), and frees
-    the weights;
-21. small MoE reference: the grok and llama4 smoke configs served on the
+    decode step (the grouped matmul's kernels checked by name), and keeps
+    the weights for the next phase;
+21. lane engine phase: the same grok-1 weights served by
+    ``ContinuousBatchingEngine`` on its lane backend (8 slots, 16-token
+    pages, prefill chunk 16, metered): 16 requests sharing a 32-token
+    system prompt, 16 tokens of their own and 16 greedy tokens each.
+    Checks completions, prefix reuse and copy-on-write, the lane backend,
+    12 grouped-matmul launches a one-token step (the lanes packed into one
+    call a weight), every one on the split-D route, 16 ``serve.admit`` and
+    16 ``serve.complete`` interrupts and the meter's conservation; serves
+    the trace again unmetered (equal completions) with every routing
+    recorded (no lane drops a slot) and one decode step profiled;
+    teacher-forces one request in an 8-lane cache, holding every grouped
+    matmul call to the plain version; times the kernel at the packed
+    shapes; prints decode-step time, tokens/s, busy share, peak memory and
+    the snapshots resident; then frees the weights;
+22. small MoE reference: the grok and llama4 smoke configs served on the
     card (through the kernel) and on the CPU's plain path: routing equal
     on every MoE call, logits and caches at the bf16 bound, clear-margin
-    greedy tokens equal; prints the smallest top-k router margin.
+    greedy tokens equal; prints the smallest top-k router margin;
+23. recurrent lane phase: full-width, full-depth mamba2-370m and
+    recurrentgemma-2b on the same engine and trace: completions, reuse,
+    backend and the meter; decode-step time, peak memory and the bytes of
+    one lane snapshot;
+24. small lane reference: the granite, grok, mamba2 and recurrentgemma
+    smoke configs through the lane engine on the card and on the CPU's
+    plain path, completions equal where the margins are clear; granite's
+    on lanes equal to the paged backend's on the card.
 
-Prints a ``{"kernels": [...]}`` JSON line (eight entries), the card line
-again, and last
+Prints a ``{"kernels": [...]}`` JSON line (eight entries; the grouped
+matmul's launches are those of its two main paths, the serve driver's and
+the lane engine's, each under ``launches_by_path``), the card line again,
+and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero and prints no result; so does a machine without a card.
 """
@@ -2689,8 +2713,8 @@ def grok_serve_phase(torch, np, gkernel, gref, fkernel, fref,
     step, and every flash forward of that prefill (head dim 128), to the
     plain version on that call's own inputs (the flash lse to the plain
     version in float64), counts the prefill's dropped slots, and profiles
-    a prefill and a decode step. Frees the weights before it returns the
-    run's grouped-matmul launch count."""
+    a prefill and a decode step. Returns the run's grouped-matmul launch
+    count, the config and the weights (for the lane engine's phase)."""
     import dataclasses
 
     from repro_torch import configs
@@ -2828,9 +2852,9 @@ def grok_serve_phase(torch, np, gkernel, gref, fkernel, fref,
           f"{max(e[6] for e in errs['flash']):.3e}", flush=True)
     del errs
     moe_profile(torch, run, card)
-    del run, params, sv, logits
+    del run, sv, logits
     torch.cuda.empty_cache()
-    return launches
+    return launches, cfg, params
 
 
 def moe_profile(torch, run, card: str) -> None:
@@ -2940,6 +2964,367 @@ def small_moe_reference_phase(torch, np) -> None:
               f"margin", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The engine's lane backend
+# ---------------------------------------------------------------------------
+
+# the lane engine's trace at full width: 16 requests sharing a 32-token
+# system prompt, 16 tokens of their own each, 16 greedy tokens each
+LANE_SERVE = {"slots": 8, "page_size": 16, "prefill_chunk": 16,
+              "system": 32, "own": 16, "new": 16, "requests": 16}
+
+
+def lane_trace(np, vocab: int) -> list:
+    """``(id, prompt, max_new_tokens)`` of the lane engine's trace."""
+    rng = np.random.default_rng(SEED)
+    s = LANE_SERVE
+    system = [int(t) for t in rng.integers(1, vocab, s["system"])]
+    return [(f"l{i}", system + [int(t) for t in rng.integers(1, vocab, s["own"])],
+             s["new"]) for i in range(s["requests"])]
+
+
+def lane_serve(torch, np, cfg, params, step_hook=None, **kw):
+    """Serve :func:`lane_trace` through ``ContinuousBatchingEngine`` on its
+    default backend (lanes for MoE, SSM and hybrid configs), metered unless
+    ``metered=False``; ``step_hook(engine)`` may run a step itself (and
+    return True) instead of the loop. Returns the engine, the host ms of
+    each decode-only step (every lane one token; ``step()`` ends with the
+    tokens on the host), the engine steps and the wall seconds."""
+    from repro_torch.serve.engine import ContinuousBatchingEngine, Request
+
+    s = LANE_SERVE
+    engine = ContinuousBatchingEngine(
+        cfg, params, slots=s["slots"], device="cuda",
+        max_len=s["system"] + s["own"] + s["new"], page_size=s["page_size"],
+        prefill_chunk=s["prefill_chunk"], **kw)
+    for rid, prompt, n_new in lane_trace(np, cfg.vocab):
+        assert engine.submit(Request(rid, prompt, n_new))
+    decode_ms, steps = [], 0
+    t0 = time.perf_counter()
+    while True:
+        before = engine.token_steps
+        ts = time.perf_counter()
+        if step_hook is not None and step_hook(engine):
+            steps += 1
+            continue
+        if not engine.step():
+            break
+        dt = time.perf_counter() - ts
+        steps += 1
+        if engine.token_steps - before == 1:
+            decode_ms.append(dt * 1e3)
+    return engine, decode_ms, steps, time.perf_counter() - t0
+
+
+def lane_checks(engine, cfg) -> dict:
+    """The lane engine's run against its contract: every request complete
+    with its tokens in the vocabulary, the shared prefix reused and copied
+    into lanes (``note_cow``), the lane backend, one admit and one
+    complete interrupt a request, and a conserving meter. Returns
+    ``stats()``."""
+    s = LANE_SERVE
+    stats = engine.stats()
+    done = engine.completed
+    assert len(done) == s["requests"], f"{len(done)} requests completed"
+    for r in done:
+        assert len(r.tokens) == r.max_new_tokens, (r.id, len(r.tokens))
+        assert all(0 <= t < cfg.vocab for t in r.tokens), r.id
+    assert stats["backend"] == "lanes", stats["backend"]
+    assert stats["prompt_tokens_reused"] > 0, stats
+    assert stats["pages"]["cow_copies"] > 0, stats["pages"]
+    irq = engine.platform.interrupts
+    assert (irq.count("serve.admit"), irq.count("serve.complete")) == (
+        s["requests"], s["requests"])
+    en = stats["energy"]
+    per_request = sum(r.energy_uj for r in done)
+    assert abs(en["total_uj"] - (en["attributed_uj"] + en["overhead_uj"])) \
+        <= 1e-9 * en["total_uj"], en
+    assert abs(en["attributed_uj"] - per_request) <= 1e-9 * per_request, en
+    return stats
+
+
+def lane_snapshot_bytes(torch, cfg) -> int:
+    """Bytes of one lane snapshot (a batch-1 cache at the engine's
+    length): what each published prefix page holds on the card."""
+    from repro_torch.models import registry
+
+    s = LANE_SERVE
+    one = registry.cache_init(cfg, 1, s["system"] + s["own"] + s["new"],
+                              device="cuda")
+    return registry.cache_bytes(one)
+
+
+def grok_lane_phase(torch, np, gkernel, gref, cfg, params, card: str) -> dict:
+    """Full-width grok-1 (the moe serve phase's 4 of 64 layers and their
+    weights) served by ``ContinuousBatchingEngine`` on its lane backend: 8
+    slots, 16-token pages, prefill chunk 16, metered, :func:`lane_trace`.
+    Checks the run (:func:`lane_checks`), 12 grouped-matmul launches a
+    one-token step (4 layers x gate, up, down: the lanes of a step packed
+    into one call a weight), every one on the split-D route by the C
+    entry's report; serves the trace again unmetered (equal completions)
+    with every MoE routing recorded (no lane drops a slot; printed: the
+    slots that routing the 8 lanes together would drop) and one
+    decode-only step profiled; then teacher-forces one request in lane 0
+    of an 8-lane cache and holds every grouped-matmul call to the plain
+    version on its own inputs; times the kernel at the packed shapes.
+    Returns the run's launch count, the time at the packed gate/up shape
+    and the count of its route."""
+    from repro_torch.kernels.moe import ops as moe_ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+
+    s = LANE_SERVE
+    per_step = 3 * cfg.n_layers
+    print(f"lane engine: grok-1-314b at {cfg.n_layers} layers, "
+          f"ContinuousBatchingEngine(slots {s['slots']}, page_size "
+          f"{s['page_size']}, prefill_chunk {s['prefill_chunk']}), "
+          f"{s['requests']} requests of a {s['system']}-token shared prompt "
+          f"+ {s['own']} own, {s['new']} greedy tokens each", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gkernel.launches = gkernel.launches_wgmma = gkernel.launches_splitd = 0
+    engine, decode_ms, steps, wall = lane_serve(torch, np, cfg, params)
+    launches, splitd = gkernel.launches, gkernel.launches_splitd
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = lane_checks(engine, cfg)
+    assert launches == per_step * stats["token_steps"], (launches, stats)
+    assert splitd == launches and gkernel.launches_wgmma == 0, splitd
+    snap = lane_snapshot_bytes(torch, cfg)
+    print(f"lane engine on {card}: grok-1-314b, {steps} engine steps, "
+          f"{stats['token_steps']} one-token steps, "
+          f"{stats['tokens_generated']} tokens, "
+          f"{stats['prompt_tokens_reused']} prompt tokens reused, "
+          f"{stats['pages']['cow_copies']} snapshot pages copied into lanes; "
+          f"decode step {statistics.median(decode_ms):.3f} ms (median of "
+          f"{len(decode_ms)} decode-only steps), "
+          f"{stats['tokens_generated'] / wall:.1f} tokens/s over {wall:.3f} "
+          f"s; peak memory {peak_gb:.2f} GB; {stats['pages']['resident']} "
+          f"snapshots resident in the table, {snap} bytes each; grouped-"
+          f"matmul launches {launches} = {per_step} x "
+          f"{stats['token_steps']} one-token steps, all {splitd} on the "
+          f"split-D route", flush=True)
+
+    # unmetered, with the routing recorded and one decode-only step profiled
+    routes, real_route = [], L.route
+    prof = {}
+
+    def recording_route(xt, router, top_k):
+        out = real_route(xt, router, top_k)
+        routes.append(out[2])
+        return out
+
+    def profile_once(eng):
+        if prof or eng.queue or any(sl is None or sl.prefilling
+                                    for sl in eng.slots):
+            return False
+        prof["out"] = device_profile(torch, eng.step, 1)
+        return True
+
+    with mock.patch.object(L, "route", recording_route):
+        plain, _, _, _ = lane_serve(torch, np, cfg, params,
+                                    step_hook=profile_once, metered=False)
+    want = {r.id: r.tokens for r in engine.completed}
+    assert {r.id: r.tokens for r in plain.completed} == want
+    assert "energy" not in plain.stats()
+    # a lane routes alone at capacity 1: a slot drops where a lane picks
+    # one expert twice
+    lane_drops = sum(int((torch.nn.functional.one_hot(r, cfg.moe_experts)
+                          .sum(1) - 1).clamp_min(0).sum()) for r in routes)
+    assert lane_drops == 0 and len(routes) == cfg.n_layers * plain.token_steps
+    wall_ms, busy_ms, n_launch, kernels = prof["out"]
+    gmm_ms = sum(dev_us(e) for e in kernels if "gmm_" in e.key) / 1e3
+    top = "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
+                    for e in kernels[:4])
+    print(f"lane engine: the unmetered engine's {len(want)} completions equal "
+          f"the metered ones; {len(routes)} MoE routings of "
+          f"{s['slots']} lanes, {lane_drops} slots dropped (a lane routes "
+          f"alone at capacity 1). Profiled decode step on {card}: wall "
+          f"{wall_ms:.3f} "
+          f"ms (under the profiler), device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {n_launch:.0f} kernel "
+          f"launches, grouped matmul {gmm_ms:.3f} ms; top device time: "
+          f"{top}", flush=True)
+    del plain
+
+    # teacher-force the last request (it adopted the shared prefix) in lane
+    # 0 of an 8-lane cache, the other lanes riding with the pad token as in
+    # the engine; every grouped-matmul call against the plain version
+    req = engine.completed[-1]
+    seq = list(req.prompt) + req.tokens
+    errs = []
+
+    def checked(x, w):
+        y = gkernel.grouped_matmul_cuda(x, w)
+        errs.append(close_scaled(y, gref.grouped_matmul(x, w),
+                                 GMM_TOL["bfloat16"], GMM_TOL["bfloat16"]))
+        assert tuple(x.shape[:2]) == (cfg.moe_experts, s["slots"]), x.shape
+        return y
+
+    cache = registry.cache_init(cfg, s["slots"], len(seq), device="cuda",
+                                lanes=True)
+    toks = torch.zeros((s["slots"], 1), dtype=torch.long, device="cuda")
+    forced = []
+    with torch.inference_mode(), \
+            mock.patch.object(moe_ops, "grouped_matmul", checked):
+        for tok in seq[:-1]:
+            toks[0, 0] = tok
+            logits, _ = registry.decode_step(params, cfg, cache, toks)
+            forced.append(logits[0].float())
+    forced = torch.stack(forced)[len(req.prompt) - 1:]
+    assert len(errs) == per_step * (len(seq) - 1), len(errs)
+    assert bool(torch.isfinite(forced).all())
+    top2 = forced.topk(2, dim=-1).values
+    agree = (forced.argmax(-1).cpu() == torch.tensor(req.tokens))
+    print(f"lane engine: teacher-forced {req.id} in lane 0 of {s['slots']} "
+          f"({len(seq) - 1} one-token steps, {len(errs)} grouped-matmul "
+          f"calls of x ({cfg.moe_experts}, {s['slots']}, ·)): every call "
+          f"held to the plain version on its own inputs (bound "
+          f"{GMM_TOL['bfloat16']} * scale + {GMM_TOL['bfloat16']} * |plain|), "
+          f"max abs err {max(e for e, _ in errs):.3e}; greedy tokens equal "
+          f"the engine's at {int(agree.sum())} of {len(req.tokens)} steps "
+          f"(smallest top-2 margin {float((top2[:, 0] - top2[:, 1]).min()):.3e})",
+          flush=True)
+    del errs, cache, engine
+
+    # the kernel at the packed shapes: (E, lanes, D) x (E, D, F)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    entry = {}
+    for label, d, f in (("gate/up", cfg.d_model, cfg.d_ff),
+                        ("down", cfg.d_ff, cfg.d_model)):
+        e, c = cfg.moe_experts, s["slots"]
+        x, w = gmm_inputs(torch, gen, e, c, d, f, torch.bfloat16)
+        ms = time_ms(torch, lambda i: gkernel.grouped_matmul_cuda(x, w), 1,
+                     inner=10, reps=11)
+        bound, by, moved = gmm_bound_ms(e, c, d, f, 2, BF16_OPS_PER_S)
+        print(f"lane engine: gmm at the packed {label} shape x ({e}, {c}, "
+              f"{d}) w ({e}, {d}, {f}) bf16, route "
+              f"{gkernel.plan(e, c, d, f, torch.bfloat16).route}: "
+              f"{ms:.4f} ms a call, bound {bound:.4f} ms ({by})", flush=True)
+        entry.setdefault("ms", ms)
+        del x, w
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": entry["ms"]}
+
+
+def recurrent_lane_phase(torch, np, card: str) -> None:
+    """Full-width, full-depth mamba2-370m and recurrentgemma-2b (random
+    bf16 weights from the seed) served by ``ContinuousBatchingEngine`` on
+    lanes, :func:`lane_trace`: the run's contract (:func:`lane_checks`),
+    decode-step time, peak memory and the bytes of one lane snapshot."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.sharding.params import init_tree
+
+    for arch in ("mamba2_370m", "recurrentgemma_2b"):
+        cfg = configs.get(arch)
+        params = init_tree(registry.decls(cfg), SEED, "cuda",
+                           dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine, decode_ms, steps, wall = lane_serve(torch, np, cfg, params)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        stats = lane_checks(engine, cfg)
+        snap = lane_snapshot_bytes(torch, cfg)
+        print(f"lane engine on {card}: {cfg.name}, {cfg.n_layers} layers, "
+              f"{steps} engine steps, {stats['token_steps']} one-token "
+              f"steps, {stats['tokens_generated']} tokens, "
+              f"{stats['prompt_tokens_reused']} prompt tokens reused, "
+              f"{stats['pages']['cow_copies']} snapshot pages copied into "
+              f"lanes; decode step {statistics.median(decode_ms):.3f} ms "
+              f"(median of {len(decode_ms)}), "
+              f"{stats['tokens_generated'] / wall:.1f} tokens/s over "
+              f"{wall:.3f} s; peak memory {peak_gb:.2f} GB; "
+              f"{stats['pages']['resident']} snapshots resident, {snap} "
+              f"bytes each; meter conserves", flush=True)
+        del engine, params
+        torch.cuda.empty_cache()
+
+
+def small_lane_reference_phase(torch, np) -> None:
+    """The lane engine on the card against the CPU's plain path on small
+    inputs: the granite, grok, mamba2 and recurrentgemma smoke configs
+    (bf16 params, the attention at its true fan-in and the embedding x 10),
+    3 slots, 4-token pages, prefill chunk 4, six requests sharing a 9-token
+    prefix. Each request's completion is teacher-forced on both devices;
+    the card's completion equals the CPU's up to the first step whose
+    top-2 margin is not above twice the step's largest logit difference
+    plus a bf16 ulp. Granite's completions on lanes equal those on the
+    paged backend on the card."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import griffin, registry, transformer
+    from repro_torch.serve.engine import ContinuousBatchingEngine, Request
+    from repro_torch.sharding.params import init_tree, tree_map
+
+    rng = np.random.default_rng(SEED)
+    prefix = [int(t) for t in rng.integers(1, 256, 9)]
+    reqs = [(f"r{i}", prefix + [int(t) for t in rng.integers(1, 256, 1 + i % 4)],
+             4 + i % 3) for i in range(6)]
+
+    def serve(cfg, params, dev, **kw):
+        eng = ContinuousBatchingEngine(cfg, params, slots=3, max_len=32,
+                                       page_size=4, prefill_chunk=4,
+                                       device=dev, **kw)
+        for r in reqs:
+            assert eng.submit(Request(*r))
+        eng.run_until_idle()
+        return eng, {r.id: r.tokens for r in eng.completed}
+
+    def forced(cfg, params, seq, dev):
+        cache = registry.cache_init(cfg, 1, 32, device=dev, lanes=True)
+        out = []
+        with torch.inference_mode():
+            for tok in seq[:-1]:
+                logits, _ = registry.decode_step(
+                    params, cfg, cache, torch.tensor([[tok]], device=dev))
+                out.append(logits[0].float().cpu())
+        return torch.stack(out)
+
+    for arch in ("granite_3_2b", "grok_1_314b", "mamba2_370m",
+                 "recurrentgemma_2b"):
+        cfg = configs.smoke(arch)
+        if arch == "granite_3_2b":
+            # small_reference_phase's model, whose margins it checks clear
+            cfg = dataclasses.replace(cfg, dtype="float32")
+            params = init_tree(registry.decls(cfg), SEED, "cpu")
+        else:
+            params = init_tree(registry.decls(cfg), SEED, "cpu",
+                               dtype=torch.bfloat16)
+        if cfg.family == "hybrid":
+            params = griffin.true_fan_in(params, cfg)
+        elif cfg.family == "moe":
+            params = transformer.true_fan_in(params, cfg)
+        params["embed"] = params["embed"] * 10.0
+        card_params = tree_map(lambda t: t.to("cuda"), params)
+        eng, got = serve(cfg, card_params, "cuda", paged=False)
+        assert eng.stats()["backend"] == "lanes"
+        _, want = serve(cfg, params, "cpu", paged=False)
+        clear_steps = emitted = 0
+        for rid, prompt, n_new in reqs:
+            seq = list(prompt) + want[rid]
+            w = forced(cfg, params, seq, "cpu")[len(prompt) - 1:]
+            g = forced(cfg, card_params, seq, "cuda")[len(prompt) - 1:]
+            top2 = w.topk(2, dim=-1).values
+            gap = (g - w).abs().amax(-1)
+            ulp = 2.0 ** (torch.floor(torch.log2(top2[:, 0].abs())) - 7)
+            clear = top2[:, 0] - top2[:, 1] > 2 * gap + ulp
+            k = n_new if bool(clear.all()) else int(clear.int().argmin())
+            assert got[rid][:k] == want[rid][:k], (arch, rid, k)
+            clear_steps, emitted = clear_steps + k, emitted + n_new
+        note = ""
+        if arch == "granite_3_2b":
+            paged, on_pages = serve(cfg, card_params, "cuda", paged=True)
+            assert paged.stats()["backend"] == "paged"
+            assert on_pages == got, "granite: lanes != paged on the card"
+            note = "; equal to the paged backend's on the card"
+        print(f"small lane reference, smoke {cfg.name}: the card's lane "
+              f"engine vs the CPU's plain path, completions equal up to "
+              f"each request's first unclear margin ({clear_steps} of "
+              f"{emitted} emitted steps){note}", flush=True)
+
+
 def argmax_tie(torch) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -3028,10 +3413,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     gmm = gmm_phase(torch, gkernel, gref)
     torch.cuda.empty_cache()
-    gmm["launches"] = grok_serve_phase(torch, np, gkernel, gref, fkernel,
-                                       fref, card)
+    served, grok_cfg, grok_params = grok_serve_phase(
+        torch, np, gkernel, gref, fkernel, fref, card)
+    lanes = grok_lane_phase(torch, np, gkernel, gref, grok_cfg, grok_params,
+                            card)
+    del grok_params
     torch.cuda.empty_cache()
+    # the grouped matmul's two main paths: the serve driver and the engine
+    gmm["launches"] = served + lanes["launches"]
+    gmm["launches_by_path"] = {"serve driver": served,
+                               "lane engine": lanes["launches"]}
+    gmm["lane_engine_ms"] = lanes["ms"]
     small_moe_reference_phase(torch, np)
+    torch.cuda.empty_cache()
+    recurrent_lane_phase(torch, np, card)
+    small_lane_reference_phase(torch, np)
     torch.cuda.empty_cache()
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -38,8 +38,9 @@ from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (_attn_decls, _attn_out, _ffn,
-                                           _project_qkv, _rope, cache_tail,
-                                           decode_attend, rescale_attention)
+                                           _project_qkv, _rope, advance,
+                                           cache_tail, decode_attend,
+                                           rescale_attention)
 from repro_torch.sharding import axes as lx
 from repro_torch.sharding.params import Axes, ParamDecl, stack_tree, tree_map
 
@@ -208,7 +209,7 @@ class GriffinCache:
     h: torch.Tensor      # (n_rec, B, W) float32
     k: torch.Tensor      # (n_attn, B, win, kv, hd) bf16
     v: torch.Tensor
-    pos: torch.Tensor    # () int32: positions consumed so far
+    pos: torch.Tensor    # () or (B,) int32: positions consumed so far
 
     @staticmethod
     def shapes(cfg: ModelConfig, batch: int, max_len: int):
@@ -323,40 +324,47 @@ def _rec_mix_decode(x, p, cfg: ModelConfig, conv_st, h_st):
     return x + out, conv2, h_new
 
 
-def _attn_mix_decode(x, p, cfg: ModelConfig, ck, cv, pos, rope_cs):
+def _attn_mix_decode(x, p, cfg: ModelConfig, ck, cv, pos, rope_cs,
+                     keep=None):
     """One position against the ring: K/V land at slot ``pos % win`` (in
-    place in ``ck``/``cv``), and the query attends over the first
-    ``min(pos + 1, win)`` slots."""
+    place in ``ck``/``cv``, not for a lane ``keep`` masks out), and the
+    query attends over the first ``min(pos + 1, win)`` slots."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     w = {n: p[n].to(h.dtype) for n in ("wq", "wk", "wv", "wo")}
     q, k, v = _project_qkv(h, w, cfg, rope_cs)
-    return _attn_out(x, decode_attend(q, k, v, ck, cv, pos), w["wo"])
+    return _attn_out(x, decode_attend(q, k, v, ck, cv, pos, keep), w["wo"])
 
 
 def decode_step(params, cfg: ModelConfig, cache: GriffinCache,
-                tokens: torch.Tensor) -> tuple[torch.Tensor, GriffinCache]:
+                tokens: torch.Tensor, keep: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, GriffinCache]:
     """tokens (B, 1) -> ``(logits (B, V), cache)``. The cache is written
     **in place** (the reference returns a new one) and comes back as the
-    same object, its ``pos`` advanced by one."""
+    same object, its ``pos`` advanced by one. A lane cache (``pos`` (B,))
+    puts each lane at its own position; ``keep`` (B,) bool masks lanes
+    out of it, their conv tail, RG-LRU state, ring and ``pos`` left bit for
+    bit as they were (see :func:`repro_torch.models.transformer.
+    decode_step`)."""
     dev = params["embed"].device
     tokens = tokens.to(dev)
     pos = cache.pos
-    rope_cs = _rope(cfg, pos.reshape(1, 1))
+    new_pos = advance(pos, keep)
+    rope_cs = _rope(cfg, pos.reshape(-1, 1))
     x = _embed(params, cfg, tokens)
     ri = ai = 0
     for kind, lp in _layers(params, cfg):
         if kind == "rec":
-            x, conv2, h2 = _rec_mix_decode(x, lp["mix"], cfg, cache.conv[ri],
-                                           cache.h[ri])
-            cache.conv[ri].copy_(conv2)
-            cache.h[ri].copy_(h2)
+            conv, h = cache.conv[ri], cache.h[ri]
+            x, conv2, h2 = _rec_mix_decode(x, lp["mix"], cfg, conv, h)
+            conv.copy_(L.keep_lanes(keep, conv2, conv))
+            h.copy_(L.keep_lanes(keep, h2, h))
             ri += 1
         else:
             x = _attn_mix_decode(x, lp["mix"], cfg, cache.k[ai], cache.v[ai],
-                                 pos, rope_cs)
+                                 pos, rope_cs, keep)
             ai += 1
         x = _ffn(x, lp, cfg)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     logits = L.lm_head(x, params, cfg)[:, 0]
-    cache.pos = pos + 1
+    cache.pos = new_pos
     return logits, cache

@@ -90,9 +90,11 @@ def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
-                  q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
+                  q_offset: int = 0, kv_len=None) -> torch.Tensor:
     """Naive full-score oracle. q:(B,Sq,H,D) k,v:(B,Sk,K,D); GQA folds
-    head ``h`` onto KV head ``h // (H // K)``."""
+    head ``h`` onto KV head ``h // (H // K)``. ``kv_len`` (an int, a 0-d
+    tensor, or a (B,) tensor: one length a batch row) masks the keys at
+    and past it."""
     b, sq, h, d = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     qf = q.reshape(b, sq, nkv, h // nkv, d).to(F32)
@@ -105,7 +107,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     if window is not None:
         mask &= qpos - kpos < window
     if kv_len is not None:
-        mask &= kpos < kv_len
+        kv_len = torch.as_tensor(kv_len, device=q.device)
+        mask = mask & (kpos < kv_len.reshape(-1, 1, 1, 1, 1))
     s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=F32, device=q.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqc,bckd->bqkgd", p, v.to(F32))
@@ -264,6 +267,44 @@ def moe(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
     return out, aux
 
 
+def moe_lanes(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
+              kind: str = "swiglu") -> torch.Tensor:
+    """x (B, 1, d) -> out (B, 1, d): each row routed as a batch of its own,
+    as the reference's lane engine routes a lane under ``vmap``.
+
+    A lane is one token, so its capacity is ``capacity(1, ...) = 1`` and
+    no slot is ever dropped (its k experts are distinct); :func:`moe`
+    over the B rows together would share a capacity of at most 8 slots an
+    expert among them and drop past it. The lanes' (E, 1, d) dispatch
+    buffers are packed along the capacity axis into one (E, B, d) buffer,
+    lane b in row b, zero where the lane did not pick the expert, so the
+    expert FFN is one :func:`repro_torch.kernels.moe.ops.moe_ffn` call for
+    all lanes (three grouped-matmul launches on the card): rows of a
+    product are independent, so each row is the lane's own result. The k
+    outputs of a lane are weighted by its gates and summed in float32 in
+    expert order, as the reference's combine adds them.
+    """
+    b, s, d = x.shape
+    if s != 1:
+        raise ValueError(f"moe_lanes routes one token a lane, got {s}")
+    xt = x.reshape(b, d)
+    _, gates, eidx = route(xt, p["router"], top_k)
+    picked = torch.zeros((n_exp, b), dtype=torch.bool, device=x.device)
+    picked[eidx.T, torch.arange(b, device=x.device)] = True
+    xg = torch.where(picked[..., None], xt, xt.new_zeros(()))
+    hg = moe_ops.moe_ffn(xg, p, kind)                   # (E, B, d)
+    order = torch.argsort(eidx, dim=-1, stable=True)
+    eidx, gates = eidx.gather(1, order), gates.gather(1, order)
+    lanes = torch.arange(b, device=x.device)
+    out = torch.zeros((b, d), dtype=F32, device=x.device)
+    for j in range(top_k):
+        out = out + hg[eidx[:, j], lanes].to(F32) * gates[:, j:j + 1]
+    out = out.to(x.dtype).reshape(b, 1, d)
+    if "shared" in p:
+        out = out + mlp(x, p["shared"], kind)
+    return out
+
+
 def moe_dense_ref(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
                   kind: str = "swiglu") -> torch.Tensor:
     """Oracle: every expert on every token, then mixed by the gates
@@ -280,6 +321,22 @@ def moe_dense_ref(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
     if "shared" in p:
         out = out + mlp(x, p["shared"], kind).reshape(t, d).to(F32)
     return out.to(x.dtype).reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# Lanes
+# ---------------------------------------------------------------------------
+
+
+def keep_lanes(keep: torch.Tensor | None, new: torch.Tensor,
+               old: torch.Tensor) -> torch.Tensor:
+    """``new`` where ``keep`` (B,) bool is set, ``old`` elsewhere: the
+    masked update of a lane engine's chunk step (a masked lane keeps its
+    old values bit for bit). The batch axis is ``new``'s first;
+    ``keep=None`` keeps every lane and returns ``new`` itself."""
+    if keep is None:
+        return new
+    return torch.where(keep.reshape(-1, *(1,) * (new.dim() - 1)), new, old)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.griffin import _softplus
+from repro_torch.models.transformer import advance
 from repro_torch.sharding import axes as lx
 from repro_torch.sharding.params import Axes, ParamDecl, stack_tree, tree_map
 
@@ -98,7 +99,7 @@ class SSMCache:
     conv_B: torch.Tensor   # (L, B, w-1, n) bf16
     conv_C: torch.Tensor   # (L, B, w-1, n) bf16
     state: torch.Tensor    # (L, B, H, P, N) float32
-    pos: torch.Tensor      # () int32: positions consumed so far
+    pos: torch.Tensor      # () or (B,) int32: positions consumed so far
 
     @staticmethod
     def shapes(cfg: ModelConfig, batch: int):
@@ -218,11 +219,16 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params, cfg: ModelConfig, cache: SSMCache,
-                tokens: torch.Tensor) -> tuple[torch.Tensor, SSMCache]:
+                tokens: torch.Tensor, keep: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, SSMCache]:
     """tokens (B, 1) -> ``(logits (B, V), cache)``. The cache is written
     **in place** (the reference returns a new one) and comes back as the
-    same object, its ``pos`` advanced by one."""
+    same object, its ``pos`` advanced by one. ``keep`` (B,) bool, with a
+    lane cache (``pos`` (B,)), masks lanes out: their conv tails, SSD state
+    and ``pos`` stay bit for bit as they were (see
+    :func:`repro_torch.models.transformer.decode_step`)."""
     dev = params["embed"].device
+    new_pos = advance(cache.pos, keep)
     x = _embed(params, tokens.to(dev))
     for li, lp in enumerate(_layers(params, cfg)):
         z, xin, Braw, Craw, dt_raw = _mix(x, lp, cfg)
@@ -231,13 +237,21 @@ def decode_step(params, cfg: ModelConfig, cache: SSMCache,
         xh, xs, dA, Bh, Ch = _ssm_math(xin, Braw, Craw, dt_raw, lp, cfg)
         # the one-step recurrence
         st = cache.state[li]
-        st.mul_(torch.exp(dA[:, 0])[..., None, None])
-        st.add_(torch.einsum("bhp,bhn->bhpn", xs[:, 0], Bh[:, 0].to(F32)))
-        y = torch.einsum("bhpn,bhn->bhp", st, Ch[:, 0].to(F32))[:, None]
+        if keep is None:
+            st.mul_(torch.exp(dA[:, 0])[..., None, None])
+            st.add_(torch.einsum("bhp,bhn->bhpn", xs[:, 0], Bh[:, 0].to(F32)))
+            new_st = st
+        else:
+            new_st = (st * torch.exp(dA[:, 0])[..., None, None]
+                      + torch.einsum("bhp,bhn->bhpn", xs[:, 0],
+                                     Bh[:, 0].to(F32)))
+        y = torch.einsum("bhpn,bhn->bhp", new_st, Ch[:, 0].to(F32))[:, None]
+        if keep is not None:
+            st.copy_(L.keep_lanes(keep, new_st, st))
         for dst, src in zip(conv, new_tails):
-            dst.copy_(src)
+            dst.copy_(L.keep_lanes(keep, src, dst))
         x = _out(x, y, xh, z, lp, cfg)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     logits = L.lm_head(x, params, cfg)[:, 0]
-    cache.pos = cache.pos + 1
+    cache.pos = new_pos
     return logits, cache

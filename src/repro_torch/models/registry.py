@@ -4,11 +4,19 @@ The dense, MoE and audio families (the decoder-only transformer), the
 hybrid family (Griffin) and the SSM family (Mamba-2) are ported; every
 other family raises ``NotImplementedError`` until its slice lands. The
 serve driver's ``prefill`` / ``decode_step`` / ``cache_init`` serve the
-dense, MoE, hybrid and SSM families; the paged engine serves the dense
-family. Training (``forward``) is the dense family's only.
+dense, MoE, hybrid and SSM families. The engine serves the same four: the
+dense family on its paged backend (``decode_step_paged``) or on lanes, the
+MoE, hybrid and SSM families on lanes only (``supports_paged`` is False
+for them), through ``decode_step`` over a lane cache
+(``cache_init(..., lanes=True)``, :func:`lane_read`, :func:`lane_write`).
+Training (``forward``) is the dense family's only.
 """
 
 from __future__ import annotations
+
+import dataclasses
+
+import torch
 
 from repro_torch.models import griffin, mamba2, transformer
 from repro_torch.models.config import ModelConfig
@@ -73,19 +81,66 @@ def prefill(params, cfg: ModelConfig, tokens, max_len=None):
                                              max_len=max_len)
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens):
+def decode_step(params, cfg: ModelConfig, cache, tokens, keep=None):
     """One token per lane ``(logits, cache)``, the cache written in place;
     see :func:`transformer.decode_step`, :func:`griffin.decode_step` and
-    :func:`mamba2.decode_step`. Dense, MoE, hybrid and SSM families."""
+    :func:`mamba2.decode_step`. Dense, MoE, hybrid and SSM families.
+    ``keep`` (B,) bool masks lanes of a lane cache out: their state stays
+    bit for bit as it was."""
     return _serve(cfg, "decode_step")[0].decode_step(params, cfg, cache,
-                                                     tokens)
+                                                     tokens, keep=keep)
 
 
-def cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               lanes: bool = False):
     """A zeroed decode cache on ``device`` (``None`` is the card). Dense,
-    MoE, hybrid and SSM families."""
-    return _serve(cfg, "cache_init")[1].init(cfg, batch, max_len,
-                                             device=device)
+    MoE, hybrid and SSM families.
+
+    With ``lanes`` it is the lane engine's cache: ``batch`` lanes, each a
+    copy of the family's batch-1 cache (its values, not assumed zero), and
+    a position a lane (``pos`` (batch,)), so that :func:`decode_step`
+    decodes every lane as a batch-1 model of its own. Every cache class
+    keeps the batch on axis 1 of its state tensors and ``pos`` last."""
+    cls = _serve(cfg, "cache_init")[1]
+    if not lanes:
+        return cls.init(cfg, batch, max_len, device=device)
+    one = cls.init(cfg, 1, max_len, device=device)
+    return type(one)(**{
+        f.name: (getattr(one, f.name).reshape(1).repeat(batch)
+                 if f.name == "pos" else
+                 getattr(one, f.name).repeat_interleave(batch, dim=1))
+        for f in dataclasses.fields(one)})
+
+
+def lane_read(cache, i: int):
+    """Lane ``i`` of a lane cache as a batch-1 cache of its own: a copy
+    (every tensor cloned, ``pos`` 0-d), which later in-place steps on the
+    lane cache leave as it is. The engine publishes it as a prefix page's
+    snapshot."""
+    return type(cache)(**{
+        f.name: (getattr(cache, f.name)[i] if f.name == "pos" else
+                 getattr(cache, f.name)[:, i:i + 1]).clone()
+        for f in dataclasses.fields(cache)})
+
+
+def lane_write(cache, i: int, one) -> None:
+    """Copy the batch-1 cache ``one`` (the family's initial cache, or a
+    :func:`lane_read` snapshot) into lane ``i`` of a lane cache, in place;
+    ``one`` is left as it is."""
+    for f in dataclasses.fields(cache):
+        dst, src = getattr(cache, f.name), getattr(one, f.name)
+        if f.name == "pos":
+            dst[i] = src.reshape(())
+        else:
+            dst[:, i:i + 1].copy_(src)
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of a cache's tensors (a lane snapshot's size)."""
+    return sum(t.numel() * t.element_size()
+               for t in (getattr(cache, f.name)
+                         for f in dataclasses.fields(cache))
+               if isinstance(t, torch.Tensor))
 
 
 def supports_paged(cfg: ModelConfig) -> bool:

@@ -21,6 +21,13 @@ on the card), and every prefill attention call through
 one-token decode step attends over the cache in plain PyTorch
 (:func:`layers.attention_ref` with ``kv_len``), as the reference does with
 ``attention_chunked``, not with a Pallas kernel.
+
+A lane cache (``KVCache.pos`` of shape (B,), built by
+``registry.cache_init(..., lanes=True)``) decodes its B rows as B
+batch-1 models, as the reference's lane engine ``vmap``s ``decode_step``:
+each row at its own position, and the MoE layers routing each row as a
+batch of its own (:func:`layers.moe_lanes`). A ``keep`` mask leaves the
+masked rows' cache bit for bit as it was.
 """
 
 from __future__ import annotations
@@ -155,13 +162,18 @@ def _project_qkv(h, p, cfg: ModelConfig, rope_cs=None):
     return q, k, v
 
 
-def _ffn(x, lp, cfg: ModelConfig, is_moe: bool = False):
+def _ffn(x, lp, cfg: ModelConfig, is_moe: bool = False, lanes: bool = False):
     """The residual FFN of one layer: the MLP, or for an MoE layer
     :func:`layers.moe` on weights cast to x's dtype (the router is lifted
-    back to float32 inside, as the reference's is). The MoE aux loss is
-    dropped: the serving paths discard it, as the reference's prefill and
-    decode do, and MoE training is not yet ported."""
+    back to float32 inside, as the reference's is), or with ``lanes``
+    :func:`layers.moe_lanes` (each row routed on its own). The MoE aux
+    loss is dropped: the serving paths discard it, as the reference's
+    prefill and decode do, and MoE training is not yet ported."""
     h = L.rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
+    if is_moe and lanes:
+        return x + L.moe_lanes(h, _cast(lp["moe"], x.dtype),
+                               n_exp=cfg.moe_experts, top_k=cfg.moe_top_k,
+                               kind=cfg.mlp_type)
     if is_moe:
         o, _aux = L.moe(h, _cast(lp["moe"], x.dtype),
                         n_exp=cfg.moe_experts, top_k=cfg.moe_top_k,
@@ -262,14 +274,16 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
 
 @dataclasses.dataclass
 class KVCache:
-    """Decode state of the serve driver: every layer's K and V in bf16,
-    ``(L, B, S_cache, Kh, Dh)``, and the next position to write. With a
-    sliding window the cache is a ring of ``min(max_len, window)`` slots,
-    position p at slot ``p % S_cache``."""
+    """Decode state of the serve driver and of the lane engine: every
+    layer's K and V in bf16, ``(L, B, S_cache, Kh, Dh)``, and the next
+    position to write, one for the batch (``pos`` 0-d, the serve driver)
+    or one a lane (``pos`` (B,), the lane engine). With a sliding window
+    the cache is a ring of ``min(max_len, window)`` slots, position p at
+    slot ``p % S_cache``."""
 
     k: torch.Tensor
     v: torch.Tensor
-    pos: torch.Tensor    # () int32
+    pos: torch.Tensor    # () or (B,) int32
 
     @staticmethod
     def cache_len(cfg: ModelConfig, max_len: int) -> int:
@@ -317,16 +331,28 @@ def cache_tail(k, v, s_cache: int, dtype=torch.bfloat16):
             torch.nn.functional.pad(v.to(dtype), pad))
 
 
-def decode_attend(q, k, v, ck, cv, pos):
+def decode_attend(q, k, v, ck, cv, pos, keep=None):
     """One position per lane against a cache ck/cv (B, S_cache, K, hd): its
     k/v land at slot ``pos % S_cache``, **in place**, and q attends over
     the first ``min(pos + 1, S_cache)`` slots in plain PyTorch
     (:func:`layers.attention_ref`). Without a window S_cache is max_len and
-    the slot is pos."""
+    the slot is pos. ``pos`` is one position for every lane (0-d) or one a
+    lane (B,); with one a lane, a lane masked out by ``keep`` (B,) bool
+    writes back the entry it holds, so its cache stays bit for bit as it
+    was (its query still attends, and its output is to be ignored)."""
     s_cache = ck.shape[1]
-    slot = (pos % s_cache).reshape(1).long()
-    ck.index_copy_(1, slot, k.to(ck.dtype))
-    cv.index_copy_(1, slot, v.to(cv.dtype))
+    if pos.dim() == 0:
+        slot = (pos % s_cache).reshape(1).long()
+        ck.index_copy_(1, slot, k.to(ck.dtype))
+        cv.index_copy_(1, slot, v.to(cv.dtype))
+    else:
+        lanes = torch.arange(ck.shape[0], device=ck.device)
+        slot = (pos % s_cache).long()
+        for c, new in ((ck, k), (cv, v)):
+            new = new[:, 0].to(c.dtype)
+            if keep is not None:
+                new = L.keep_lanes(keep, new, c[lanes, slot])
+            c[lanes, slot] = new
     kv_len = torch.clamp_max(pos + 1, s_cache)
     return L.attention_ref(q, ck, cv, causal=False, kv_len=kv_len)
 
@@ -371,34 +397,51 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, cache
 
 
-def _attn_decode(x, p, cfg: ModelConfig, ck, cv, pos, rope_cs):
+def _attn_decode(x, p, cfg: ModelConfig, ck, cv, pos, rope_cs, keep=None):
     """``transformer.py:131-143``: the layer's attention for one position
     per lane, through :func:`decode_attend`."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _project_qkv(h, p, cfg, rope_cs)
-    return _attn_out(x, decode_attend(q, k, v, ck, cv, pos), p["wo"])
+    return _attn_out(x, decode_attend(q, k, v, ck, cv, pos, keep), p["wo"])
+
+
+def advance(pos: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:
+    """The positions after one decode step: one more, but where ``keep``
+    masks a lane out (a mask needs a position a lane, ``pos`` (B,))."""
+    if keep is None:
+        return pos + 1
+    if pos.dim() != 1:
+        raise ValueError("a keep mask needs a lane cache (pos of shape (B,))")
+    return pos + keep.to(pos.dtype)
 
 
 def decode_step(params, cfg: ModelConfig, cache: KVCache,
-                tokens: torch.Tensor) -> tuple[torch.Tensor, KVCache]:
+                tokens: torch.Tensor, keep: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, KVCache]:
     """tokens (B, 1) -> ``(logits (B, V), cache)`` (``transformer.py:
     380-410``). The cache is written **in place** (the reference returns a
     new one) and comes back as the same object, its ``pos`` advanced by
-    one. The B tokens of a step are routed together, as the reference
-    routes them."""
+    one. With a 0-d ``pos`` (the serve driver) the B tokens of a step are
+    routed together, as the reference routes them; with a (B,) ``pos`` (a
+    lane cache) each lane is at its own position and routed on its own,
+    as under the reference engine's ``vmap``. ``keep`` (B,) bool, on the
+    cache's device, masks lanes out: a masked lane's K/V, and its ``pos``,
+    stay bit for bit as they were, and its logits are to be ignored."""
     dev = params["embed"].device
     tokens = tokens.to(dev)
     pos = cache.pos
-    positions = pos.reshape(1, 1)
+    new_pos = advance(pos, keep)
+    positions = pos.reshape(-1, 1)
     rope_cs = _rope(cfg, positions)
     x = _embed(params, cfg, tokens, positions)
+    lanes = pos.dim() == 1
     for layer, is_moe, lp in _layers(params, cfg):
         x = _attn_decode(x, _cast(lp["attn"], x.dtype), cfg, cache.k[layer],
-                         cache.v[layer], pos, rope_cs)
-        x = _ffn(x, lp, cfg, is_moe)
+                         cache.v[layer], pos, rope_cs, keep)
+        x = _ffn(x, lp, cfg, is_moe, lanes)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     logits = L.lm_head(x, params, cfg)[:, 0]
-    cache.pos = pos + 1
+    cache.pos = new_pos
     return logits, cache
 
 

@@ -1,20 +1,35 @@
-"""Continuous-batching serving engine on the paged backend (greedy, sync).
+"""Continuous-batching serving engine on the paged and lane backends
+(greedy, sync).
 
 Port of ``ContinuousBatchingEngine`` and ``Request`` from
-``src/repro/serve/engine.py``, for the slice of the reference that serves a
-dense transformer greedily on the paged backend with sync dispatch:
+``src/repro/serve/engine.py``, for the slice of the reference that serves
+greedily with sync dispatch, on either of its two backends:
 
 * FIFO admission with ``queue_capacity`` backpressure;
 * slot-based batching: one :meth:`~ContinuousBatchingEngine.step` advances
   every occupied slot, prefilling slots feed up to ``prefill_chunk`` prompt
   tokens (clamped to the next page boundary when prefix sharing is on),
   decoding slots one token;
-* one global KV page pool with per-slot block tables
-  (:mod:`repro_torch.serve.paged`), decoded through the hand-written
-  paged-attention kernel on the card;
-* prefix sharing through :class:`~repro_torch.serve.pages.PageTable`:
-  admission adopts a resident chain by pointing the block table at its
-  pages (no copy), and a slot publishes each page its prefill completes;
+* the **paged backend** (dense configs, the default for them): one global
+  KV page pool with per-slot block tables (:mod:`repro_torch.serve.paged`),
+  decoded through the hand-written paged-attention kernel on the card;
+* the **lane backend** (every family the port decodes: the only one for
+  MoE, SSM and hybrid configs, ``paged=False`` for dense ones): one lane
+  of the family's decode cache a slot, ``n_lanes = max(slots,
+  lane_batch)`` lanes and ``device_len = max(max_len, device_len)``
+  positions, every lane decoded as a batch-1 model of its own in one
+  batched call (:func:`lane_step_fn`, :func:`lane_chunk_fn`; the MoE
+  layers route each lane on its own and pack the lanes into one
+  grouped-matmul call a weight). Empty lanes ride the step with the pad
+  token and are reset to the family's initial cache before their next
+  admission;
+* prefix sharing through :class:`~repro_torch.serve.pages.PageTable`. On
+  the paged backend admission adopts a resident chain by pointing the
+  block table at its pages (no copy), and a slot publishes each page its
+  prefill completes. On lanes a page is a copy of the lane's cache
+  (:func:`repro_torch.models.registry.lane_read`) and admission onto it
+  copies it into the lane right before the slot's first step
+  (copy-on-write, :meth:`PageTable.note_cow`);
 * the platform surface: each slot lives in a memory bank of the engine's
   :class:`~repro_torch.core.platform.Platform`, woken and clock-gated
   through the platform's shared bank refcounts; admissions and completions
@@ -27,23 +42,21 @@ dense transformer greedily on the paged backend with sync dispatch:
 
 :func:`build_serve` is the serve driver's one-device prefill and decode
 (the reference's ``build_sharded_serve`` without a mesh), which serves the
-dense, MoE, hybrid and SSM families. The engine itself serves only configs
-with a paged decode: MoE configs stay on the driver, as the reference's
-engine serves them only on its lane backend (not yet ported).
+dense, MoE, hybrid and SSM families.
 
-Later slices port the rest of the reference engine: async dispatch, the
-lane backend, tensor parallelism, a shared external pool or page table,
-fault injection, sampled requests, dedup claims and mid-flight re-match,
-sliding-window page recycling, and preempt/replay with a request
-journal. Passing a constructor argument of those features with a
-non-default value raises ``NotImplementedError``.
+Later slices port the rest of the reference engine: async dispatch,
+tensor parallelism, a shared external pool or page table, fault
+injection, sampled requests, dedup claims and mid-flight re-match,
+sliding-window page recycling on the paged backend, and preempt/replay
+with a request journal. Passing a constructor argument of those features
+with a non-default value raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -53,9 +66,10 @@ from repro_torch.core.platform import Platform, XHeepConfig
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.energy_meter import EnergyMeter
-from repro_torch.serve.paged import PagePool, paged_chunk_fn, paged_step_fn
+from repro_torch.serve.paged import (PagePool, paged_chunk_fn, paged_step_fn,
+                                     to_device)
 from repro_torch.serve.pages import PageTable
-from repro_torch.serve.sampling import SamplingParams, require_greedy
+from repro_torch.serve.sampling import SamplingParams, greedy, require_greedy
 from repro_torch.sharding.params import tree_leaves
 
 # constructor arguments of the reference engine that later slices port,
@@ -63,8 +77,8 @@ from repro_torch.sharding.params import tree_leaves
 _LATER_SLICES = {
     "journal": None, "journal_horizon": None,
     "page_table": None, "pool": None, "async_dispatch": False,
-    "lane_batch": None, "device_len": None, "admission_hook": None,
-    "reclaim": None, "chaos": None, "mesh": None, "tp_axis": "model",
+    "admission_hook": None, "reclaim": None, "chaos": None, "mesh": None,
+    "tp_axis": "model",
 }
 
 COMPLETE_LINE = "serve.complete"     # interrupt line raised per finished request
@@ -161,6 +175,65 @@ def build_serve(cfg: ModelConfig, batch: int, max_len: int,
 
 
 # ---------------------------------------------------------------------------
+# The lane backend's step functions
+# ---------------------------------------------------------------------------
+
+
+def lane_step_fn(cfg: ModelConfig):
+    """One token a lane over a lane cache, greedy (the reference's
+    ``_slot_step_fn``, ``src/repro/serve/engine.py:210-226``).
+
+    Signature: ``(params, cache, toks) -> next_tokens`` (B,) int32 on the
+    cache's device; ``toks`` (B,) is a host array. Every lane, empty ones
+    with the pad token, steps in one batched
+    :func:`~repro_torch.models.registry.decode_step`, which writes the
+    cache in place: an empty lane's state is garbage afterwards and is
+    reset before its next admission, as in the reference.
+    """
+    def step(params, cache, toks):
+        dev = cache.pos.device
+        logits, _ = registry.decode_step(params, cfg, cache,
+                                         to_device(toks, dev)[:, None])
+        return greedy(logits)
+
+    return step
+
+
+def lane_chunk_fn(cfg: ModelConfig, chunk: int):
+    """Up to ``chunk`` tokens a lane in one launch, greedy (the reference's
+    ``_chunk_step_fn``, ``src/repro/serve/engine.py:229-268``).
+
+    Signature: ``(params, cache, toks, counts) -> next_tokens`` with host
+    arrays ``toks`` (B, chunk) and ``counts`` (B,). Runs masked one-token
+    steps over all lanes: at step ``j`` lane ``b`` consumes ``toks[b, j]``
+    if ``j < counts[b]``, and a masked lane's cache, ``pos`` included,
+    stays bit for bit as it was (the ``keep`` of
+    :func:`~repro_torch.models.registry.decode_step`). The returned token
+    of each lane is the greedy token after its last fed token
+    (``counts[b] - 1``). Steps past every lane's count would change
+    nothing, so the loop stops at ``max(counts)``.
+    """
+    def step(params, cache, toks, counts):
+        dev = cache.pos.device
+        counts = np.asarray(counts)
+        n = int(counts.max())
+        if n > chunk:
+            raise ValueError(f"counts exceed the chunk of {chunk}")
+        toks = to_device(toks, dev)
+        outs = []
+        for j in range(n):
+            fed = j < counts
+            keep = None if fed.all() else to_device(fed, dev)
+            logits, _ = registry.decode_step(params, cfg, cache,
+                                             toks[:, j:j + 1], keep=keep)
+            outs.append(greedy(logits))
+        last = to_device(np.maximum(counts - 1, 0), dev).long()
+        return torch.stack(outs, 1).gather(1, last[:, None])[:, 0]
+
+    return step
+
+
+# ---------------------------------------------------------------------------
 # Continuous-batching engine
 # ---------------------------------------------------------------------------
 
@@ -168,7 +241,7 @@ def build_serve(cfg: ModelConfig, batch: int, max_len: int,
 @dataclasses.dataclass
 class _Slot:
     """Host-side state of one decode slot (its device state is the pool
-    pages its block table points at)."""
+    pages its block table points at, or its lane of the lane cache)."""
 
     request: Request
     fed: int = 0             # tokens already consumed (prompt, then generated)
@@ -177,6 +250,7 @@ class _Slot:
     page_keys: tuple = ()    # pinned shared-prefix pages (released on evict)
     pages_by_block: dict = dataclasses.field(default_factory=dict)
     blocks_covered: int = 0  # blocks allocated/adopted so far (next to cover)
+    pending_snapshot: Any = None   # lanes: adopted prefix, copied at 1st step
 
     @property
     def prefilling(self) -> bool:
@@ -184,7 +258,8 @@ class _Slot:
 
 
 class ContinuousBatchingEngine:
-    """Slot-based continuous batching over a global KV page pool.
+    """Slot-based continuous batching over a global KV page pool or over
+    per-slot lanes.
 
     Each of the ``slots`` decode lanes holds one request. One :meth:`step`
     advances every occupied lane: lanes still consuming their prompt are
@@ -194,6 +269,13 @@ class ContinuousBatchingEngine:
     through an engine-private :class:`PageTable` (bounded by
     ``page_capacity`` pages, default ``16 * slots``); without it pages are
     16 tokens and nothing is shared.
+
+    ``paged=None`` picks the paged backend where the config can page (the
+    dense family without a sliding window, which the paged backend does
+    not serve yet) and lanes otherwise; ``paged=False`` forces lanes, and
+    ``paged=True`` raises for a config that cannot page. ``lane_batch`` and
+    ``device_len`` pad the device shapes (lanes or block tables, and cache
+    positions) past ``slots`` and ``max_len``; the extra lanes ride idle.
 
     ``device=None`` is the card and raises without one; ``params`` must
     already live on the engine's device. The engine is clock-agnostic:
@@ -214,7 +296,8 @@ class ContinuousBatchingEngine:
                  pad_token: int = 0, prefill_chunk: int = 1,
                  page_size: int | None = None,
                  page_capacity: int | None = None,
-                 paged: bool | None = None, namespace: str = "",
+                 paged: bool | None = None, lane_batch: int | None = None,
+                 device_len: int | None = None, namespace: str = "",
                  name: str | None = None, metered: bool = True,
                  operating_point: str = "max", gate_idle_banks: bool = True,
                  **later_slices):
@@ -229,12 +312,19 @@ class ContinuousBatchingEngine:
             raise ValueError("max_len must fit a prompt token plus one output")
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
-        if paged is False or not registry.supports_paged(cfg):
+        can_page = registry.supports_paged(cfg)
+        if paged is None:
+            paged = can_page
+        elif paged and not can_page:
             raise NotImplementedError(
-                f"{cfg.name}: the lane backend is not yet ported")
-        if cfg.sliding_window:
+                f"{cfg.name} ({cfg.family}): no paged KV decode for this "
+                "family (MoE routes each lane on its own); it is served on "
+                "lanes")
+        if paged and cfg.sliding_window:
             raise NotImplementedError(
-                f"{cfg.name}: sliding-window page recycling is not yet ported")
+                f"{cfg.name}: sliding-window page recycling is not yet "
+                "ported; paged=False serves it on lanes")
+        self.paged = paged
         self.cfg = cfg
         self.device = device_mod.resolve(device)
         for leaf in tree_leaves(params):
@@ -244,6 +334,8 @@ class ContinuousBatchingEngine:
         self.params = params
         self.n_slots = slots
         self.max_len = max_len
+        self.n_lanes = max(slots, lane_batch or 0)
+        self.device_len = max(max_len, device_len or 0)
         owns_platform = platform is None
         self.platform = platform or Platform(XHeepConfig())
         self.queue_capacity = queue_capacity
@@ -254,23 +346,33 @@ class ContinuousBatchingEngine:
         self.name = name if name is not None else (namespace or "engine")
 
         self._ps = page_size or 16
-        self._np_slot = -(-max_len // self._ps)
-        cap = 0
-        if page_size:
-            cap = page_capacity if page_capacity is not None else 16 * slots
-        self._pool = PagePool(slots * self._np_slot + cap, self._ps)
-        self._arena = self._pool.arena(cfg, self.device)
+        self._np_slot = -(-self.device_len // self._ps)
+        cap = page_capacity if page_capacity is not None else 16 * slots
+        self._pool: PagePool | None = None
         self.pages: PageTable | None = None
+        if paged:
+            self._pool = PagePool(
+                slots * self._np_slot + (cap if page_size else 0), self._ps)
+            self._arena = self._pool.arena(cfg, self.device)
+            self._pstep = paged_step_fn(cfg)
+            self._pchunk = (paged_chunk_fn(cfg, prefill_chunk)
+                            if prefill_chunk > 1 else None)
+        else:
+            # one lane a device slot, each a copy of the family's batch-1
+            # initial cache (not assumed to be zeros)
+            self._lstep = lane_step_fn(cfg)
+            self._lchunk = (lane_chunk_fn(cfg, prefill_chunk)
+                            if prefill_chunk > 1 else None)
+            self._template = registry.cache_init(cfg, 1, self.device_len,
+                                                 device=self.device)
+            self._cache = registry.cache_init(cfg, self.n_lanes,
+                                              self.device_len,
+                                              device=self.device, lanes=True)
+        self._dirty: set[int] = set()          # lanes holding a dead state
         if page_size:
             self.pages = PageTable(
-                page_size,
-                capacity_pages=(page_capacity if page_capacity is not None
-                                else 16 * slots),
-                platform=self.platform,
-                on_evict=self._pool.release)
-        self._pstep = paged_step_fn(cfg)
-        self._pchunk = (paged_chunk_fn(cfg, prefill_chunk)
-                        if prefill_chunk > 1 else None)
+                page_size, capacity_pages=cap, platform=self.platform,
+                on_evict=self._pool.release if paged else None)
 
         self.queue: collections.deque[Request] = collections.deque()
         self._ids: set[str] = set()            # every id ever submitted
@@ -329,20 +431,30 @@ class ContinuousBatchingEngine:
             self._admit_into(free.pop(0), self.queue.popleft())   # FIFO
 
     def _admit_into(self, i: int, req: Request) -> None:
-        """Bind ``req`` to free slot ``i``, adopting a resident prefix chain
-        by pointing the block table at its pages (no state is copied)."""
+        """Bind ``req`` to free slot ``i``, adopting a resident prefix
+        chain: on the paged backend by pointing the block table at its
+        pages (no state is copied), on lanes by deferring the copy of the
+        chain's last snapshot into the lane to the slot's first step
+        (copy-on-write: a slot that never runs never pays for it). A dirty
+        lane admitted without a match is reset to the initial cache."""
         match = (self.pages.acquire(req.prompt, self.namespace)
                  if self.pages is not None else None)
+        if not self.paged and match is None and i in self._dirty:
+            registry.lane_write(self._cache, i, self._template)
+            self._dirty.discard(i)
         req.tokens = []
         req.admit_time = self.clock()
         slot = _Slot(request=req)
         if match is not None:
             slot.fed = match.tokens_matched
-            for b, idx in enumerate(match.chain):
-                self._pool.retain(idx)
-                slot.pages_by_block[b] = idx
             slot.page_keys = match.keys
-            slot.blocks_covered = slot.fed // self._ps
+            if self.paged:
+                for b, idx in enumerate(match.chain):
+                    self._pool.retain(idx)
+                    slot.pages_by_block[b] = idx
+                slot.blocks_covered = slot.fed // self._ps
+            else:
+                slot.pending_snapshot = match.snapshot
             self.prompt_tokens_reused += match.tokens_matched
         slot.next_token = req.prompt[slot.fed]
         self.slots[i] = slot
@@ -381,7 +493,7 @@ class ContinuousBatchingEngine:
         """Build this step's batch, launch it, and do the host bookkeeping
         that does not need the token values."""
         chunk = self.prefill_chunk
-        n = self.n_slots
+        n = self.n_lanes
         toks = np.full((n, chunk), self.pad_token, np.int32)
         counts = np.zeros((n,), np.int32)
         for i, slot in enumerate(self.slots):
@@ -397,7 +509,8 @@ class ContinuousBatchingEngine:
             else:
                 counts[i] = 1
                 toks[i, 0] = slot.next_token
-            self._ensure_pages(slot, slot.fed + int(counts[i]))
+            if self.paged:
+                self._ensure_pages(slot, slot.fed + int(counts[i]))
 
         nxt = self._launch(toks, counts)
         emitted, finished, charges = [], [], []
@@ -416,7 +529,7 @@ class ContinuousBatchingEngine:
             slot.fed += int(counts[i])
             if was_prefilling:
                 self.prompt_tokens_processed += int(counts[i])
-                self._maybe_publish(slot)
+                self._maybe_publish(i, slot)
                 if slot.prefilling:
                     # still consuming the prompt: teacher-force the next token
                     slot.next_token = slot.request.prompt[slot.fed]
@@ -434,6 +547,8 @@ class ContinuousBatchingEngine:
 
     def _launch(self, toks: np.ndarray, counts: np.ndarray) -> torch.Tensor:
         """One batched device launch; returns the on-device greedy tokens."""
+        if not self.paged:
+            return self._launch_lanes(toks, counts)
         arena = self._arena
         tables, lengths = self._build_tables()
         if self._pchunk is None or int(counts.max()) <= 1:
@@ -470,8 +585,8 @@ class ContinuousBatchingEngine:
     # -- paged-backend plumbing ----------------------------------------------
 
     def _build_tables(self) -> tuple[np.ndarray, np.ndarray]:
-        t = np.full((self.n_slots, self._np_slot), self._pool.null, np.int32)
-        lengths = np.zeros((self.n_slots,), np.int32)
+        t = np.full((self.n_lanes, self._np_slot), self._pool.null, np.int32)
+        lengths = np.zeros((self.n_lanes,), np.int32)
         for i, slot in enumerate(self.slots):
             if slot is None:
                 continue
@@ -489,13 +604,54 @@ class ContinuousBatchingEngine:
             slot.pages_by_block[slot.blocks_covered] = self._pool.alloc(self.name)
             slot.blocks_covered += 1
 
-    def _maybe_publish(self, slot: _Slot) -> None:
-        """Publish the page a prefill just completed: a refcount bump on the
-        pool page (chunk feeds are clamped so boundaries are hit exactly)."""
+    # -- lane-backend plumbing -----------------------------------------------
+
+    def _launch_lanes(self, toks: np.ndarray,
+                      counts: np.ndarray) -> torch.Tensor:
+        """The lane backend's launch: pending copy-on-write copies first,
+        then one batched step (chunked when a lane feeds more than one
+        token)."""
+        self._apply_pending_snapshots()
+        # empty lanes still ride the batched step (pad token): their lanes
+        # are garbage afterwards and must be reset before the next admission
+        self._dirty.update(i for i, s in enumerate(self.slots) if s is None)
+        self._dirty.update(range(self.n_slots, self.n_lanes))
+        if self._lchunk is None or int(counts.max()) <= 1:
+            # steady-state decode: every lane feeds one token, so skip the
+            # chunk loop and its masks
+            self.token_steps += 1
+            return self._lstep(self.params, self._cache, toks[:, 0])
+        self.token_steps += int(counts.max())
+        return self._lchunk(self.params, self._cache, toks, counts)
+
+    def _apply_pending_snapshots(self) -> None:
+        """Copy-on-write: a slot admitted onto shared pages borrows their
+        snapshot at admission; its private lane copy is made here, right
+        before the lane's first step."""
+        for i, slot in enumerate(self.slots):
+            if slot is None or slot.pending_snapshot is None:
+                continue
+            registry.lane_write(self._cache, i, slot.pending_snapshot)
+            slot.pending_snapshot = None
+            self._dirty.discard(i)
+            self.pages.note_cow(len(slot.page_keys))
+
+    # -- prefix publication and eviction --------------------------------------
+
+    def _maybe_publish(self, i: int, slot: _Slot) -> None:
+        """Publish lane ``i``'s state when its prefill lands on a page
+        boundary (chunk feeds are clamped so boundaries are hit exactly).
+        Paged backend: a refcount bump on the just-completed pool page.
+        Lanes: a copy of the lane's cache (:func:`registry.lane_read`), which
+        later steps of the lane do not touch."""
         if self.pages is None or slot.fed % self._ps != 0:
             return
         key = slot.request.prompt[:slot.fed]
         if not self.pages.wants(key, self.namespace):
+            return
+        if not self.paged:
+            self.pages.publish(key, registry.lane_read(self._cache, i),
+                               self.namespace)
             return
         idx = slot.pages_by_block[slot.fed // self._ps - 1]
         self._pool.retain(idx)             # residency reference
@@ -509,6 +665,7 @@ class ContinuousBatchingEngine:
         for idx in slot.pages_by_block.values():
             self._pool.release(idx)
         self.slots[i] = None
+        self._dirty.add(i)
         # shared refcount: gates only when no engine holds the bank
         self.platform.bank_release(self._slot_bank[i])
 
@@ -528,8 +685,9 @@ class ContinuousBatchingEngine:
         """Refcount-weighted KV pages this slot holds: shared-prefix pool
         pages split their holding energy 1/refcount across their holders
         (table residency included), as the reference's paged backend
-        charges them."""
-        if slot.pages_by_block:
+        charges them; a lane slot counts its pinned snapshot pages at
+        weight 1, as the reference's lane backend does."""
+        if self.paged and slot.pages_by_block:
             refs = self._pool.refcounts()
             return sum(1.0 / max(refs.get(idx, 1), 1)
                        for idx in slot.pages_by_block.values())
@@ -594,8 +752,8 @@ class ContinuousBatchingEngine:
             "prompt_tokens_processed": self.prompt_tokens_processed,
             "prompt_tokens_reused": self.prompt_tokens_reused,
             "prefill_chunk": self.prefill_chunk,
-            "backend": "paged",
-            "table_entries_per_slot": self._np_slot,
+            "backend": "paged" if self.paged else "lanes",
+            "table_entries_per_slot": self._np_slot if self.paged else None,
             "completed": len(self.completed),
             "rejected": self.rejected,
             "queued": len(self.queue),
@@ -607,9 +765,10 @@ class ContinuousBatchingEngine:
             out["pages"] = dict(self.pages.stats,
                                 resident=self.pages.resident,
                                 pinned=self.pages.pinned)
-        out["pool"] = dict(self._pool.stats,
-                           pages=self._pool.n_pages,
-                           in_use=self._pool.in_use,
-                           free=self._pool.free_count,
-                           held_by_engine=self._pool.in_use_by(self.name))
+        if self._pool is not None:
+            out["pool"] = dict(self._pool.stats,
+                               pages=self._pool.n_pages,
+                               in_use=self._pool.in_use,
+                               free=self._pool.free_count,
+                               held_by_engine=self._pool.in_use_by(self.name))
         return out

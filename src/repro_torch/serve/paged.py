@@ -36,7 +36,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serve.sampling import greedy
 
 __all__ = ["PagePool", "PoolArena", "pool_signature", "paged_step_fn",
-           "paged_chunk_fn"]
+           "paged_chunk_fn", "to_device"]
 
 
 def pool_signature(cfg: ModelConfig) -> tuple:
@@ -152,9 +152,9 @@ class PagePool:
         return self._by_owner.get(owner, 0)
 
 
-def _to(x, dev: torch.device) -> torch.Tensor:
-    # host-chosen inputs (numpy or CPU tensors) go to the device without
-    # waiting for it
+def to_device(x, dev: torch.device) -> torch.Tensor:
+    """A host-chosen input (numpy or a CPU tensor) on ``dev``, copied
+    without waiting for the device."""
     return torch.as_tensor(x).to(dev, non_blocking=True)
 
 
@@ -171,8 +171,9 @@ def paged_step_fn(cfg: ModelConfig, window: int | None = None):
     def step(params, pool_k, pool_v, tables, lengths, toks, mask):
         dev = pool_k.device
         logits, _, _ = registry.decode_step_paged(
-            params, cfg, pool_k, pool_v, _to(tables, dev), _to(lengths, dev),
-            _to(toks, dev), append_mask=torch.as_tensor(mask), window=window)
+            params, cfg, pool_k, pool_v, to_device(tables, dev),
+            to_device(lengths, dev), to_device(toks, dev),
+            append_mask=torch.as_tensor(mask), window=window)
         return greedy(logits)
 
     return step
@@ -196,15 +197,15 @@ def paged_chunk_fn(cfg: ModelConfig, chunk: int, window: int | None = None):
         n = int(counts.max())
         if n > chunk:
             raise ValueError(f"counts exceed the chunk of {chunk}")
-        tables, lengths = _to(tables, dev), _to(lengths, dev)
-        toks = _to(toks, dev)
+        tables, lengths = to_device(tables, dev), to_device(lengths, dev)
+        toks = to_device(toks, dev)
         outs = []
         for j in range(n):
             logits, _, _ = registry.decode_step_paged(
                 params, cfg, pool_k, pool_v, tables, lengths + j, toks[:, j],
                 append_mask=torch.from_numpy(j < counts), window=window)
             outs.append(greedy(logits))
-        last = _to(np.maximum(counts - 1, 0), dev).long()
+        last = to_device(np.maximum(counts - 1, 0), dev).long()
         return torch.stack(outs, 1).gather(1, last[:, None])[:, 0]
 
     return step

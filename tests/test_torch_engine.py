@@ -14,8 +14,9 @@ weights and a seeded shared-prefix trace:
 * inside the port, bitwise: chunked prefill equals unchunked, prefix
   adoption equals no page table, and the batched engine equals each
   request served alone;
-* the constructor's validation, backpressure, and the features later
-  slices port, which raise ``NotImplementedError``.
+* the constructor's validation, backpressure, the backend choice (the
+  lane backend's own tests are in ``tests/test_torch_lanes.py``), and the
+  features later slices port, which raise ``NotImplementedError``.
 """
 
 import dataclasses
@@ -191,17 +192,28 @@ def test_later_slices_raise_not_implemented(model):
     kw = {"slots": 2, "max_len": MAX_LEN, "device": "cpu"}
     ContinuousBatchingEngine(cfg, params, async_dispatch=False, tp_axis="model",
                              **kw)                 # defaults are accepted
+    # the lane backend is ported: paged=False, lane_batch and device_len
+    # are accepted, and a windowed config is served on lanes
+    lanes = ContinuousBatchingEngine(cfg, params, paged=False, lane_batch=4,
+                                     device_len=2 * MAX_LEN, **kw)
+    assert lanes.stats()["backend"] == "lanes" and lanes.n_lanes == 4
     for arg, value in [("async_dispatch", True), ("journal", object()),
-                       ("lane_batch", 8), ("chaos", object())]:
+                       ("chaos", object()), ("page_table", object()),
+                       ("pool", object()), ("admission_hook", object()),
+                       ("reclaim", object()), ("mesh", object()),
+                       ("journal_horizon", 8), ("tp_axis", "x")]:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ContinuousBatchingEngine(cfg, params, **{arg: value}, **kw)
     with pytest.raises(TypeError):
         ContinuousBatchingEngine(cfg, params, no_such_arg=1, **kw)
-    with pytest.raises(NotImplementedError, match="lane backend"):
-        ContinuousBatchingEngine(cfg, params, paged=False, **kw)
+    moe = configs.smoke("grok_1_314b")
+    with pytest.raises(NotImplementedError, match="no paged KV decode"):
+        ContinuousBatchingEngine(moe, params, paged=True, **kw)
     swa = dataclasses.replace(cfg, sliding_window=16)
     with pytest.raises(NotImplementedError, match="sliding-window"):
         ContinuousBatchingEngine(swa, params, **kw)
+    assert ContinuousBatchingEngine(swa, params, paged=False,
+                                    **kw).stats()["backend"] == "lanes"
     eng = ContinuousBatchingEngine(cfg, params, **kw)
     with pytest.raises(NotImplementedError, match="sampled"):
         eng.submit(Request("s", [1, 2], 2, sampling=SamplingParams(0.7)))
