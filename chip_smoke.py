@@ -42,7 +42,8 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
    and the plain path are printed, not compared: this random-weight model
    at depth 40 turns a one-ulp difference into O(1) logit differences
    within a few steps, and a printed control shows the same for the plain
-   path against itself perturbed by one bf16 ulp.)
+   path against itself perturbed by one bf16 ulp.) Keeps the greedy
+   completions for phase 25;
 5. small reference: the granite smoke config (3 layers, float32) served on
    the card and on the CPU's plain path gives equal completions, after a
    check that its greedy margins are clear (and on the card metered and
@@ -173,11 +174,14 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     call a weight), every one on the split-D route, 16 ``serve.admit`` and
     16 ``serve.complete`` interrupts and the meter's conservation; serves
     the trace again unmetered (equal completions) with every routing
-    recorded (no lane drops a slot) and one decode step profiled;
-    teacher-forces one request in an 8-lane cache, holding every grouped
-    matmul call to the plain version; times the kernel at the packed
-    shapes; prints decode-step time, tokens/s, busy share, peak memory and
-    the snapshots resident; then frees the weights;
+    recorded (no lane drops a slot) and one decode step profiled; serves
+    it with every second request sampled, sync and async (the same bits,
+    the greedy requests equal to the greedy run's, 12 split-D grouped
+    matmuls a one-token step); teacher-forces one request in an 8-lane
+    cache, holding every grouped matmul call to the plain version; times
+    the kernel at the packed shapes; prints decode-step time, tokens/s,
+    busy share, peak memory and the snapshots resident; then frees the
+    weights;
 22. small MoE reference: the grok and llama4 smoke configs served on the
     card (through the kernel) and on the CPU's plain path: routing equal
     on every MoE call, logits and caches at the bf16 bound, clear-margin
@@ -189,11 +193,33 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
 24. small lane reference: the granite, grok, mamba2 and recurrentgemma
     smoke configs through the lane engine on the card and on the CPU's
     plain path, completions equal where the margins are clear; granite's
-    on lanes equal to the paged backend's on the card.
+    on lanes equal to the paged backend's on the card, greedy and with
+    every second request sampled (equal to the CPU's plain path where the
+    margins of the sampler's scores are clear);
+25. sampled engine phase, last because its profiled windows make the
+    profiler drop kernels of later windows: full-width granite-3-2b's
+    weights made again, phase 4's trace with every second request sampled
+    (temperature 0.8, top_k 50, top_p 0.9, seed 100 + i), all submitted at
+    once so that siblings stall on dedup claims and re-match, served sync,
+    async, and async preempted at engine steps 12 and 40. Checks sync ≡
+    async ≡ replayed bit for bit (the journal cross-checks each replayed
+    token), the greedy requests equal to phase 4's all-greedy run, every
+    attention call through the kernel (launches == 40 x one-token steps in
+    each run), stalls, re-matches and the meter; and in the preempted run,
+    after every step, the merge's counters zero and each lane's key equal
+    to its chain recomputed on the CPU from (seed, produced count), and
+    every sampler call's tokens equal to the CPU's plain ``sample`` on the
+    same logits and keys where the margin is clear. Prints decode-step
+    time, tokens/s and a profiled window's busy share for sync and async
+    (``tools/engine_timing.py`` times the two in turns), and profiles
+    phase 4's one-token step with 4 of 8 lanes sampled and the sampler
+    alone.
 
-Prints a ``{"kernels": [...]}`` JSON line (eight entries; the grouped
-matmul's launches are those of its two main paths, the serve driver's and
-the lane engine's, each under ``launches_by_path``), the card line again,
+Prints a ``{"kernels": [...]}`` JSON line (eight entries; paged
+attention's launches are those of the greedy serve run and the three
+sampled engine runs, the grouped matmul's those of the serve driver and
+the lane engine's greedy and mixed runs, each under ``launches_by_path``),
+the card line again,
 and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero and prints no result; so does a machine without a card.
@@ -578,7 +604,9 @@ def teacher_force(torch, registry, cfg, params, seq, page_size, device):
     return torch.stack(out)
 
 
-def serve_phase(torch, np, kernel, ref, card: str) -> int:
+def serve_phase(torch, np, kernel, ref, card: str):
+    """Returns the kernel's launches on the greedy path and the greedy
+    run's completions by id."""
     from repro_torch import configs
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.models import registry
@@ -662,9 +690,9 @@ def serve_phase(torch, np, kernel, ref, card: str) -> int:
     # decode steps metered and not, in turns (metered, unmetered, metered)
     plain_engine, plain_ms, _, _ = serve(metered=False)
     again, again_ms, _, _ = serve()
-    want = {r.id: r.tokens for r in engine.completed}
-    assert {r.id: r.tokens for r in plain_engine.completed} == want
-    assert {r.id: r.tokens for r in again.completed} == want
+    greedy = {r.id: r.tokens for r in engine.completed}
+    assert {r.id: r.tokens for r in plain_engine.completed} == greedy
+    assert {r.id: r.tokens for r in again.completed} == greedy
     assert "energy" not in plain_engine.stats()
     print(f"serve decode step on {card}, metered {statistics.median(decode_ms):.3f}"
           f" ms (main run), unmetered {statistics.median(plain_ms):.3f} ms, "
@@ -726,7 +754,7 @@ def serve_phase(torch, np, kernel, ref, card: str) -> int:
           f"vs plain path: {fmt(logits[:16] - plain)}; plain vs plain with "
           f"its attention output perturbed by 2^-9: {fmt(noisy - plain)}")
     profile_phase(torch, np, cfg, params, card)
-    return launches
+    return launches, greedy
 
 
 def dev_us(event) -> float:
@@ -765,20 +793,23 @@ def device_profile(torch, fn, n: int = 1):
 
 def profile_phase(torch, np, cfg, params, card: str) -> None:
     """Where a decode step's time goes: three engine-shaped one-token steps
-    (8 lanes at 100 cached positions) under ``torch.profiler``."""
+    (8 lanes at 100 cached positions, greedy) under ``torch.profiler``."""
     from repro_torch.models import registry
+    from repro_torch.serve import sampling
     from repro_torch.serve.paged import paged_step_fn
 
     step = paged_step_fn(cfg)
     pool_k, pool_v = registry.paged_pool_init(cfg, 81, 16, device="cuda")
     args = (np.arange(80, dtype=np.int32).reshape(8, 10),
-            np.full((8,), 100, np.int32), np.arange(8, dtype=np.int32),
-            np.ones((8,), bool))
+            np.full((8,), 100, np.int32), np.arange(8, dtype=np.int32), None,
+            None, np.ones((8,), bool), np.ones((8,), bool),
+            sampling.zero_keys(8), np.zeros((8,), np.float32),
+            np.zeros((8,), np.int32), np.ones((8,), np.float32))
     for _ in range(3):
-        step(params, pool_k, pool_v, *args).cpu()
+        step(params, pool_k, pool_v, *args)[0].cpu()
     n = 3
     wall_ms, busy_ms, launches, kernels = device_profile(
-        torch, lambda: step(params, pool_k, pool_v, *args).cpu(), n)
+        torch, lambda: step(params, pool_k, pool_v, *args)[0].cpu(), n)
     paged = [e for e in kernels if "paged_attention_kernel" in e.key]
     top = "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3 / n:.3f} ms"
                     for e in kernels[:5])
@@ -788,6 +819,260 @@ def profile_phase(torch, np, cfg, params, card: str) -> None:
           f"{launches:.0f} kernel launches per step; paged attention "
           f"{dev_us(paged[0]) / paged[0].count:.2f} us per call x "
           f"{paged[0].count // n} calls; top device time: {top}")
+
+
+def sampler_profile(torch, np, cfg, params, card: str) -> None:
+    """The profile phase's one-token step with lanes 0, 2, 4 and 6 sampled
+    (temperature 0.8, top_k 50, top_p 0.9), and the sampler alone on that
+    step's logits, under ``torch.profiler``."""
+    from repro_torch.models import registry
+    from repro_torch.serve import sampling
+    from repro_torch.serve.paged import paged_step_fn
+
+    step = paged_step_fn(cfg)
+    pool_k, pool_v = registry.paged_pool_init(cfg, 81, 16, device="cuda")
+    keys = torch.stack([sampling.seed_key(100 + i) for i in range(8)])
+    mixed = np.where(np.arange(8) % 2 == 0, 0.8, 0.0).astype(np.float32)
+    args = (np.arange(80, dtype=np.int32).reshape(8, 10),
+            np.full((8,), 100, np.int32), np.arange(8, dtype=np.int32), None,
+            None, np.ones((8,), bool), np.ones((8,), bool), keys, mixed,
+            np.full((8,), 50, np.int32), np.full((8,), 0.9, np.float32))
+    for _ in range(3):
+        step(params, pool_k, pool_v, *args)[0].cpu()
+    n = 3
+    wall_ms, busy_ms, launches, _ = device_profile(
+        torch, lambda: step(params, pool_k, pool_v, *args)[0].cpu(), n)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    logits = torch.randn((8, cfg.padded_vocab), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    inputs = (logits, keys.cuda(), torch.from_numpy(mixed).cuda(),
+              torch.full((8,), 50, device="cuda"),
+              torch.full((8,), 0.9, device="cuda"))
+    for _ in range(3):
+        sampling.sample(*inputs)
+    s_wall, s_busy, s_launches, _ = device_profile(
+        torch, lambda: sampling.sample(*inputs), n)
+    print(f"profile on {card}, the profile phase's one-token step with 4 of "
+          f"8 lanes sampled (temperature 0.8, top_k 50, top_p 0.9): wall "
+          f"{wall_ms:.3f} ms (under the profiler), device busy "
+          f"{busy_ms:.3f} ms, {launches:.0f} kernel launches per step; the "
+          f"sampler alone on (8, {cfg.padded_vocab}) bf16 logits: "
+          f"{s_busy:.3f} ms of device time, {s_launches:.0f} launches, wall "
+          f"{s_wall:.3f} ms under the profiler", flush=True)
+
+
+MIXED = {"temperature": 0.8, "top_k": 50, "top_p": 0.9, "seed": 100}
+
+
+def mixed_sampling(i: int):
+    """Request ``i``'s sampling in the mixed traces: every second request
+    sampled (temperature 0.8, top_k 50, top_p 0.9, seed 100 + i), the
+    others greedy (None)."""
+    from repro_torch.serve.sampling import SamplingParams
+
+    if i % 2:
+        return None
+    return SamplingParams(MIXED["temperature"], MIXED["top_k"],
+                          MIXED["top_p"], MIXED["seed"] + i)
+
+
+def meter_conserves(engine) -> None:
+    en = engine.stats()["energy"]
+    per_request = sum(r.energy_uj for r in engine.completed)
+    assert abs(en["total_uj"] - (en["attributed_uj"] + en["overhead_uj"])) \
+        <= 1e-9 * en["total_uj"], en
+    assert abs(en["attributed_uj"] - per_request) <= 1e-9 * per_request, en
+
+
+def chain_key(chains: dict, seed: int, n: int):
+    """The key of seed ``seed``'s chain after ``n`` emitting launches,
+    recomputed on the CPU (memoised in ``chains``)."""
+    from repro_torch.serve import sampling
+
+    if (seed, n) not in chains:
+        chains[seed, n] = (sampling.seed_key(seed) if n == 0 else
+                           sampling.split_keys(chain_key(
+                               chains, seed, n - 1)[None])[0][0])
+    return chains[seed, n]
+
+
+def sampled_engine_phase(torch, np, kernel, greedy: dict, card: str) -> dict:
+    """Full-width granite-3-2b on the paged backend (8 slots, 16-token
+    pages, chunk 16, metered), :func:`serve_trace` with every second
+    request sampled (:func:`mixed_sampling`), all submitted at once so that
+    siblings stall on the first one's dedup claims and re-match its pages:
+    served sync, async, and async preempted twice mid-trace. Checks sync ≡
+    async ≡ replayed bit for bit (the journal cross-checks every replayed
+    token), the greedy requests' tokens equal to the all-greedy run's
+    (``greedy``), every attention call through the kernel, stalls and
+    re-matches, the meter's conservation; and in the preempted run, after
+    every step, the merge's counters zero and every occupied lane's key
+    equal to its chain recomputed on the CPU from (seed, produced count),
+    and every sampler call's tokens equal to the CPU's plain ``sample`` on
+    the same logits and keys (greedy lanes always, sampled lanes where the
+    top-2 gap of ``scores`` exceeds 1e-4 and the card's and the CPU's
+    filters keep the same tokens). Prints decode-step time, tokens/s and a
+    profiled window's busy share for sync and async, and profiles a
+    one-token step with sampled lanes and the sampler alone
+    (:func:`sampler_profile`). Runs last: after its profiled windows the
+    profiler reports fewer of a later window's kernels than it launched,
+    the more such windows came before (on an H100 with torch 2.11: the
+    flash phase's by-kernel check failed when this phase ran before it),
+    and every earlier phase checks its profiles by kernel.
+    Makes the serve phase's weights again from the seed. Returns the
+    kernel's launches by run."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.serve import sampling
+    from repro_torch.serve.engine import ContinuousBatchingEngine, Request
+    from repro_torch.sharding.params import init_tree
+
+    cfg = configs.get("granite_3_2b")
+    params = init_tree(registry.decls(cfg), SEED, "cuda",
+                       dtype=torch.bfloat16)
+
+    reqs = serve_trace(np)
+    sampled = {rid for i, (rid, _, _) in enumerate(reqs)
+               if mixed_sampling(i) is not None}
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def engine_for(**kw):
+        eng = ContinuousBatchingEngine(cfg, params, slots=8, max_len=160,
+                                       device="cuda", page_size=16,
+                                       prefill_chunk=16, **kw)
+        for i, (rid, prompt, n_new) in enumerate(reqs):
+            assert eng.submit(Request(rid, prompt, n_new,
+                                      sampling=mixed_sampling(i)))
+        return eng
+
+    def check(eng, launches):
+        stats = eng.stats()
+        assert len(eng.completed) == 16, len(eng.completed)
+        for r in eng.completed:
+            assert len(r.tokens) == r.max_new_tokens, r.id
+        assert launches == cfg.n_layers * stats["token_steps"], (
+            launches, stats["token_steps"])
+        assert stats["stalls"] > 0 and stats["rematches"] > 0, stats
+        assert stats["sampled_requests"] >= 8, stats
+        assert stats["journal"]["in_flight"] == 0, stats["journal"]
+        meter_conserves(eng)
+        return {r.id: r.tokens for r in eng.completed}, stats
+
+    runs = {}
+    for mode in ("sync", "async"):
+        eng = engine_for(async_dispatch=mode == "async")
+        decode_ms, prof = [], {}
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        while True:
+            full = (not eng.queue and eng.steps > 0 and all(
+                sl is not None and not sl.prefilling for sl in eng.slots))
+            if full and not prof:
+                prof["out"] = device_profile(torch, eng.step, 5)
+                continue
+            before = eng.token_steps
+            ts = time.perf_counter()
+            if not eng.step():
+                break
+            if eng.token_steps - before == 1:
+                decode_ms.append((time.perf_counter() - ts) * 1e3)
+        wall = time.perf_counter() - t0
+        tokens, stats = check(eng, kernel.launches)
+        runs[mode] = (tokens, stats, kernel.launches, decode_ms, wall,
+                      prof["out"])
+    assert runs["async"][0] == runs["sync"][0], "async != sync"
+    for rid, toks in runs["sync"][0].items():
+        if rid not in sampled:
+            assert toks == greedy[rid], f"{rid}: greedy lane moved"
+    assert any(runs["sync"][0][rid] != greedy[rid] for rid in sampled)
+    st = runs["sync"][1]
+    print(f"sampled engine: granite-3-2b, 16 requests (8 sampled: "
+          f"temperature {MIXED['temperature']}, top_k {MIXED['top_k']}, "
+          f"top_p {MIXED['top_p']}, seeds 100 + i), all submitted at once: "
+          f"{st['steps']} engine steps, {st['token_steps']} one-token "
+          f"steps, {st['stalls']} stalls, {st['rematches']} re-matches "
+          f"({st['rematched_tokens']} tokens), "
+          f"{st['prompt_tokens_reused']} prompt tokens reused; async tokens "
+          f"equal sync's bit for bit; the 8 greedy requests equal the "
+          f"all-greedy run's; kernel launches {runs['sync'][2]} (sync), "
+          f"{runs['async'][2]} (async) = {cfg.n_layers} layers x one-token "
+          f"steps; the meter conserves", flush=True)
+    for mode, (_, stats, _, decode_ms, wall, prof) in runs.items():
+        wall_ms, busy_ms, launches, _ = prof
+        step_ms = statistics.median(decode_ms)
+        print(f"sampled engine on {card}, {mode}: decode step "
+              f"{step_ms:.3f} ms (median of {len(decode_ms)} one-token "
+              f"steps), {stats['tokens_generated'] / wall:.1f} tokens/s over "
+              f"{wall:.3f} s; 5 decode steps of 8 lanes under the profiler: "
+              f"{wall_ms:.3f} ms a step, device busy {busy_ms:.3f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}% under the profiler, "
+              f"{100 * busy_ms / step_ms:.1f}% of the median step), "
+              f"{launches:.0f} launches a step", flush=True)
+
+    # async, preempted twice, with every step and sampler call checked
+    records, real_sample, chains = [], sampling.sample, {}
+
+    def recording(logits, keys, temp, top_k, top_p):
+        out = real_sample(logits, keys, temp, top_k, top_p)
+        records.append(tuple(t.detach().cpu().clone() for t in
+                             (logits, keys, temp, top_k, top_p, out)))
+        return out
+
+    eng = engine_for(async_dispatch=True)
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    n = steps_checked = 0
+    cut = []
+    with mock.patch.object(sampling, "sample", recording):
+        while eng.step():
+            n += 1
+            buf = kernel.counter_buffer(dev)
+            assert buf is None or not bool(buf.any()), f"counters, step {n}"
+            for i, slot in enumerate(eng.slots):
+                if slot is None:
+                    continue
+                sp = slot.request.sampling
+                want = chain_key(chains, sp.seed if sp else 0,
+                                 slot.produced)
+                assert torch.equal(eng._keys[i], want), (n, i)
+            steps_checked += 1
+            if n in (12, 40):
+                cut.append(len(eng.preempt()))
+    launches = kernel.launches
+    tokens, stats = check(eng, launches)
+    assert all(cut) and stats["steps"] > runs["sync"][1]["steps"], cut
+    assert tokens == runs["sync"][0], "replay after preempt() != undisturbed"
+    calls = lanes = 0
+    for logits, keys, temp, top_k, top_p, out in records:
+        cpu = real_sample(logits, keys, temp, top_k, top_p)
+        clear = temp == 0
+        rows = torch.nonzero(~clear)[:, 0]        # the sampled lanes
+        args = (logits[rows], keys[rows], temp[rows], top_k[rows],
+                top_p[rows])
+        z = sampling.scores(*args)
+        z_card = sampling.scores(*(t.cuda() for t in args)).cpu()
+        top2 = z.topk(2, -1).values
+        clear[rows] = ((top2[:, 0] - top2[:, 1] > 1e-4)
+                       & (z.isfinite() == z_card.isfinite()).all(-1))
+        assert torch.equal(cpu[clear], out[clear]), "card != CPU sample"
+        calls += 1
+        lanes += int(clear.sum())
+    print(f"sampled engine, async, preempted at steps 12 and 40 ({cut} "
+          f"requests requeued): {stats['steps']} engine steps, tokens equal "
+          f"the undisturbed run's bit for bit (journal cross-check on); after "
+          f"each of {steps_checked} steps the merge's counters were zero and "
+          f"every occupied lane's key equalled its chain recomputed on the "
+          f"CPU from (seed, produced count); {calls} sampler calls compared "
+          f"with the CPU's plain sample on the same logits and keys, "
+          f"{lanes} of {8 * calls} lanes clear (greedy, or top-2 gap of the "
+          f"scores > 1e-4 with equal filters) and equal; kernel launches "
+          f"{launches}", flush=True)
+    sampler_profile(torch, np, cfg, params, card)
+    return {"engine, mixed sampling, sync": runs["sync"][2],
+            "engine, mixed sampling, async": runs["async"][2],
+            "engine, mixed sampling, async, preempted twice": launches}
 
 
 def small_reference_phase(torch, np) -> None:
@@ -2983,13 +3268,15 @@ def lane_trace(np, vocab: int) -> list:
              s["new"]) for i in range(s["requests"])]
 
 
-def lane_serve(torch, np, cfg, params, step_hook=None, **kw):
+def lane_serve(torch, np, cfg, params, step_hook=None, mixed=False, **kw):
     """Serve :func:`lane_trace` through ``ContinuousBatchingEngine`` on its
     default backend (lanes for MoE, SSM and hybrid configs), metered unless
-    ``metered=False``; ``step_hook(engine)`` may run a step itself (and
-    return True) instead of the loop. Returns the engine, the host ms of
-    each decode-only step (every lane one token; ``step()`` ends with the
-    tokens on the host), the engine steps and the wall seconds."""
+    ``metered=False``, greedy or with every second request sampled
+    (``mixed``, :func:`mixed_sampling`); ``step_hook(engine)`` may run a
+    step itself (and return True) instead of the loop. Returns the engine,
+    the host ms of each decode-only step (every lane one token; a sync
+    ``step()`` ends with the tokens on the host), the engine steps and the
+    wall seconds."""
     from repro_torch.serve.engine import ContinuousBatchingEngine, Request
 
     s = LANE_SERVE
@@ -2997,8 +3284,9 @@ def lane_serve(torch, np, cfg, params, step_hook=None, **kw):
         cfg, params, slots=s["slots"], device="cuda",
         max_len=s["system"] + s["own"] + s["new"], page_size=s["page_size"],
         prefill_chunk=s["prefill_chunk"], **kw)
-    for rid, prompt, n_new in lane_trace(np, cfg.vocab):
-        assert engine.submit(Request(rid, prompt, n_new))
+    for i, (rid, prompt, n_new) in enumerate(lane_trace(np, cfg.vocab)):
+        assert engine.submit(Request(
+            rid, prompt, n_new, sampling=mixed_sampling(i) if mixed else None))
     decode_ms, steps = [], 0
     t0 = time.perf_counter()
     while True:
@@ -3035,11 +3323,7 @@ def lane_checks(engine, cfg) -> dict:
     irq = engine.platform.interrupts
     assert (irq.count("serve.admit"), irq.count("serve.complete")) == (
         s["requests"], s["requests"])
-    en = stats["energy"]
-    per_request = sum(r.energy_uj for r in done)
-    assert abs(en["total_uj"] - (en["attributed_uj"] + en["overhead_uj"])) \
-        <= 1e-9 * en["total_uj"], en
-    assert abs(en["attributed_uj"] - per_request) <= 1e-9 * per_request, en
+    meter_conserves(engine)
     return stats
 
 
@@ -3146,6 +3430,35 @@ def grok_lane_phase(torch, np, gkernel, gref, cfg, params, card: str) -> dict:
           f"{top}", flush=True)
     del plain
 
+    # the mixed trace (every second request sampled), sync and async: the
+    # same bits, 12 split-D grouped matmuls a one-token step
+    mixed = {}
+    for mode in ("sync", "async"):
+        torch.cuda.synchronize()
+        gkernel.launches = gkernel.launches_splitd = 0
+        eng, ms, _, wall = lane_serve(torch, np, cfg, params, mixed=True,
+                                      async_dispatch=mode == "async")
+        st = lane_checks(eng, cfg)
+        assert gkernel.launches == per_step * st["token_steps"], st
+        assert gkernel.launches_splitd == gkernel.launches
+        assert st["sampled_requests"] == s["requests"] // 2, st
+        mixed[mode] = ({r.id: r.tokens for r in eng.completed},
+                       gkernel.launches, statistics.median(ms), wall, st)
+    assert mixed["async"][0] == mixed["sync"][0], "grok lanes: async != sync"
+    greedy_ids = [rid for i, (rid, _, _) in enumerate(lane_trace(np, cfg.vocab))
+                  if i % 2]
+    assert all(mixed["sync"][0][rid] == want[rid] for rid in greedy_ids)
+    print(f"lane engine on {card}: grok-1-314b, the mixed trace "
+          f"({s['requests'] // 2} requests sampled): async tokens equal "
+          f"sync's bit for bit, the greedy requests equal the greedy run's; "
+          f"decode step sync {mixed['sync'][2]:.3f} ms, async "
+          f"{mixed['async'][2]:.3f} ms (medians), "
+          f"{mixed['sync'][4]['tokens_generated'] / mixed['sync'][3]:.1f} / "
+          f"{mixed['async'][4]['tokens_generated'] / mixed['async'][3]:.1f} "
+          f"tokens/s; grouped-matmul launches {mixed['sync'][1]} / "
+          f"{mixed['async'][1]} = {per_step} x one-token steps, all split D",
+          flush=True)
+
     # teacher-force the last request (it adopted the shared prefix) in lane
     # 0 of an 8-lane cache, the other lanes riding with the pad token as in
     # the engine; every grouped-matmul call against the plain version
@@ -3204,7 +3517,8 @@ def grok_lane_phase(torch, np, gkernel, gref, cfg, params, card: str) -> dict:
         entry.setdefault("ms", ms)
         del x, w
     torch.cuda.empty_cache()
-    return {"launches": launches, "ms": entry["ms"]}
+    return {"launches": launches, "ms": entry["ms"],
+            "mixed sync": mixed["sync"][1], "mixed async": mixed["async"][1]}
 
 
 def recurrent_lane_phase(torch, np, card: str) -> None:
@@ -3255,6 +3569,7 @@ def small_lane_reference_phase(torch, np) -> None:
 
     from repro_torch import configs
     from repro_torch.models import griffin, registry, transformer
+    from repro_torch.serve import sampling
     from repro_torch.serve.engine import ContinuousBatchingEngine, Request
     from repro_torch.sharding.params import init_tree, tree_map
 
@@ -3263,14 +3578,42 @@ def small_lane_reference_phase(torch, np) -> None:
     reqs = [(f"r{i}", prefix + [int(t) for t in rng.integers(1, 256, 1 + i % 4)],
              4 + i % 3) for i in range(6)]
 
-    def serve(cfg, params, dev, **kw):
+    def serve(cfg, params, dev, mixed=False, **kw):
         eng = ContinuousBatchingEngine(cfg, params, slots=3, max_len=32,
                                        page_size=4, prefill_chunk=4,
                                        device=dev, **kw)
-        for r in reqs:
-            assert eng.submit(Request(*r))
+        for i, r in enumerate(reqs):
+            assert eng.submit(Request(
+                *r, sampling=mixed_sampling(i) if mixed else None))
         eng.run_until_idle()
         return eng, {r.id: r.tokens for r in eng.completed}
+
+    def clear_prefix(cfg, params, card_params, prompt, tokens, sp):
+        """How many emitted steps, from the first, have a margin clear of
+        the card's and the CPU's logit difference: greedy, the top-2 gap
+        of the logits; sampled, that of the scores (filtered scaled logits
+        plus the step's Gumbel noise), both devices' filters keeping the
+        same tokens."""
+        seq = list(prompt) + list(tokens)
+        w = forced(cfg, params, seq, "cpu")[len(prompt) - 1:]
+        g = forced(cfg, card_params, seq, "cuda")[len(prompt) - 1:]
+        key = sampling.seed_key(sp.seed if sp else 0)[None]
+        for t in range(len(tokens)):
+            key, use = sampling.split_keys(key)
+            zw, zg = w[t], g[t]
+            if sp is not None:
+                zw, zg = (sampling.scores(x[None], use, sp.temperature,
+                                          sp.top_k, sp.top_p)[0]
+                          for x in (zw, zg))
+                if not torch.equal(zw.isfinite(), zg.isfinite()):
+                    return t
+            live = zw.isfinite()
+            top2 = zw[live].topk(2).values
+            gap = (zg - zw)[live].abs().max()
+            ulp = 2.0 ** (torch.floor(torch.log2(top2[0].abs())) - 7)
+            if not top2[0] - top2[1] > 2 * gap + ulp:
+                return t
+        return len(tokens)
 
     def forced(cfg, params, seq, dev):
         cache = registry.cache_init(cfg, 1, 32, device=dev, lanes=True)
@@ -3319,6 +3662,26 @@ def small_lane_reference_phase(torch, np) -> None:
             assert paged.stats()["backend"] == "paged"
             assert on_pages == got, "granite: lanes != paged on the card"
             note = "; equal to the paged backend's on the card"
+            # the mixed trace: paged and lanes on the card bit for bit,
+            # and the CPU's plain path where the margins are clear
+            eng, paged_mixed = serve(cfg, card_params, "cuda", mixed=True,
+                                     paged=True)
+            _, lanes_mixed = serve(cfg, card_params, "cuda", mixed=True,
+                                   paged=False)
+            _, cpu_mixed = serve(cfg, params, "cpu", mixed=True)
+            assert eng.stats()["stalls"] > 0 and eng.stats()["rematches"] > 0
+            assert paged_mixed == lanes_mixed, "granite mixed: lanes != paged"
+            mixed_clear = 0
+            for i, (rid, prompt, n_new) in enumerate(reqs):
+                k = clear_prefix(cfg, params, card_params, prompt,
+                                 cpu_mixed[rid], mixed_sampling(i))
+                assert paged_mixed[rid][:k] == cpu_mixed[rid][:k], (rid, k)
+                mixed_clear += k
+            assert mixed_clear >= emitted // 2, (mixed_clear, emitted)
+            note += (f"; the mixed trace (3 of 6 sampled) equal on paged and "
+                     f"lanes on the card, and to the CPU's plain path up to "
+                     f"each request's first unclear margin ({mixed_clear} "
+                     f"of {emitted} steps)")
         print(f"small lane reference, smoke {cfg.name}: the card's lane "
               f"engine vs the CPU's plain path, completions equal up to "
               f"each request's first unclear margin ({clear_steps} of "
@@ -3382,7 +3745,7 @@ def main() -> int:
     build_all(kernel, fkernel, rkernel, skernel, ckernel, gkernel)
 
     paged = kernel_phase(torch, kernel, ref)
-    paged["launches"] = serve_phase(torch, np, kernel, ref, card)
+    launched, greedy = serve_phase(torch, np, kernel, ref, card)
     small_reference_phase(torch, np)
     argmax_tie(torch)
     torch.cuda.empty_cache()
@@ -3420,14 +3783,21 @@ def main() -> int:
     del grok_params
     torch.cuda.empty_cache()
     # the grouped matmul's two main paths: the serve driver and the engine
-    gmm["launches"] = served + lanes["launches"]
-    gmm["launches_by_path"] = {"serve driver": served,
-                               "lane engine": lanes["launches"]}
+    gmm["launches_by_path"] = {
+        "serve driver": served, "lane engine": lanes["launches"],
+        "lane engine, mixed sampling, sync": lanes["mixed sync"],
+        "lane engine, mixed sampling, async": lanes["mixed async"]}
+    gmm["launches"] = sum(gmm["launches_by_path"].values())
     gmm["lane_engine_ms"] = lanes["ms"]
     small_moe_reference_phase(torch, np)
     torch.cuda.empty_cache()
     recurrent_lane_phase(torch, np, card)
     small_lane_reference_phase(torch, np)
+    torch.cuda.empty_cache()
+    by_path = {"serve engine, greedy, sync": launched}
+    by_path.update(sampled_engine_phase(torch, np, kernel, greedy, card))
+    paged["launches"] = sum(by_path.values())
+    paged["launches_by_path"] = by_path
     torch.cuda.empty_cache()
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

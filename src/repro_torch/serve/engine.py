@@ -1,9 +1,7 @@
-"""Continuous-batching serving engine on the paged and lane backends
-(greedy, sync).
+"""Continuous-batching serving engine on the paged and lane backends.
 
 Port of ``ContinuousBatchingEngine`` and ``Request`` from
-``src/repro/serve/engine.py``, for the slice of the reference that serves
-greedily with sync dispatch, on either of its two backends:
+``src/repro/serve/engine.py``, on either of its two backends:
 
 * FIFO admission with ``queue_capacity`` backpressure;
 * slot-based batching: one :meth:`~ContinuousBatchingEngine.step` advances
@@ -25,11 +23,35 @@ greedily with sync dispatch, on either of its two backends:
   admission;
 * prefix sharing through :class:`~repro_torch.serve.pages.PageTable`. On
   the paged backend admission adopts a resident chain by pointing the
-  block table at its pages (no copy), and a slot publishes each page its
-  prefill completes. On lanes a page is a copy of the lane's cache
+  block table at its pages (no copy), a slot publishes each page its
+  prefill completes, and two cold same-prefix prefills dedup: the later
+  one stalls on the earlier one's claim, then adopts its published pages
+  (mid-flight re-match). On lanes a page is a copy of the lane's cache
   (:func:`repro_torch.models.registry.lane_read`) and admission onto it
   copies it into the lane right before the slot's first step
   (copy-on-write, :meth:`PageTable.note_cow`);
+* **sampled decoding**: each request's
+  :class:`~repro_torch.serve.sampling.SamplingParams` (greedy by default)
+  draws its tokens under a per-lane threefry key, re-seeded at admission
+  and split once a launch, the carried half kept only where the launch
+  emits a token, so a chain's position equals the tokens produced;
+* **async double-buffered dispatch** (``async_dispatch=True``): step N+1
+  is launched before step N's tokens reach the host. A decoding lane takes
+  its input token from step N's on-device output (the feedback path), and
+  step N's host bookkeeping (journal, completions) retires while the
+  device runs step N+1. On the card step N's tokens go to pinned host
+  memory by a copy that does not wait, behind a CUDA event that the
+  retire waits on. Every launch is issued on the device's current stream,
+  and every host array a launch reads is a copy of its own, so the host
+  may rewrite the engine's arrays while the launch is in flight;
+* **the journal and preemption**: a
+  :class:`~repro_torch.runtime.ft.RequestJournal` records each admission,
+  its prefix reuse and each token; :meth:`~ContinuousBatchingEngine.preempt`
+  and :meth:`~ContinuousBatchingEngine.preempt_slot` requeue in-flight
+  requests, whose replay re-seeds their chains and reproduces their
+  tokens bit for bit, checked token by token against the journal. A token
+  outside the vocabulary or a journal divergence quarantines its request,
+  which replays (``max_replays`` times at most, then the engine raises);
 * the platform surface: each slot lives in a memory bank of the engine's
   :class:`~repro_torch.core.platform.Platform`, woken and clock-gated
   through the platform's shared bank refcounts; admissions and completions
@@ -40,16 +62,20 @@ greedily with sync dispatch, on either of its two backends:
   a metered engine's tokens, admissions and launches equal an unmetered
   one's.
 
+Engine invariants (as the reference's): FIFO admission, with preemption
+requeueing in-flight work at the front in the same order; refcounts never
+negative; replay determinism (sync ≡ async, paged ≡ lanes, chunked ≡
+unchunked, preempted ≡ undisturbed, bit for bit, greedy and sampled).
+
 :func:`build_serve` is the serve driver's one-device prefill and decode
 (the reference's ``build_sharded_serve`` without a mesh), which serves the
 dense, MoE, hybrid and SSM families.
 
-Later slices port the rest of the reference engine: async dispatch,
-tensor parallelism, a shared external pool or page table, fault
-injection, sampled requests, dedup claims and mid-flight re-match,
-sliding-window page recycling on the paged backend, and preempt/replay
-with a request journal. Passing a constructor argument of those features
-with a non-default value raises ``NotImplementedError``.
+Later slices port the rest of the reference engine: tensor parallelism, a
+shared external pool or page table, the cluster's admission hook and
+reclaim, fault injection, and sliding-window page recycling on the paged
+backend. Passing a constructor argument of those features with a
+non-default value raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -65,20 +91,20 @@ from repro_torch import device as device_mod
 from repro_torch.core.platform import Platform, XHeepConfig
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.ft import RequestJournal
+from repro_torch.serve import sampling
 from repro_torch.serve.energy_meter import EnergyMeter
-from repro_torch.serve.paged import (PagePool, paged_chunk_fn, paged_step_fn,
-                                     to_device)
+from repro_torch.serve.paged import (PagePool, feed, last_fed, paged_chunk_fn,
+                                     paged_step_fn, to_device)
 from repro_torch.serve.pages import PageTable
-from repro_torch.serve.sampling import SamplingParams, greedy, require_greedy
+from repro_torch.serve.sampling import GREEDY, SamplingParams
 from repro_torch.sharding.params import tree_leaves
 
 # constructor arguments of the reference engine that later slices port,
 # with the value that leaves each feature off
 _LATER_SLICES = {
-    "journal": None, "journal_horizon": None,
-    "page_table": None, "pool": None, "async_dispatch": False,
-    "admission_hook": None, "reclaim": None, "chaos": None, "mesh": None,
-    "tp_axis": "model",
+    "page_table": None, "pool": None, "admission_hook": None,
+    "reclaim": None, "chaos": None, "mesh": None, "tp_axis": "model",
 }
 
 COMPLETE_LINE = "serve.complete"     # interrupt line raised per finished request
@@ -89,11 +115,13 @@ ADMIT_LINE = "serve.admit"           # raised per slot admission
 class Request:
     """One generation request. ``tokens`` is filled in by the engine.
 
-    ``sampling`` ``None`` (or a zero-temperature :class:`SamplingParams`)
-    means greedy, the only mode the port serves so far.
-    ``first_token_time`` stamps the retire of the first generated token.
-    ``energy_uj`` accumulates the joules a metered engine attributes to the
-    request (prefill/decode work, held KV pages, retention).
+    ``sampling`` (optional) selects stochastic decoding
+    (:class:`~repro_torch.serve.sampling.SamplingParams`); ``None`` means
+    greedy, and rides through preemption untouched, so a replayed admission
+    re-seeds the identical chain. ``first_token_time`` stamps the retire of
+    the first generated token. ``energy_uj`` accumulates the joules a
+    metered engine attributes to the request (prefill/decode work, held KV
+    pages, retention; replay after a preemption is charged on top).
     """
 
     id: str
@@ -174,61 +202,72 @@ def build_serve(cfg: ModelConfig, batch: int, max_len: int,
     return Serve(prefill_fn, decode_fn, max_len)
 
 
+
+
 # ---------------------------------------------------------------------------
 # The lane backend's step functions
 # ---------------------------------------------------------------------------
 
 
 def lane_step_fn(cfg: ModelConfig):
-    """One token a lane over a lane cache, greedy (the reference's
+    """One token a lane over a lane cache, sampled (the reference's
     ``_slot_step_fn``, ``src/repro/serve/engine.py:210-226``).
 
-    Signature: ``(params, cache, toks) -> next_tokens`` (B,) int32 on the
-    cache's device; ``toks`` (B,) is a host array. Every lane, empty ones
-    with the pad token, steps in one batched
+    Signature: ``(params, cache, toks, feedback, prev, emit, keys, temp,
+    top_k, top_p) -> (next_tokens, keys)``; ``toks``, ``feedback``,
+    ``emit``, ``temp``, ``top_k`` and ``top_p`` (B,) are host arrays, the
+    rest as in :func:`~repro_torch.serve.paged.paged_step_fn`: a lane fed
+    back takes ``prev``, and each lane's token is drawn under its key,
+    which splits once and is carried where ``emit`` is set. Every lane,
+    empty ones with the pad token, steps in one batched
     :func:`~repro_torch.models.registry.decode_step`, which writes the
     cache in place: an empty lane's state is garbage afterwards and is
     reset before its next admission, as in the reference.
     """
-    def step(params, cache, toks):
+    def step(params, cache, toks, feedback, prev, emit, keys, temp, top_k,
+             top_p):
         dev = cache.pos.device
-        logits, _ = registry.decode_step(params, cfg, cache,
-                                         to_device(toks, dev)[:, None])
-        return greedy(logits)
+        logits, _ = registry.decode_step(
+            params, cfg, cache, feed(toks, feedback, prev, dev)[:, None])
+        return sampling.draw(logits, keys, emit, temp, top_k, top_p)
 
     return step
 
 
 def lane_chunk_fn(cfg: ModelConfig, chunk: int):
-    """Up to ``chunk`` tokens a lane in one launch, greedy (the reference's
-    ``_chunk_step_fn``, ``src/repro/serve/engine.py:229-268``).
+    """Up to ``chunk`` tokens a lane in one launch, sampled (the
+    reference's ``_chunk_step_fn``, ``src/repro/serve/engine.py:229-268``).
 
-    Signature: ``(params, cache, toks, counts) -> next_tokens`` with host
-    arrays ``toks`` (B, chunk) and ``counts`` (B,). Runs masked one-token
-    steps over all lanes: at step ``j`` lane ``b`` consumes ``toks[b, j]``
-    if ``j < counts[b]``, and a masked lane's cache, ``pos`` included,
-    stays bit for bit as it was (the ``keep`` of
-    :func:`~repro_torch.models.registry.decode_step`). The returned token
-    of each lane is the greedy token after its last fed token
-    (``counts[b] - 1``). Steps past every lane's count would change
+    Signature: ``(params, cache, toks, counts, feedback, prev, emit, keys,
+    temp, top_k, top_p) -> (next_tokens, keys)`` with host arrays ``toks``
+    (B, chunk) and ``counts`` (B,), the rest as in :func:`lane_step_fn`
+    (``feedback`` applies to iteration 0). Runs masked one-token steps over
+    all lanes: at step ``j`` lane ``b`` consumes ``toks[b, j]`` if ``j <
+    counts[b]``, and a masked lane's cache, ``pos`` included, stays bit for
+    bit as it was (the ``keep`` of
+    :func:`~repro_torch.models.registry.decode_step`). Each lane's token is
+    drawn after its last fed token (``counts[b] - 1``) with the launch's
+    one split of its key. Steps past every lane's count would change
     nothing, so the loop stops at ``max(counts)``.
     """
-    def step(params, cache, toks, counts):
+    def step(params, cache, toks, counts, feedback, prev, emit, keys, temp,
+             top_k, top_p):
         dev = cache.pos.device
         counts = np.asarray(counts)
         n = int(counts.max())
         if n > chunk:
             raise ValueError(f"counts exceed the chunk of {chunk}")
         toks = to_device(toks, dev)
-        outs = []
+        first = feed(toks[:, 0], feedback, prev, dev)
+        last = None
         for j in range(n):
             fed = j < counts
             keep = None if fed.all() else to_device(fed, dev)
-            logits, _ = registry.decode_step(params, cfg, cache,
-                                             toks[:, j:j + 1], keep=keep)
-            outs.append(greedy(logits))
-        last = to_device(np.maximum(counts - 1, 0), dev).long()
-        return torch.stack(outs, 1).gather(1, last[:, None])[:, 0]
+            tok = first if j == 0 else toks[:, j]
+            logits, _ = registry.decode_step(params, cfg, cache, tok[:, None],
+                                             keep=keep)
+            last = last_fed(last, logits, j, counts, dev)
+        return sampling.draw(last, keys, emit, temp, top_k, top_p)
 
     return step
 
@@ -244,6 +283,7 @@ class _Slot:
     pages its block table points at, or its lane of the lane cache)."""
 
     request: Request
+    seq: int                 # FIFO sequence number of the request
     fed: int = 0             # tokens already consumed (prompt, then generated)
     produced: int = 0        # generated tokens so far
     next_token: int = 0      # token to feed at the next engine step
@@ -251,10 +291,31 @@ class _Slot:
     pages_by_block: dict = dataclasses.field(default_factory=dict)
     blocks_covered: int = 0  # blocks allocated/adopted so far (next to cover)
     pending_snapshot: Any = None   # lanes: adopted prefix, copied at 1st step
+    claims: list = dataclasses.field(default_factory=list)  # dedup claims held
 
     @property
     def prefilling(self) -> bool:
         return self.fed < len(self.request.prompt)
+
+
+@dataclasses.dataclass
+class _StepMeta:
+    """Host bookkeeping deferred to a step's retire (async dispatch)."""
+
+    emitted: list            # (lane, slot): token value lands at retire
+    finished: list           # slots completing in this step, lane order
+
+
+@dataclasses.dataclass
+class _Launched:
+    """A dispatched step: its bookkeeping, its on-device tokens and, on the
+    card, the pinned host buffer they are copied into and the event that
+    marks the copy done."""
+
+    meta: _StepMeta
+    tokens: torch.Tensor
+    host: torch.Tensor | None = None
+    done: Any = None
 
 
 class ContinuousBatchingEngine:
@@ -264,11 +325,12 @@ class ContinuousBatchingEngine:
     Each of the ``slots`` decode lanes holds one request. One :meth:`step`
     advances every occupied lane: lanes still consuming their prompt are
     teacher-forced (up to ``prefill_chunk`` tokens), lanes past it decode
-    greedily. New requests are admitted into free lanes between steps;
-    in-flight lanes never stop. ``page_size`` turns on prefix sharing
-    through an engine-private :class:`PageTable` (bounded by
-    ``page_capacity`` pages, default ``16 * slots``); without it pages are
-    16 tokens and nothing is shared.
+    under their request's sampling parameters (greedy by default). New
+    requests are admitted into free lanes between steps; in-flight lanes
+    never stop. ``page_size`` turns on prefix sharing through an
+    engine-private :class:`PageTable` (bounded by ``page_capacity`` pages,
+    default ``16 * slots``); without it pages are 16 tokens and nothing is
+    shared.
 
     ``paged=None`` picks the paged backend where the config can page (the
     dense family without a sliding window, which the paged backend does
@@ -276,6 +338,11 @@ class ContinuousBatchingEngine:
     ``paged=True`` raises for a config that cannot page. ``lane_batch`` and
     ``device_len`` pad the device shapes (lanes or block tables, and cache
     positions) past ``slots`` and ``max_len``; the extra lanes ride idle.
+
+    ``async_dispatch`` launches each step before the previous one retires
+    (see the module docstring); the tokens are the same bits either way.
+    ``journal`` (default: a new :class:`RequestJournal` with
+    ``journal_horizon``) records every admission and token.
 
     ``device=None`` is the card and raises without one; ``params`` must
     already live on the engine's device. The engine is clock-agnostic:
@@ -293,12 +360,15 @@ class ContinuousBatchingEngine:
                  device=None, platform: Platform | None = None,
                  queue_capacity: int | None = None,
                  clock: Callable[[], float] = lambda: 0.0,
+                 journal: RequestJournal | None = None,
                  pad_token: int = 0, prefill_chunk: int = 1,
                  page_size: int | None = None,
                  page_capacity: int | None = None,
-                 paged: bool | None = None, lane_batch: int | None = None,
+                 paged: bool | None = None, async_dispatch: bool = False,
+                 lane_batch: int | None = None,
                  device_len: int | None = None, namespace: str = "",
-                 name: str | None = None, metered: bool = True,
+                 name: str | None = None,
+                 journal_horizon: int | None = None, metered: bool = True,
                  operating_point: str = "max", gate_idle_banks: bool = True,
                  **later_slices):
         for arg, value in later_slices.items():
@@ -340,8 +410,10 @@ class ContinuousBatchingEngine:
         self.platform = platform or Platform(XHeepConfig())
         self.queue_capacity = queue_capacity
         self.clock = clock
+        self.journal = journal or RequestJournal(horizon=journal_horizon)
         self.pad_token = pad_token
         self.prefill_chunk = prefill_chunk
+        self.async_dispatch = async_dispatch
         self.namespace = namespace
         self.name = name if name is not None else (namespace or "engine")
 
@@ -377,6 +449,17 @@ class ContinuousBatchingEngine:
         self.queue: collections.deque[Request] = collections.deque()
         self._ids: set[str] = set()            # every id ever submitted
         self.slots: list[_Slot | None] = [None] * slots
+        self._pending: _Launched | None = None  # unretired step (async)
+        self._prev_nxt: torch.Tensor | None = None  # its on-device tokens
+        self._pinned: list[torch.Tensor] = []  # free host buffers (card)
+
+        # per-lane sampling state: the PRNG keys (host int64 words, split
+        # on the host at each launch) and the parameters, (re-)seeded at
+        # admission; greedy lanes keep temperature 0 = exact argmax
+        self._keys = sampling.zero_keys(self.n_lanes)
+        self._temp = np.zeros((self.n_lanes,), np.float32)
+        self._topk = np.zeros((self.n_lanes,), np.int32)
+        self._topp = np.ones((self.n_lanes,), np.float32)
 
         # throughput counters, monotone by construction
         self.steps = 0                         # engine steps (launches)
@@ -384,12 +467,29 @@ class ContinuousBatchingEngine:
         self.tokens_generated = 0
         self.prompt_tokens_processed = 0
         self.prompt_tokens_reused = 0
+        self.stalls = 0                        # lane-steps waiting on a sibling
+        self.rematches = 0                     # mid-flight prefix adoptions
+        self.rematched_tokens = 0              # prompt tokens adopted mid-flight
+        self.sampled_requests = 0              # admissions with sampling on
         self.completed: list[Request] = []
         self.rejected = 0
+        self.token_faults = 0                  # corrupted tokens refused
+        self.replays = 0                       # quarantine-driven requeues
+        # corruption quarantine: slots whose retired token failed the
+        # vocab range check or the journal cross-check; their requests are
+        # evicted and replayed by _recover_faulted()
+        self._faulted: list[_Slot] = []
+        # slot identities a flush-retire must skip (their journal position
+        # is behind the in-flight step; delivering would leave a gap)
+        self._skip_retire: frozenset = frozenset()
+        self._replay_counts: dict[str, int] = {}
+        # livelock guard: a request quarantined this many times is a
+        # persistent divergence, and the engine raises
+        self.max_replays = 16
 
         # energy meter: purely observational joule accounting over the
         # calibrated HEEPocrates domain model; it reads launch shapes and
-        # page holdings after the fact and never touches tokens or
+        # page holdings after the fact and never touches tokens, keys or
         # admission order
         self._meter = (EnergyMeter(point=operating_point,
                                    gate_idle_banks=gate_idle_banks)
@@ -407,13 +507,14 @@ class ContinuousBatchingEngine:
 
     def submit(self, request: Request) -> bool:
         """Enqueue a request; False (and counted) when backpressure rejects it."""
-        require_greedy(request.sampling)
         if len(request.prompt) + request.max_new_tokens > self.max_len:
             raise ValueError(
                 f"request {request.id!r} needs "
                 f"{len(request.prompt) + request.max_new_tokens} positions, "
                 f"engine max_len is {self.max_len}")
         if request.id in self._ids:
+            # ids key the journal; a duplicate would interleave two
+            # requests' tokens into one record and break replay
             raise ValueError(f"duplicate request id {request.id!r}")
         if (self.queue_capacity is not None
                 and len(self.queue) >= self.queue_capacity):
@@ -431,20 +532,35 @@ class ContinuousBatchingEngine:
             self._admit_into(free.pop(0), self.queue.popleft())   # FIFO
 
     def _admit_into(self, i: int, req: Request) -> None:
-        """Bind ``req`` to free slot ``i``, adopting a resident prefix
-        chain: on the paged backend by pointing the block table at its
-        pages (no state is copied), on lanes by deferring the copy of the
-        chain's last snapshot into the lane to the slot's first step
-        (copy-on-write: a slot that never runs never pays for it). A dirty
-        lane admitted without a match is reset to the initial cache."""
+        """Bind ``req`` to free slot ``i``: adopt a resident prefix chain
+        (on the paged backend by pointing the block table at its pages, no
+        state copied; on lanes by deferring the copy of the chain's last
+        snapshot into the lane to the slot's first step, copy-on-write),
+        open the journal record, (re-)seed the lane's sampling chain, wake
+        the bank and raise the admit interrupt. A dirty lane admitted
+        without a match is reset to the initial cache."""
         match = (self.pages.acquire(req.prompt, self.namespace)
                  if self.pages is not None else None)
         if not self.paged and match is None and i in self._dirty:
             registry.lane_write(self._cache, i, self._template)
             self._dirty.discard(i)
+        rec = self.journal.open(
+            req.id, req.prompt, req.max_new_tokens,
+            sampling=req.sampling.astuple() if req.sampling else None)
         req.tokens = []
         req.admit_time = self.clock()
-        slot = _Slot(request=req)
+        # replay after a preemption restarts the request's chain from its
+        # journaled seed, and the emit-gated split keeps the chain's
+        # position at the produced count, however many prefill launches
+        # (prefix adoption, chunking, stalls) the replay takes
+        sp = req.sampling or GREEDY
+        self._temp[i] = sp.temperature
+        self._topk[i] = sp.top_k
+        self._topp[i] = sp.top_p
+        self._keys[i] = sampling.seed_key(sp.seed)
+        if req.sampling is not None:
+            self.sampled_requests += 1
+        slot = _Slot(request=req, seq=rec.arrival_seq)
         if match is not None:
             slot.fed = match.tokens_matched
             slot.page_keys = match.keys
@@ -457,6 +573,7 @@ class ContinuousBatchingEngine:
                 slot.pending_snapshot = match.snapshot
             self.prompt_tokens_reused += match.tokens_matched
         slot.next_token = req.prompt[slot.fed]
+        self.journal.note_prefix(req.id, slot.fed, slot.page_keys)
         self.slots[i] = slot
         # shared refcount wakes the bank if idle
         self.platform.bank_acquire(self._slot_bank[i])
@@ -469,51 +586,104 @@ class ContinuousBatchingEngine:
         """Occupied slots."""
         return sum(s is not None for s in self.slots)
 
+    @property
+    def busy(self) -> bool:
+        """Work left: occupied slots, queued requests or an unretired
+        step."""
+        return (self.active > 0 or bool(self.queue)
+                or self._pending is not None)
+
     def step(self) -> bool:
         """Admit, then advance every occupied lane one scheduling step.
 
         A decoding lane consumes exactly one token per step; a prefilling
         lane consumes up to ``prefill_chunk`` prompt tokens (clamped to the
         next page boundary when prefix sharing is on, so every page a
-        prefill completes is publishable). The step's tokens are on the
-        host when it returns. Returns False when idle.
+        prefill completes is publishable), or none while it waits on a
+        sibling computing the same page (dedup stall). Sync dispatch
+        retires the step before returning; async dispatch launches it and
+        then retires the previous one, and a step with no lane left drains
+        the last. Returns False when idle.
         """
+        if self._faulted:
+            # quarantine left by a preemption's flush: recover before
+            # dispatch, the faulted slot's next token is stale
+            self._recover_faulted()
         if self._meter is not None:
             residents, idle_banks = self._meter_residents()
             self._meter.tick(self.clock(), residents, idle_banks)
         self._admit()
         if self.active == 0:
+            if self._pending is not None:
+                self._flush()                  # drain the in-flight step
+                if self._faulted:
+                    self._recover_faulted()
+                return True
             return False
-        dispatched = self._dispatch()
+        launched = self._dispatch()
         self.steps += 1
-        self._retire(dispatched)
+        if self.async_dispatch:
+            prev, self._pending = self._pending, launched
+            self._prev_nxt = launched.tokens
+            if prev is not None:
+                self._retire(prev)   # the host catches up while the card runs
+        else:
+            self._retire(launched)
+        if self._faulted:
+            self._recover_faulted()
         return True
 
-    def _dispatch(self) -> tuple[torch.Tensor, list, list]:
+    def _flush(self) -> None:
+        """Retire the in-flight async step, if any."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self._prev_nxt = None
+            self._retire(pending)
+
+    def _dispatch(self) -> _Launched:
         """Build this step's batch, launch it, and do the host bookkeeping
-        that does not need the token values."""
+        that does not need the token values (those retire later)."""
         chunk = self.prefill_chunk
         n = self.n_lanes
         toks = np.full((n, chunk), self.pad_token, np.int32)
         counts = np.zeros((n,), np.int32)
+        feedback = np.zeros((n,), bool)
+        # emit[i]: lane i produces a token this launch (decode steps, and
+        # the prefill launch consuming the last prompt token); it gates the
+        # key advance, so a lane's chain position equals its produced count
+        emit = np.zeros((n,), bool)
+        pending_emit = ({i: s for i, s in self._pending.meta.emitted}
+                        if self._pending is not None else {})
         for i, slot in enumerate(self.slots):
             if slot is None:
                 continue
             if slot.prefilling:
+                if self.paged and self.pages is not None:
+                    self._try_rematch(slot)
                 prompt = slot.request.prompt
                 m = min(chunk, len(prompt) - slot.fed)
                 if self.pages is not None:
                     m = min(m, self._ps - slot.fed % self._ps)
+                if (self.paged and self.pages is not None
+                        and self._stalled(slot)):
+                    self.stalls += 1
+                    continue               # counts[i] stays 0: wait, adopt
                 toks[i, :m] = prompt[slot.fed:slot.fed + m]
                 counts[i] = m
+                emit[i] = slot.fed + m >= len(prompt)
             else:
                 counts[i] = 1
-                toks[i, 0] = slot.next_token
-            if self.paged:
+                emit[i] = True
+                if self.async_dispatch and pending_emit.get(i) is slot:
+                    feedback[i] = True     # the token rides on the device
+                else:
+                    toks[i, 0] = slot.next_token
+            if self.paged and counts[i]:
                 self._ensure_pages(slot, slot.fed + int(counts[i]))
 
-        nxt = self._launch(toks, counts)
-        emitted, finished, charges = [], [], []
+        nxt = self._launch(toks, counts, feedback, emit)
+        meta = _StepMeta([], [])
+        charges = []
         if self._meter is not None:
             occupied = {self._slot_bank[i]
                         for i, s in enumerate(self.slots) if s is not None}
@@ -521,66 +691,167 @@ class ContinuousBatchingEngine:
         for i, slot in enumerate(self.slots):
             if slot is None:
                 continue
+            c = int(counts[i])
             was_prefilling = slot.prefilling
+            if was_prefilling and c == 0:
+                continue                   # stalled this step
             if self._meter is not None:
                 charges.append((slot.request,
                                 "prefill" if was_prefilling else "decode",
-                                int(counts[i]), self._page_share(slot)))
-            slot.fed += int(counts[i])
+                                c, self._page_share(slot)))
+            slot.fed += c
             if was_prefilling:
-                self.prompt_tokens_processed += int(counts[i])
+                self.prompt_tokens_processed += c
                 self._maybe_publish(i, slot)
                 if slot.prefilling:
                     # still consuming the prompt: teacher-force the next token
                     slot.next_token = slot.request.prompt[slot.fed]
                     continue
-            emitted.append((i, slot))
+                self._drop_claims(slot)    # prefill done; nothing to claim
+            meta.emitted.append((i, slot))
             slot.produced += 1
             self.tokens_generated += 1
             if slot.produced >= slot.request.max_new_tokens:
-                # complete once this step's token lands: free the slot now
-                finished.append(slot)
+                # complete once this step's token lands: free the slot now,
+                # so the next admission overlaps the in-flight step
+                meta.finished.append(slot)
                 self._evict(i)
         if self._meter is not None:
             self._meter.charge_step(charges, launch_idle_banks)
-        return nxt, emitted, finished
+        return self._stage(meta, nxt)
 
-    def _launch(self, toks: np.ndarray, counts: np.ndarray) -> torch.Tensor:
-        """One batched device launch; returns the on-device greedy tokens."""
+    def _launch(self, toks, counts, feedback, emit) -> torch.Tensor:
+        """One batched device launch; returns the on-device tokens (sampled
+        per lane, the exact argmax for greedy lanes) and advances the
+        lanes' keys. The sampling parameters go in as copies of the
+        engine's arrays, which admission may rewrite while the launch is in
+        flight."""
+        prev = self._prev_nxt
+        temp, tk, tp = self._temp.copy(), self._topk.copy(), self._topp.copy()
         if not self.paged:
-            return self._launch_lanes(toks, counts)
+            return self._launch_lanes(toks, counts, feedback, prev, emit,
+                                      temp, tk, tp)
         arena = self._arena
         tables, lengths = self._build_tables()
         if self._pchunk is None or int(counts.max()) <= 1:
             self.token_steps += 1
-            return self._pstep(self.params, arena.k, arena.v, tables, lengths,
-                               toks[:, 0], counts > 0)
-        self.token_steps += int(counts.max())
-        return self._pchunk(self.params, arena.k, arena.v, tables, lengths,
-                            toks, counts)
+            nxt, self._keys = self._pstep(
+                self.params, arena.k, arena.v, tables, lengths, toks[:, 0],
+                feedback, prev, counts > 0, emit, self._keys, temp, tk, tp)
+        else:
+            self.token_steps += int(counts.max())
+            nxt, self._keys = self._pchunk(
+                self.params, arena.k, arena.v, tables, lengths, toks, counts,
+                feedback, prev, emit, self._keys, temp, tk, tp)
+        return nxt
 
-    def _retire(self, dispatched) -> None:
-        """Transfer the step's tokens to the host and deliver them."""
-        nxt, emitted, finished = dispatched
-        vals = nxt.cpu().numpy()
+    def _stage(self, meta: _StepMeta, nxt: torch.Tensor) -> _Launched:
+        """Start the step's tokens on their way to the host: on the card a
+        copy into a pinned buffer that does not wait for the device,
+        behind an event :meth:`_retire` waits on; on the CPU they are
+        there."""
+        launched = _Launched(meta, nxt)
+        if nxt.device.type == "cuda":
+            if not self._pinned:
+                self._pinned.append(torch.empty(nxt.shape, dtype=nxt.dtype,
+                                                pin_memory=True))
+            launched.host = self._pinned.pop()
+            launched.host.copy_(nxt, non_blocking=True)
+            launched.done = torch.cuda.Event()
+            launched.done.record()
+        return launched
+
+    def _retire(self, launched: _Launched) -> None:
+        """Host-side completion of a dispatched step: wait for its tokens
+        and deliver them.
+
+        Every delivered token runs the corruption gate: a token outside
+        the vocabulary or failing the journal's replay cross-check is never
+        journaled or appended; its slot joins the quarantine
+        (``_faulted``) and the request replays (:meth:`_recover_faulted`).
+        Slots in ``_skip_retire`` (an in-flight step flushed during
+        quarantine recovery) are skipped: their journal position is behind
+        this step."""
+        if launched.host is None:
+            vals = launched.tokens.numpy()
+        else:
+            launched.done.synchronize()
+            vals = launched.host.numpy().copy()
+            self._pinned.append(launched.host)
         now = self.clock()
-        for i, slot in emitted:
+        meta = launched.meta
+        for i, slot in meta.emitted:
+            if id(slot) in self._skip_retire:
+                continue
             tok = int(vals[i])
-            if not 0 <= tok < self.cfg.vocab:
-                raise RuntimeError(f"request {slot.request.id!r}: token {tok} "
-                                   f"outside the vocabulary of {self.cfg.vocab}")
+            ok = 0 <= tok < self.cfg.vocab
+            if ok:
+                try:
+                    self.journal.record_token(slot.request.id, tok)
+                except RuntimeError:
+                    ok = False             # diverged from the journaled run
+            if not ok:
+                self.token_faults += 1
+                self._faulted.append(slot)
+                continue
             if slot.request.first_token_time is None:
                 slot.request.first_token_time = now
             slot.request.tokens.append(tok)
             slot.next_token = tok
-        for slot in finished:
+        faulted = {id(s) for s in self._faulted}
+        for slot in meta.finished:
+            if id(slot) in self._skip_retire or id(slot) in faulted:
+                continue               # quarantined: must replay, not finish
             req = slot.request
             req.finish_time = self.clock()
+            self.journal.complete(req.id)
             self.completed.append(req)
             # XAIF end-of-computation interrupt, then the per-request handler
             self.platform.interrupts.fire(COMPLETE_LINE, req)
             if req.on_complete is not None:
                 req.on_complete(req)
+
+    def _recover_faulted(self) -> None:
+        """Quarantine recovery: replay every faulted request.
+
+        The in-flight async step (if any) is flushed first with the
+        quarantined slots masked out; innocent lanes retire normally. Each
+        faulted request is then evicted and requeued at the front with its
+        bookkeeping reset; re-admission reopens its journal record (the
+        tokens before the fault become the ``prior`` run) and
+        ``record_token`` cross-checks the replay token for token. A request
+        quarantined more than ``max_replays`` times raises."""
+        while self._faulted:
+            batch, self._faulted = self._faulted, []
+            if self._pending is not None:
+                self._skip_retire = frozenset(id(s) for s in batch)
+                try:
+                    self._flush()
+                finally:
+                    self._skip_retire = frozenset()
+            requeue = []
+            for slot in sorted(batch, key=lambda s: s.seq):
+                req = slot.request
+                n = self._replay_counts.get(req.id, 0) + 1
+                self._replay_counts[req.id] = n
+                if n > self.max_replays:
+                    raise RuntimeError(
+                        f"request {req.id!r} quarantined {n} times: "
+                        "persistent divergence, not transient corruption")
+                for i, s in enumerate(self.slots):
+                    if s is slot:
+                        self._evict(i)
+                        break
+                # a host-known-finished slot was evicted at dispatch, and a
+                # preemption may have requeued the request: queue it once
+                if any(r is req for r in self.queue):
+                    continue
+                req.tokens = []
+                req.admit_time = None
+                req.first_token_time = req.finish_time = None
+                requeue.append(req)
+                self.replays += 1
+            self.queue.extendleft(reversed(requeue))
 
     # -- paged-backend plumbing ----------------------------------------------
 
@@ -604,10 +875,73 @@ class ContinuousBatchingEngine:
             slot.pages_by_block[slot.blocks_covered] = self._pool.alloc(self.name)
             slot.blocks_covered += 1
 
+    def _try_rematch(self, slot: _Slot) -> None:
+        """Mid-flight prefix re-match: adopt a sibling's freshly published
+        pages covering tokens this slot has not computed yet. Pure
+        block-table surgery: a partly written private page in the adopted
+        range is released (its positions hold what the shared page holds,
+        since both ran the same prompt prefix)."""
+        prompt = slot.request.prompt
+        m = self.pages.lookup(prompt, self.namespace)
+        if m <= slot.fed:
+            return
+        ext = self.pages.acquire_range(prompt, slot.fed // self._ps,
+                                       m // self._ps, self.namespace)
+        if not ext:
+            return
+        adopted = m - slot.fed
+        for key, idx in ext:
+            self._pool.retain(idx)
+            b = len(key) // self._ps - 1
+            if b in slot.pages_by_block:
+                self._pool.release(slot.pages_by_block[b])
+            slot.pages_by_block[b] = idx
+        slot.page_keys += tuple(k for k, _ in ext)
+        slot.blocks_covered = max(slot.blocks_covered, m // self._ps)
+        slot.fed = m
+        slot.next_token = prompt[m]
+        self.prompt_tokens_reused += adopted
+        self.rematches += 1
+        self.rematched_tokens += adopted
+        self.journal.note_rematch(slot.request.id, adopted)
+
+    def _stalled(self, slot: _Slot) -> bool:
+        """Dedup of concurrent identical cold prefills: if another live
+        slot already claimed the page this slot would compute next, wait
+        (feed nothing this step) and adopt the page when it publishes.
+        Claims live in the page table's claim registry, keyed by namespace
+        like the pages, and are dropped the moment the claimant crosses the
+        page boundary, so a waiter never outlives its claimant's page."""
+        prompt = slot.request.prompt
+        boundary = (slot.fed // self._ps + 1) * self._ps
+        if boundary > len(prompt) - 1:
+            return False                   # tail extent: never publishable
+        key = prompt[:boundary]
+        if self.pages.has(key, self.namespace):
+            return False                   # resident: re-match handles it
+        claimant = self.pages.claimant(key, self.namespace)
+        if claimant is not None and claimant[1] is not slot:
+            c_eng, c_slot = claimant
+            if any(s is c_slot for s in c_eng.slots) and c_slot.prefilling:
+                return True
+            self.pages.unclaim(key, self.namespace)   # stale claim: steal it
+        self.pages.claim(key, (self, slot), self.namespace)
+        if key not in slot.claims:
+            slot.claims.append(key)
+        return False
+
+    def _drop_claims(self, slot: _Slot) -> None:
+        if self.pages is not None:
+            for key in slot.claims:
+                claimant = self.pages.claimant(key, self.namespace)
+                if claimant is not None and claimant[1] is slot:
+                    self.pages.unclaim(key, self.namespace)
+        slot.claims = []
+
     # -- lane-backend plumbing -----------------------------------------------
 
-    def _launch_lanes(self, toks: np.ndarray,
-                      counts: np.ndarray) -> torch.Tensor:
+    def _launch_lanes(self, toks, counts, feedback, prev, emit, temp, tk,
+                      tp) -> torch.Tensor:
         """The lane backend's launch: pending copy-on-write copies first,
         then one batched step (chunked when a lane feeds more than one
         token)."""
@@ -620,9 +954,15 @@ class ContinuousBatchingEngine:
             # steady-state decode: every lane feeds one token, so skip the
             # chunk loop and its masks
             self.token_steps += 1
-            return self._lstep(self.params, self._cache, toks[:, 0])
-        self.token_steps += int(counts.max())
-        return self._lchunk(self.params, self._cache, toks, counts)
+            nxt, self._keys = self._lstep(self.params, self._cache,
+                                          toks[:, 0], feedback, prev, emit,
+                                          self._keys, temp, tk, tp)
+        else:
+            self.token_steps += int(counts.max())
+            nxt, self._keys = self._lchunk(self.params, self._cache, toks,
+                                           counts, feedback, prev, emit,
+                                           self._keys, temp, tk, tp)
+        return nxt
 
     def _apply_pending_snapshots(self) -> None:
         """Copy-on-write: a slot admitted onto shared pages borrows their
@@ -647,6 +987,7 @@ class ContinuousBatchingEngine:
         if self.pages is None or slot.fed % self._ps != 0:
             return
         key = slot.request.prompt[:slot.fed]
+        self.pages.unclaim(key, self.namespace)   # computed: the claim is moot
         if not self.pages.wants(key, self.namespace):
             return
         if not self.paged:
@@ -660,10 +1001,15 @@ class ContinuousBatchingEngine:
 
     def _evict(self, i: int) -> None:
         slot = self.slots[i]
-        if slot.page_keys:
-            self.pages.release(slot.page_keys, self.namespace)
-        for idx in slot.pages_by_block.values():
-            self._pool.release(idx)
+        if slot is not None:
+            if slot.page_keys:
+                self.pages.release(slot.page_keys, self.namespace)
+                slot.page_keys = ()
+            slot.pending_snapshot = None
+            for idx in slot.pages_by_block.values():
+                self._pool.release(idx)
+            slot.pages_by_block = {}
+            self._drop_claims(slot)
         self.slots[i] = None
         self._dirty.add(i)
         # shared refcount: gates only when no engine holds the bank
@@ -719,6 +1065,52 @@ class ContinuousBatchingEngine:
                              "operating point to set")
         self._meter.set_point(name)
 
+    # -- preemption -----------------------------------------------------------
+
+    def preempt(self) -> list[Request]:
+        """Evict every lane; requeue the in-flight requests at the front in
+        FIFO order.
+
+        Decode is deterministic (greedy by argmax; sampled lanes re-seed
+        their journaled chain at re-admission), so replay reproduces the
+        preempted requests' tokens bit for bit. An in-flight async step is
+        retired first: its tokens belong to the run before the preemption
+        and seed the journal's cross-check."""
+        self._flush()
+        inflight = sorted(
+            ((i, s) for i, s in enumerate(self.slots) if s is not None),
+            key=lambda t: t[1].seq)
+        for i, _ in inflight:
+            self._evict(i)
+        requeued = [s.request for _, s in inflight]
+        for req in requeued:
+            req.tokens = []
+            req.admit_time = req.first_token_time = req.finish_time = None
+        self.queue.extendleft(reversed(requeued))
+        return requeued
+
+    def preempt_slot(self, i: int, *, front: bool = True) -> Request | None:
+        """Preempt one slot: evict lane ``i`` and requeue its request at the
+        queue's front (default, FIFO like :meth:`preempt`) or its back
+        (``front=False``: it finishes after the work queued behind it).
+        Its replay runs through the journal as :meth:`preempt`'s does; an
+        in-flight async step is retired first. Returns the requeued
+        request, or None when the slot is empty (perhaps because that
+        retire completed it)."""
+        self._flush()
+        slot = self.slots[i]
+        if slot is None:
+            return None
+        self._evict(i)
+        req = slot.request
+        req.tokens = []
+        req.admit_time = req.first_token_time = req.finish_time = None
+        if front:
+            self.queue.appendleft(req)
+        else:
+            self.queue.append(req)
+        return req
+
     # -- convenience ----------------------------------------------------------
 
     def run_until_idle(self, max_steps: int = 100_000) -> None:
@@ -730,11 +1122,14 @@ class ContinuousBatchingEngine:
         raise RuntimeError(f"engine still busy after {max_steps} steps")
 
     def drain_completed(self) -> list[Request]:
-        """Hand off finished requests and forget their ids (which become
-        reusable), so a long-running loop's history stays bounded."""
+        """Hand off finished requests and release their retained state
+        (journal records, ids, which become reusable), so a long-running
+        loop's history stays bounded."""
         done, self.completed = self.completed, []
         for req in done:
+            self.journal.evict(req.id)
             self._ids.discard(req.id)
+            self._replay_counts.pop(req.id, None)
         return done
 
     def stats(self) -> dict:
@@ -753,11 +1148,19 @@ class ContinuousBatchingEngine:
             "prompt_tokens_reused": self.prompt_tokens_reused,
             "prefill_chunk": self.prefill_chunk,
             "backend": "paged" if self.paged else "lanes",
+            "async_dispatch": self.async_dispatch,
             "table_entries_per_slot": self._np_slot if self.paged else None,
+            "stalls": self.stalls,
+            "rematches": self.rematches,
+            "rematched_tokens": self.rematched_tokens,
             "completed": len(self.completed),
+            "sampled_requests": self.sampled_requests,
             "rejected": self.rejected,
+            "token_faults": self.token_faults,
+            "replays": self.replays,
             "queued": len(self.queue),
             "active": self.active,
+            "journal": self.journal.size(),
         }
         if self._meter is not None:
             out["energy"] = self._meter.stats()

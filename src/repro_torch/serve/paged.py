@@ -1,6 +1,6 @@
 """Global KV page pool + paged decode steps for the serving engine.
 
-Port of ``src/repro/serve/paged.py`` (single device, greedy). One pool of
+Port of ``src/repro/serve/paged.py`` (single device). One pool of
 fixed-size KV pages is shared by every decode slot and by the prefix page
 table, reached per step through per-slot *block tables*. The allocator
 (free list, refcounts, per-tenant accounting, the null page) is host state;
@@ -20,7 +20,8 @@ Invariants (as in the reference):
 
 The step functions are plain functions. They write the arena **in place**
 (the reference donates its buffers and gets new ones back) and return the
-next token of every lane, greedy.
+next token of every lane, sampled under its request's parameters (exact
+argmax at temperature 0), with the lanes' carried PRNG keys.
 """
 
 from __future__ import annotations
@@ -33,10 +34,10 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
-from repro_torch.serve.sampling import greedy
+from repro_torch.serve import sampling
 
-__all__ = ["PagePool", "PoolArena", "pool_signature", "paged_step_fn",
-           "paged_chunk_fn", "to_device"]
+__all__ = ["PagePool", "PoolArena", "feed", "last_fed", "pool_signature",
+           "paged_step_fn", "paged_chunk_fn", "to_device"]
 
 
 def pool_signature(cfg: ModelConfig) -> tuple:
@@ -154,44 +155,88 @@ class PagePool:
 
 def to_device(x, dev: torch.device) -> torch.Tensor:
     """A host-chosen input (numpy or a CPU tensor) on ``dev``, copied
-    without waiting for the device."""
+    without waiting for the device. On the card a copy from pageable memory
+    has read its source when the call returns, so the caller may rewrite
+    the array at once; on the CPU the result may share the array's memory
+    and is read at once by the eager ops that take it."""
     return torch.as_tensor(x).to(dev, non_blocking=True)
 
 
-def paged_step_fn(cfg: ModelConfig, window: int | None = None):
-    """Single-token paged decode over every lane, greedy.
+def feed(toks, feedback, prev, dev: torch.device) -> torch.Tensor:
+    """The tokens a launch feeds, on ``dev``: ``toks`` (host) where
+    ``feedback`` (host, bool) is unset, else ``prev`` (the previous
+    launch's on-device tokens: the async feedback path). ``prev`` may be
+    None when no lane takes it."""
+    fed = to_device(toks, dev)
+    if feedback is not None and np.any(feedback):
+        fed = torch.where(to_device(feedback, dev), prev.to(fed.dtype), fed)
+    return fed
 
-    Signature: ``(params, pool_k, pool_v, tables, lengths, toks, mask) ->
-    next_tokens`` (B,) int32 on the pool's device. ``tables`` (B, NP),
-    ``lengths`` (B,), ``toks`` (B,) and ``mask`` (B,) bool are host arrays;
-    ``mask`` gates the KV append (False: an idle lane riding the batch).
-    The pools are written in place. ``window`` reads the block tables as
-    rings (sliding-window configs).
+
+def last_fed(last, logits: torch.Tensor, j: int, counts,
+             dev: torch.device) -> torch.Tensor:
+    """Each lane's logits after its last fed token of a chunk, kept as the
+    chunk's iterations run: iteration ``j``'s ``logits`` (B, V) for the
+    lanes whose ``counts[b] - 1 == j``, ``last`` (None at ``j == 0``) for
+    the others; iteration 0 gives every lane's first, as the reference's
+    ``max(counts - 1, 0)`` takes for a lane fed nothing."""
+    if last is None:
+        return logits
+    ends = np.asarray(counts) - 1 == j
+    if not ends.any():
+        return last
+    return torch.where(to_device(ends, dev)[:, None], logits, last)
+
+
+def paged_step_fn(cfg: ModelConfig, window: int | None = None):
+    """Single-token paged decode over every lane, sampled.
+
+    Signature: ``(params, pool_k, pool_v, tables, lengths, toks, feedback,
+    prev, mask, emit, keys, temp, top_k, top_p) -> (next_tokens, keys)``,
+    the reference's (``src/repro/serve/paged.py:315-352``) less the pools
+    in the result: they are written in place. ``tables`` (B, NP),
+    ``lengths``, ``toks``, ``feedback``, ``mask``, ``emit``, ``temp``,
+    ``top_k`` and ``top_p`` (B,) are host arrays; ``feedback`` selects the
+    previous launch's on-device token ``prev`` instead of ``toks`` (async
+    double-buffering; ``prev`` may be None without it); ``mask`` gates the
+    KV append (False: an idle or stalled lane riding the batch). Each
+    lane's token is drawn by :func:`~repro_torch.serve.sampling.draw` under
+    its key of ``keys`` (B, 2) and its (``temp``, ``top_k``, ``top_p``):
+    the exact argmax at temperature 0; its key splits once and the carried
+    half is kept where ``emit`` is set. ``next_tokens`` (B,) int32 lives on
+    the pool's device, ``keys`` where they came from. ``window`` reads the
+    block tables as rings (sliding-window configs).
     """
-    def step(params, pool_k, pool_v, tables, lengths, toks, mask):
+    def step(params, pool_k, pool_v, tables, lengths, toks, feedback, prev,
+             mask, emit, keys, temp, top_k, top_p):
         dev = pool_k.device
         logits, _, _ = registry.decode_step_paged(
             params, cfg, pool_k, pool_v, to_device(tables, dev),
-            to_device(lengths, dev), to_device(toks, dev),
+            to_device(lengths, dev), feed(toks, feedback, prev, dev),
             append_mask=torch.as_tensor(mask), window=window)
-        return greedy(logits)
+        return sampling.draw(logits, keys, emit, temp, top_k, top_p)
 
     return step
 
 
 def paged_chunk_fn(cfg: ModelConfig, chunk: int, window: int | None = None):
-    """Chunked step: up to ``chunk`` tokens per lane in one launch, greedy.
+    """Chunked step: up to ``chunk`` tokens per lane in one launch, sampled.
 
-    Signature: ``(params, pool_k, pool_v, tables, lengths, toks, counts) ->
-    next_tokens`` with host arrays ``toks`` (B, chunk) and ``counts`` (B,).
+    Signature: ``(params, pool_k, pool_v, tables, lengths, toks, counts,
+    feedback, prev, emit, keys, temp, top_k, top_p) -> (next_tokens,
+    keys)`` with host arrays ``toks`` (B, chunk) and ``counts`` (B,); the
+    rest as in :func:`paged_step_fn`, ``feedback`` applying to iteration 0.
     Runs masked one-token steps: at step ``j`` lane ``b`` appends
     ``toks[b, j]`` at ``lengths[b] + j`` if ``j < counts[b]``, and a masked
-    lane leaves the pool bitwise untouched. The returned token of each lane
-    is the greedy token after its last fed token (``counts[b] - 1``). Steps
-    past every lane's count would be masked for all lanes and change
-    nothing, so the loop stops at ``max(counts)``.
+    lane leaves the pool bitwise untouched. Each lane's token is drawn
+    after its last fed token (``counts[b] - 1``) with the launch's one
+    split of its key, as every iteration of the reference's scan draws
+    with it and keeps the last fed one's. Steps past every lane's count
+    would be masked for all lanes and change nothing, so the loop stops at
+    ``max(counts)``.
     """
-    def step(params, pool_k, pool_v, tables, lengths, toks, counts):
+    def step(params, pool_k, pool_v, tables, lengths, toks, counts, feedback,
+             prev, emit, keys, temp, top_k, top_p):
         dev = pool_k.device
         counts = np.asarray(counts)
         n = int(counts.max())
@@ -199,13 +244,14 @@ def paged_chunk_fn(cfg: ModelConfig, chunk: int, window: int | None = None):
             raise ValueError(f"counts exceed the chunk of {chunk}")
         tables, lengths = to_device(tables, dev), to_device(lengths, dev)
         toks = to_device(toks, dev)
-        outs = []
+        first = feed(toks[:, 0], feedback, prev, dev)
+        last = None
         for j in range(n):
             logits, _, _ = registry.decode_step_paged(
-                params, cfg, pool_k, pool_v, tables, lengths + j, toks[:, j],
+                params, cfg, pool_k, pool_v, tables, lengths + j,
+                first if j == 0 else toks[:, j],
                 append_mask=torch.from_numpy(j < counts), window=window)
-            outs.append(greedy(logits))
-        last = to_device(np.maximum(counts - 1, 0), dev).long()
-        return torch.stack(outs, 1).gather(1, last[:, None])[:, 0]
+            last = last_fed(last, logits, j, counts, dev)
+        return sampling.draw(last, keys, emit, temp, top_k, top_p)
 
     return step

@@ -15,8 +15,10 @@ weights and a seeded shared-prefix trace:
   adoption equals no page table, and the batched engine equals each
   request served alone;
 * the constructor's validation, backpressure, the backend choice (the
-  lane backend's own tests are in ``tests/test_torch_lanes.py``), and the
-  features later slices port, which raise ``NotImplementedError``.
+  lane backend's own tests are in ``tests/test_torch_lanes.py``), the
+  features later slices port, which raise ``NotImplementedError``, and
+  those this one brought (async dispatch, the journal, sampled requests:
+  their own tests are in ``tests/test_torch_async.py``).
 """
 
 import dataclasses
@@ -32,7 +34,7 @@ from repro.serve.engine import Request as JaxRequest
 from repro.sharding import params as JP
 
 torch = configs = params_from_numpy = registry = None  # bound by _port
-ContinuousBatchingEngine = Request = SamplingParams = None
+ContinuousBatchingEngine = Request = SamplingParams = RequestJournal = None
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -42,11 +44,12 @@ def _port():
     worker that has loaded torch (and its OpenMP thread pool) runs the JAX
     package's async-dispatch engine tests under other thread timing."""
     global torch, configs, params_from_numpy, registry
-    global ContinuousBatchingEngine, Request, SamplingParams
+    global ContinuousBatchingEngine, Request, SamplingParams, RequestJournal
     torch = pytest.importorskip("torch")
     from repro_torch import configs
     from repro_torch.bridge import params_from_numpy
     from repro_torch.models import registry
+    from repro_torch.runtime.ft import RequestJournal
     from repro_torch.serve.engine import ContinuousBatchingEngine, Request
     from repro_torch.serve.sampling import SamplingParams
     torch.set_num_threads(1)
@@ -190,18 +193,24 @@ def test_admission_is_fifo_with_backpressure(model):
 def test_later_slices_raise_not_implemented(model):
     _, _, cfg, params = model
     kw = {"slots": 2, "max_len": MAX_LEN, "device": "cpu"}
-    ContinuousBatchingEngine(cfg, params, async_dispatch=False, tp_axis="model",
+    ContinuousBatchingEngine(cfg, params, tp_axis="model",
                              **kw)                 # defaults are accepted
     # the lane backend is ported: paged=False, lane_batch and device_len
     # are accepted, and a windowed config is served on lanes
     lanes = ContinuousBatchingEngine(cfg, params, paged=False, lane_batch=4,
                                      device_len=2 * MAX_LEN, **kw)
     assert lanes.stats()["backend"] == "lanes" and lanes.n_lanes == 4
-    for arg, value in [("async_dispatch", True), ("journal", object()),
-                       ("chaos", object()), ("page_table", object()),
+    # async dispatch and the journal are ported
+    journal = RequestJournal(horizon=4)
+    eng = ContinuousBatchingEngine(cfg, params, async_dispatch=True,
+                                   journal=journal, **kw)
+    assert eng.journal is journal and eng.stats()["async_dispatch"]
+    assert ContinuousBatchingEngine(
+        cfg, params, journal_horizon=8, **kw).journal.horizon == 8
+    for arg, value in [("chaos", object()), ("page_table", object()),
                        ("pool", object()), ("admission_hook", object()),
                        ("reclaim", object()), ("mesh", object()),
-                       ("journal_horizon", 8), ("tp_axis", "x")]:
+                       ("tp_axis", "x")]:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ContinuousBatchingEngine(cfg, params, **{arg: value}, **kw)
     with pytest.raises(TypeError):
@@ -214,9 +223,12 @@ def test_later_slices_raise_not_implemented(model):
         ContinuousBatchingEngine(swa, params, **kw)
     assert ContinuousBatchingEngine(swa, params, paged=False,
                                     **kw).stats()["backend"] == "lanes"
-    eng = ContinuousBatchingEngine(cfg, params, **kw)
-    with pytest.raises(NotImplementedError, match="sampled"):
-        eng.submit(Request("s", [1, 2], 2, sampling=SamplingParams(0.7)))
+    # sampled decoding is ported: a sampled request is served
+    eng.submit(Request("s", [1, 2], 2, sampling=SamplingParams(0.7)))
+    eng.run_until_idle()
+    assert [len(r.tokens) for r in eng.completed] == [2]
+    assert eng.stats()["sampled_requests"] == 1
+    assert journal.get("s").sampling == SamplingParams(0.7).astuple()
     with pytest.raises(ValueError, match="at least one"):
         ContinuousBatchingEngine(cfg, params, **{**kw, "slots": 0})
 

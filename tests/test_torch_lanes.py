@@ -386,7 +386,11 @@ def test_masked_lane_is_untouched_by_a_chunk_step(arch):
                               for f in dataclasses.fields(cache)})
         toks = rng.integers(0, cfg.vocab, (3, 4)).astype(np.int32)
         step = engine_mod.lane_chunk_fn(cfg, 4)
-        nxt = step(params, cache, toks, np.array([4, 0, 2], np.int32))
+        greedy = np.zeros((3,), np.float32)
+        nxt, _ = step(params, cache, toks, np.array([4, 0, 2], np.int32),
+                      np.zeros((3,), bool), None, np.ones((3,), bool),
+                      torch.zeros((3, 2), dtype=torch.int64), greedy,
+                      np.zeros((3,), np.int32), np.ones((3,), np.float32))
         for j in range(2):
             logits, _ = registry.decode_step(params, cfg, twin,
                                              torch.from_numpy(toks[:, j:j + 1]))
