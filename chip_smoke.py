@@ -20,12 +20,14 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
    and merged slots in one call, one slot at 4096 positions and one past 64
    splits, a slot of length 0, G 1 to 16, every load width, rings whose
    window is not a multiple of the page size, page ids outside the pool in
-   unused entries) in all four dtype pairs, each call repeated bit for bit
-   with the merge's counters left zeroed; then times kernel, plain version
-   and ``scaled_dot_product_attention`` (the yardstick, never called by the
-   port; on KV gathered in advance and with the gather) at the serve
-   phase's shape, one slot at 4096 positions and the decode shape, from a
-   CUDA graph and eagerly (``tools/paged_timing.py`` times any checkout's
+   unused entries, h2o-danube3-4b's decode shape: D 120, GQA 32/8, a
+   4096-token window over a 257-entry ring) in all four dtype pairs, each
+   call repeated bit for bit with the merge's counters left zeroed; then
+   times kernel, plain version and ``scaled_dot_product_attention`` (the
+   yardstick, never called by the port; on KV gathered in advance and with
+   the gather) at h2o-danube3-4b's windowed decode shape, the serve phase's
+   shape, one slot at 4096 positions and the decode shape, from a CUDA
+   graph and eagerly (``tools/paged_timing.py`` times any checkout's
    kernel the same way);
 4. serve phase: full-width, full-depth granite-3-2b with random weights
    made on the card from a seed, served by ``ContinuousBatchingEngine``
@@ -43,7 +45,7 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
    at depth 40 turns a one-ulp difference into O(1) logit differences
    within a few steps, and a printed control shows the same for the plain
    path against itself perturbed by one bf16 ulp.) Keeps the greedy
-   completions for phase 25;
+   completions for phase 27;
 5. small reference: the granite smoke config (3 layers, float32) served on
    the card and on the CPU's plain path gives equal completions, after a
    check that its greedy margins are clear (and on the card metered and
@@ -196,7 +198,40 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     on lanes equal to the paged backend's on the card, greedy and with
     every second request sampled (equal to the CPU's plain path where the
     margins of the sampler's scores are clear);
-25. sampled engine phase, last because its profiled windows make the
+25. window phase: h2o-danube3-4b at full width (d_model 3840, 32/8 heads
+    of dim 120, window 4096), 4 of its 24 layers, on the paged backend
+    with ring block tables (4 slots, 16-token pages, max_len 4352: 257
+    entries a slot), 4 requests of one 4160-token prompt and 16 own
+    tokens, 96 greedy tokens each, all submitted at once. Checks the
+    schedule (stalls, re-matches, pages recycled, table entries, the
+    pool's high water) equal to the smoke twin's (the same trace on the
+    smoke config with the full window, first; ``tools/engine_dry_run.py``
+    prints the same counts from the CPU), the high water within 4 x 257 +
+    the table's capacity, launches == 4 x one-token steps; serves the trace
+    again with every free page of the pool NaN before every step: the same
+    tokens bit for bit, every live lane's logits finite, and every paged
+    call of one prefill and one decode step past the window (D 120, a ring
+    table) held to the plain version (``close_scaled``);
+26. cluster phase: granite-3-2b (two same-namespace tenants of 8 and 4
+    slots, one parameter tree) and h2o-danube3-4b (24 layers, 8 slots,
+    max_len 512) on one ``ServeCluster`` (one pool and table, 16-token
+    pages, a budget of 5 awake banks, deficit round-robin with TTFT shed
+    and deadline preempt), 96 bursty open-loop arrivals (seed 0, every
+    second danube request sampled) through ``ClusterSimulator`` on a fake
+    clock. Checks the schedule, the report and the metrics (TTFT/TPOT
+    percentiles, attainment, goodput) equal to the smoke twins', awake
+    banks within the budget, after every step the merge's counters zero
+    and the pool conserved, launches == layers x one-token steps, every
+    paged call of one step of all three tenants (D 64 and D 120) held to
+    the plain version, every served request's tokens equal to its engine
+    alone on the card; then the trace under a seeded ``FaultPlan`` (step,
+    alloc and token faults) with the danube engine crashed and rebuilt at
+    step 40: counts equal the twins', tokens equal the plain run's,
+    journals and pool reconciled, the rebuilt engine on the same arena and
+    parameter tensors, device memory within 64 MiB of its value before the
+    crash. Prints wall ms a cluster step, paged launches a step, and three
+    profiled steps' launches and device busy share;
+27. sampled engine phase, last because its profiled windows make the
     profiler drop kernels of later windows: full-width granite-3-2b's
     weights made again, phase 4's trace with every second request sampled
     (temperature 0.8, top_k 50, top_p 0.9, seed 100 + i), all submitted at
@@ -216,8 +251,8 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     alone.
 
 Prints a ``{"kernels": [...]}`` JSON line (eight entries; paged
-attention's launches are those of the greedy serve run and the three
-sampled engine runs, the grouped matmul's those of the serve driver and
+attention's launches are those of the greedy serve run, the window and
+cluster phases' main runs and the three sampled engine runs, the grouped matmul's those of the serve driver and
 the lane engine's greedy and mixed runs, each under ``launches_by_path``),
 the card line again,
 and last
@@ -282,7 +317,12 @@ PAGED_EDGES = (
     # splits, lengths below and past the window
     + [(6, 8, 2, 64, 16, (1, 50, 100, 150, 300, 777), 100, None),
        (6, 8, 2, 64, 16, (1, 64, 199, 200, 333, 777), 200, None),
-       (4, 8, 2, 64, 4, (3, 13, 40, 93), 13, None)])
+       (4, 8, 2, 64, 4, (3, 13, 40, 93), 13, None)]
+    # h2o-danube3-4b's decode shape (the window phase's): D 120 (a bf16 row
+    # of 240 bytes, 15 16-byte words), GQA 32/8, a 4096-token window over a
+    # 257-entry ring, lengths below, at and past the window
+    + [(4, 32, 8, 120, 16, (1000, 4096, 4097, 4352), 4096, None)])
+DANUBE_DECODE = (4, 32, 8, 120, 16, 4096)   # B, H, K, D, ps, window
 
 
 def card_line() -> str:
@@ -480,9 +520,11 @@ def kernel_phase(torch, kernel, ref) -> dict:
     print(f"kernel edges: every load width ran ({sorted(widths)}); the "
           f"merge's counters zero after every call")
 
-    # timed at the serve phase's shape (10-entry tables, max_len 160), at
-    # one slot of granite's 4096-token context, and at granite's decode
-    # shape with lengths up to 1024, which the JSON line reports
+    # timed at h2o-danube3-4b's windowed decode shape, at the serve
+    # phase's shape (10-entry tables, max_len 160), at one slot of
+    # granite's 4096-token context, and at granite's decode shape with
+    # lengths up to 1024, which the JSON line reports
+    ring_timing(torch, kernel, ref)
     return paged_timings(torch, kernel, ref)[-1]
 
 
@@ -574,6 +616,69 @@ def timing(torch, gen, kernel, ref, b, h, kh, d, max_len, ps,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms}
+
+
+def ring_timing(torch, kernel, ref) -> dict:
+    """The kernel at h2o-danube3-4b's decode shape (``DANUBE_DECODE``: 4
+    slots at 4352 positions, each attending the last 4096 through a
+    257-entry ring table, bf16), timed from a CUDA graph as :func:`timing`
+    times it, against the plain version, and SDPA (enable_gqa) on the
+    window's KV gathered contiguous in advance; its bound is the bytes of
+    the 4096 positions' K and V, q, o and the tables at 3.35 TB/s."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    b, h, kh, d, ps, window = DANUBE_DECODE
+    copies, np_slot = 8, -(-window // ps) + 1
+    n_pages = b * np_slot + 1
+    tables = torch.randperm(n_pages, generator=gen, device="cuda")[
+        :b * np_slot].to(torch.int32).reshape(b, np_slot).contiguous()
+    lengths = torch.full((b,), window + 256, dtype=torch.int32, device="cuda")
+    shape = (copies, n_pages, ps, kh, d)
+    kp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    call = lambda i: kernel.paged_attention_cuda(  # noqa: E731
+        q, kp[i], vp[i], tables, lengths, window=window)
+    got, again = call(0), call(0)
+    want = ref.paged_attention(q, kp[0], vp[0], tables, lengths,
+                               window=window)
+    err, _ = close_scaled(got, want, TOL["bfloat16"], TOL["bfloat16"])
+    assert torch.equal(got, again), "two calls differ"
+    ms = graph_ms(torch, rotating(call, copies), inner=48)
+    plain_ms = time_ms(torch, lambda i: ref.paged_attention(
+        q, kp[i], vp[i], tables, lengths, window=window), copies, inner=10,
+        reps=11)
+    # the window's positions, oldest first, gathered contiguous per copy
+    pos = torch.arange(window, device="cuda") + (lengths[0].item() - window)
+    page = tables.long()[:, (pos // ps) % np_slot]          # (B, W)
+    off = (pos % ps)[None].expand(b, -1)
+
+    def gathered(pool):                                      # (C, B, K, W, D)
+        return pool[:, page, off].transpose(2, 3).contiguous()
+
+    kc, vc = gathered(kp), gathered(vp)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = q[:, :, None]
+    pre = lambda i: sdpa(qs, kc[i], vc[i], enable_gqa=True)  # noqa: E731
+    library_ms = graph_ms(torch, rotating(pre, copies), inner=48)
+    sdpa_err = (pre(0)[:, :, 0].float() - want.float()).abs().max().item()
+    del kc, vc
+    moved = (2 * b * window * kh * d * 2 + 2 * b * h * d * 2
+             + tables.numel() * 4 + lengths.numel() * 4)
+    ops = 4 * b * window * h * d
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    p = kernel.plan(b, h, kh, d, np_slot, ps, window, q.dtype, kp.dtype)
+    print(f"paged attention at h2o-danube3-4b's decode shape B={b} H={h} "
+          f"K={kh} D={d} ps={ps}, window {window} over a {np_slot}-entry "
+          f"ring, lengths {window + 256} (L {p.split_len}, {p.n_split} "
+          f"splits, {p.vec_bytes}-byte loads, tile {p.tile}), from a CUDA "
+          f"graph: kernel {ms:.4f} ms ({moved / ms / 1e6:.0f} GB/s), sdpa "
+          f"{library_ms:.4f} ms on the window's KV gathered in advance (max "
+          f"abs diff from plain {sdpa_err:.3e}); plain {plain_ms:.4f} ms; "
+          f"bound {max(t_bytes, t_ops):.4f} ms ({moved} bytes); max abs err "
+          f"{err:.3e}, two calls bit for bit", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops), "max_abs_err": err}
 
 
 def serve_trace(np):
@@ -3688,6 +3793,518 @@ def small_lane_reference_phase(torch, np) -> None:
               f"{emitted} emitted steps){note}", flush=True)
 
 
+# h2o-danube3-4b's window and cluster phases. The engine's schedule (engine
+# steps, one-token steps, stalls, re-matches, recycles, sheds, preemptions)
+# depends on lengths, the clock and the fault plan's draws, never on token
+# values, the model's width or the device, so each phase first serves its
+# trace on the smoke config of the same family (its "twin", on the card:
+# the window's 4271 one-token steps take the CPU's plain version about 90
+# s) and holds the full-width run to those counts; ``tools/engine_dry_run.py``
+# prints the same counts from the CPU.
+DANUBE_LAYERS = 4          # of h2o-danube3-4b's 24 (see window_phase)
+WINDOW_SERVE = {"slots": 4, "page_size": 16, "prefill_chunk": 16,
+                "max_len": 4352, "page_capacity": 320}
+WINDOW_TRACE = {"n": 4, "shared": 4160, "own": 16, "new": 96}
+WINDOW_KEYS = ("steps", "token_steps", "stalls", "rematches",
+               "rematched_tokens", "prompt_tokens_reused", "pages_recycled",
+               "window", "table_entries_per_slot")
+# the cluster phase: granite-3-2b as two same-namespace tenants (8 and 4
+# slots, both 8 lanes wide so that a page one computes is the bits the
+# other would compute) and h2o-danube3-4b at full depth (window 4096,
+# clamped to its 512 positions, so nothing recycles)
+CLUSTER = {"pool_pages": 640, "page_size": 16, "max_awake_banks": 5}
+CLUSTER_ENGINES = (("granite-a", "granite_3_2b", {"slots": 8, "max_len": 256}),
+                   ("granite-b", "granite_3_2b",
+                    {"slots": 4, "lane_batch": 8, "max_len": 256}),
+                   ("danube", "h2o_danube3_4b", {"slots": 8, "max_len": 512}))
+CLUSTER_TRACE = {"n_requests": 96, "rate": 1.0, "seed": 0,
+                 "process": "bursty", "burst": 8}
+# deficit round-robin banks quantum x weight token credits a round; a head
+# costs prompt + new tokens, at most 96 here, within every tenant's first
+# round (a lone head dearer than that would stall a round with nothing
+# else to run, which the cluster reports as a budget deadlock)
+CLUSTER_POLICY = {"scheduler": "drr", "quantum": 32, "shed_busted": True,
+                  "preempt_busted": True}
+CLUSTER_CHAOS = {"seed": 1, "step_fail": 0.02, "alloc_fail": 0.01,
+                 "token_corrupt": 0.02, "crash_at": 40}
+CLUSTER_KEYS = ("steps", "power_stalls", "wrr_stalls", "sheds",
+                "slo_preempts", "reclaims")
+CLUSTER_ENGINE_KEYS = ("steps", "token_steps", "stalls", "admission_stalls",
+                       "rematches", "prompt_tokens_reused", "shed",
+                       "completed", "sampled_requests", "replays",
+                       "pages_recycled")
+
+
+def window_trace(np, vocab: int) -> list:
+    """4 requests of one 4160-token prompt and 16 tokens of their own, 96
+    greedy tokens each: 4272 positions, past the 4096-token window."""
+    rng = np.random.default_rng(SEED)
+    shared = [int(t) for t in rng.integers(1, vocab, WINDOW_TRACE["shared"])]
+    return [(f"win{i}", shared + [int(t) for t in rng.integers(
+        1, vocab, WINDOW_TRACE["own"])], WINDOW_TRACE["new"])
+        for i in range(WINDOW_TRACE["n"])]
+
+
+def window_serve(cfg, params, device, reqs, before=None):
+    """Serve ``reqs`` (all submitted at once, prompts taken modulo the
+    vocabulary) on a windowed engine with ``WINDOW_SERVE``; ``before(engine)``
+    runs before every step. Returns the engine."""
+    from repro_torch.serve.engine import ContinuousBatchingEngine, Request
+
+    eng = ContinuousBatchingEngine(cfg, params, device=device, **WINDOW_SERVE)
+    for rid, prompt, n_new in reqs:
+        assert eng.submit(Request(rid, [t % cfg.vocab for t in prompt], n_new))
+    while True:
+        if before is not None:
+            before(eng)
+        if not eng.step():
+            return eng
+
+
+def window_counts(eng) -> dict:
+    st = eng.stats()
+    return ({k: st[k] for k in WINDOW_KEYS}
+            | {"pool_high_water": st["pool"]["high_water"]})
+
+
+def smoke_twin(arch: str, device):
+    """The smoke config of ``arch`` with the full config's window, and its
+    params from ``SEED`` on ``device``: the schedule's twin of ``arch``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.sharding.params import init_tree
+
+    smoke = dataclasses.replace(
+        configs.smoke(arch), sliding_window=configs.get(arch).sliding_window)
+    return smoke, init_tree(registry.decls(smoke), SEED, device)
+
+
+def cluster_trace(load, metrics, SamplingParams):
+    """``CLUSTER_TRACE``'s bursty open-loop arrivals over the three tenants
+    (granite with a 64-token shared prefix, danube with a 32-token one),
+    every second danube request sampled (temperature 0.8, top_k 50, top_p
+    0.9, seed 100 + its danube index)."""
+    slo_g = metrics.SLO(ttft=24.0, tpot=2.0)
+    slo_d = metrics.SLO(ttft=32.0, tpot=2.5)
+    tenants = [load.TenantSpec("granite-a", share=2.0, prompt_len=(66, 84),
+                               new_tokens=(4, 12), prefix_len=64,
+                               prefix_seed=1, slo=slo_g),
+               load.TenantSpec("granite-b", share=1.0, prompt_len=(66, 84),
+                               new_tokens=(4, 12), prefix_len=64,
+                               prefix_seed=1, slo=slo_g),
+               load.TenantSpec("danube", share=2.0, prompt_len=(34, 56),
+                               new_tokens=(4, 16), prefix_len=32,
+                               prefix_seed=2, slo=slo_d)]
+    k = 0
+    for arr in load.open_loop_trace(tenants, **CLUSTER_TRACE):
+        if arr.engine == "danube":
+            if k % 2:
+                arr.request.sampling = SamplingParams(**{
+                    **{x: MIXED[x] for x in ("temperature", "top_k",
+                                             "top_p")}, "seed": 100 + k})
+            k += 1
+        yield arr
+
+
+def cluster_serve(tenants: dict, device, *, faults: bool = False,
+                  on_step=None):
+    """Serve :func:`cluster_trace` on a ``ServeCluster`` (``CLUSTER``: one
+    pool and table, 16-token pages, a power budget of 5 awake banks, the
+    SLO-aware policy ``CLUSTER_POLICY``: deficit round-robin, TTFT shed,
+    deadline preempt) with ``CLUSTER_ENGINES``, ``tenants`` mapping an arch
+    to its (cfg, params), under ``ClusterSimulator`` on a fake clock.
+    ``faults``: a ``FaultPlan`` from ``CLUSTER_CHAOS`` (step, alloc and
+    token faults) and the danube engine crashed and rebuilt before cluster
+    step ``crash_at``. ``on_step(cluster, n, step)`` wraps every cluster
+    step ``n`` (it calls ``step()`` and returns its result). Returns the
+    cluster, the report and the metrics' summary."""
+    from repro_torch.serve import chaos, loadgen, metrics, sim
+    from repro_torch.serve.cluster import PowerBudget, SchedPolicy, ServeCluster
+    from repro_torch.serve.sampling import SamplingParams
+
+    clock = sim.FakeClock()
+    plan = None
+    if faults:
+        c = CLUSTER_CHAOS
+        plan = chaos.FaultPlan(c["seed"], chaos.FaultSpec(
+            step_fail=c["step_fail"], alloc_fail=c["alloc_fail"],
+            token_corrupt=c["token_corrupt"]))
+    cl = ServeCluster(
+        pool_pages=CLUSTER["pool_pages"], page_size=CLUSTER["page_size"],
+        clock=clock, device=device, chaos=plan,
+        power_budget=PowerBudget(max_awake_banks=CLUSTER["max_awake_banks"]),
+        policy=SchedPolicy(**CLUSTER_POLICY))
+    for name, arch, kw in CLUSTER_ENGINES:
+        cfg, params = tenants[arch]
+        cl.add_engine(cfg, params, name=name, namespace=arch, **kw)
+    real_step, n = cl.step, itertools.count(1)
+
+    def step():
+        i = next(n)
+        if faults and i == CLUSTER_CHAOS["crash_at"]:
+            cl.crash_engine("danube")
+        return on_step(cl, i, real_step) if on_step else real_step()
+
+    cl.step = step
+    rep = sim.ClusterSimulator(cl, cluster_trace(loadgen, metrics,
+                                                 SamplingParams), clock).run()
+    m = metrics.ServeMetrics()
+    for eng in cl.engines.values():
+        m.observe_all(eng.completed)
+    return cl, rep, m.summary(elapsed=rep.elapsed)
+
+
+def cluster_counts(cl, rep, summary) -> dict:
+    st = cl.stats()
+    out = {k: st[k] for k in CLUSTER_KEYS}
+    out["faults"] = {k: st["faults"][k] for k in (
+        "step_faults", "alloc_faults", "token_faults", "replays",
+        "crashes", "rebuilds")}
+    out["engines"] = {n: {k: e[k] for k in CLUSTER_ENGINE_KEYS}
+                      for n, e in st["engines"].items()}
+    out["report"] = {"elapsed": rep.elapsed, "steps": rep.steps,
+                     "tokens_generated": rep.tokens_generated,
+                     "rejected": rep.rejected, "shed": rep.shed}
+    out["metrics"] = {k: summary[k] for k in (
+        "completed", "slo_attainment", "ttft_p50", "ttft_p99", "tpot_p50",
+        "tpot_p99", "goodput")}
+    out["pool_high_water"] = st["pool"]["high_water"]
+    return out
+
+
+def poison_free_pages(torch, eng) -> int:
+    """Fill every page on ``eng``'s pool free list with NaN in every layer
+    of its arena's K and V; returns how many."""
+    free = eng._pool._free
+    if free:
+        idx = torch.tensor(free, dtype=torch.long, device=eng._arena.k.device)
+        eng._arena.k[:, idx] = float("nan")
+        eng._arena.v[:, idx] = float("nan")
+    return len(free)
+
+
+def checked_paged(torch, kernel, ref, errs: list):
+    """A stand-in for ``paged_ops.paged_attention`` that launches the kernel
+    and holds each call to the plain version on its own inputs
+    (``close_scaled`` at the bf16 bound), recording (head dim, window,
+    error)."""
+    def checked(q, k_pool, v_pool, tables, lengths, *, window=None):
+        got = kernel.paged_attention_cuda(q, k_pool, v_pool, tables, lengths,
+                                          window=window)
+        want = ref.paged_attention(q, k_pool, v_pool, tables, lengths,
+                                   window=window)
+        err, _ = close_scaled(got, want, TOL["bfloat16"], TOL["bfloat16"])
+        assert bool(torch.isfinite(got).all())
+        errs.append((q.shape[-1], window, err))
+        return got
+    return checked
+
+
+def window_phase(torch, np, kernel, ref, card: str) -> int:
+    """h2o-danube3-4b at full width (d_model 3840, 32/8 heads of dim 120,
+    d_ff 10240, vocab 32000, window 4096), 4 of its 24 layers, random bf16
+    weights from ``SEED``, on the paged backend with ring block tables
+    (``WINDOW_SERVE``: 4 slots, 16-token pages, max_len 4352, so the window
+    stays 4096 and a slot's ring holds 257 entries), serving
+    :func:`window_trace`. Why 4 layers: recycling needs more than 4096
+    positions and the paged prefill runs one-token steps, so the run takes
+    about 4300 of them, which at 24 layers would cost about 90 s of host
+    time. Checks: the schedule's counts equal the smoke twin's on the CPU
+    (recycles, stalls, re-matches, table entries, the pool's high water),
+    the high water within slots x 257 + the table's capacity, launches ==
+    layers x one-token steps; then serves the trace again with every free
+    page NaN before every step: the same tokens bit for bit, every live
+    lane's logits finite, and every paged call of one prefill step and one
+    decode step past the window held to the plain version. Returns the
+    main run's launches."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.models import registry
+    from repro_torch.sharding.params import count_params, init_tree
+
+    cfg = dataclasses.replace(configs.get("h2o_danube3_4b"),
+                              n_layers=DANUBE_LAYERS)
+    reqs = window_trace(np, cfg.vocab)
+    t0 = time.perf_counter()
+    want = window_counts(window_serve(*smoke_twin("h2o_danube3_4b", "cuda"),
+                                      "cuda", reqs))
+    smoke_s = time.perf_counter() - t0
+    params = init_tree(registry.decls(cfg), SEED, "cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    ring = -(-cfg.sliding_window // WINDOW_SERVE["page_size"]) + 1
+    print(f"window: h2o-danube3-4b at full width, {cfg.n_layers} of 24 "
+          f"layers, {count_params(params)} parameters in bf16; the smoke "
+          f"twin's schedule in {smoke_s:.1f} s: {want}", flush=True)
+
+    def serve(before=None):
+        """One run; returns the engine and (decode step?, seconds) a step."""
+        times, last = [], {}
+
+        def hook(eng):
+            if before is not None:
+                before(eng)
+            now = time.perf_counter()
+            if last:
+                times.append((last["decode"], now - last["t"]))
+            last.update(t=now, decode=not eng.queue and all(
+                s is None or not s.prefilling for s in eng.slots))
+        return window_serve(cfg, params, "cuda", reqs, hook), times
+
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    eng, times = serve()
+    wall = time.perf_counter() - t0
+    launches = kernel.launches
+    got = window_counts(eng)
+    st = eng.stats()
+    assert got == want, (got, want)
+    assert st["window"] == cfg.sliding_window and \
+        st["table_entries_per_slot"] == ring, st
+    cap = WINDOW_SERVE["slots"] * ring + WINDOW_SERVE["page_capacity"]
+    assert got["pool_high_water"] <= cap, (got["pool_high_water"], cap)
+    assert launches == cfg.n_layers * st["token_steps"], launches
+    assert got["pages_recycled"] > 0 and len(eng.completed) == 4
+    tokens = {r.id: r.tokens for r in eng.completed}
+    for toks in tokens.values():
+        assert len(toks) == WINDOW_TRACE["new"]
+        assert all(0 <= t < cfg.vocab for t in toks)
+    decode = [dt * 1e3 for is_decode, dt in times if is_decode]
+    print(f"window on {card}: {st['steps']} engine steps, "
+          f"{st['token_steps']} one-token steps, {st['stalls']} stalls, "
+          f"{st['rematches']} re-matches, {st['prompt_tokens_reused']} "
+          f"prompt tokens reused, {st['pages_recycled']} pages recycled, "
+          f"{ring} table entries a slot, pool high water "
+          f"{got['pool_high_water']} of {eng._pool.n_pages} pages (bound "
+          f"{cap}); equal to the smoke twin's; kernel launches {launches} "
+          f"= {cfg.n_layers} layers x {st['token_steps']} one-token steps; "
+          f"{wall:.1f} s, decode step {statistics.median(decode):.3f} ms "
+          f"(median of {len(decode)})", flush=True)
+
+    # again, every free page NaN before every step; one prefill chunk step
+    # and one decode step past the window held call by call
+    errs, poisoned, checked_steps = [], [], []
+    real = registry.decode_step_paged
+    checker = checked_paged(torch, kernel, ref, errs)
+
+    def finite(*args, **kw):
+        logits, k, v = real(*args, **kw)
+        live = kw["append_mask"].bool().to(logits.device)
+        assert bool(torch.isfinite(logits[live]).all()), "NaN in a live lane"
+        return logits, k, v
+
+    def before(e):
+        poisoned.append(poison_free_pages(torch, e))
+        prefill = any(s is not None and s.prefilling for s in e.slots)
+        kind = "prefill" if prefill else "decode"
+        arm = (e.pages_recycled > 0 and kind not in checked_steps
+               and any(s is not None for s in e.slots))
+        paged_ops.paged_attention = checker if arm else real_paged
+        if arm:
+            checked_steps.append(kind)
+
+    real_paged = paged_ops.paged_attention
+    try:
+        with mock.patch.object(registry, "decode_step_paged", finite):
+            again, _ = serve(before)
+    finally:
+        paged_ops.paged_attention = real_paged
+    assert {r.id: r.tokens for r in again.completed} == tokens, \
+        "poisoned free pages changed a token"
+    assert window_counts(again) == want
+    assert sorted(checked_steps) == ["decode", "prefill"], checked_steps
+    assert {(d, w) for d, w, _ in errs} == {(cfg.resolved_head_dim,
+                                             cfg.sliding_window)}
+    print(f"window, free pages poisoned with NaN before each of "
+          f"{len(poisoned)} steps (up to {max(poisoned)} pages): tokens equal "
+          f"bit for bit, every live lane's logits finite; {len(errs)} paged "
+          f"calls (D 120, window {cfg.sliding_window}, a {ring}-entry ring) "
+          f"of one prefill and one decode step past the window held to the "
+          f"plain version: max abs err {max(e for _, _, e in errs):.3e} "
+          f"(close_scaled, {TOL['bfloat16']})", flush=True)
+    return launches
+
+
+def cluster_phase(torch, np, kernel, ref, card: str) -> int:
+    """The serving stack above the engine at full width and depth:
+    granite-3-2b (40 layers, one parameter tree) as two same-namespace
+    tenants and h2o-danube3-4b (24 layers) on one ``ServeCluster``
+    (``CLUSTER``, :func:`cluster_serve`), random bf16 weights from
+    ``SEED``, 96 bursty open-loop arrivals on a fake clock. Checks: the
+    schedule's counts, report and metrics equal the smoke twins' on the
+    CPU; awake banks never above the budget; after every cluster step the
+    merge's counters zero and the pool conserved (``owners()`` sums to
+    ``in_use``); launches == sum of layers x one-token steps; every paged
+    call of one cluster step where every tenant launches held to the plain
+    version; every completed request's tokens equal its engine's alone on
+    the card; then the trace again under a seeded ``FaultPlan`` (step,
+    alloc and token faults) with the danube engine crashed and rebuilt at
+    cluster step 40: counts equal the smoke twins', every request completed
+    in both runs has the same tokens, journals and pool reconciled, the
+    rebuilt engine on the same arena and parameter tensors, device memory
+    within 64 MiB of what it was before the crash. Prints wall ms a
+    cluster step, launches a step and the device's busy share (three
+    profiled steps). Returns the main run's launches."""
+    from repro_torch import configs
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ContinuousBatchingEngine, Request
+    from repro_torch.sharding.params import init_tree
+
+    archs = {arch for _, arch, _ in CLUSTER_ENGINES}
+    t0 = time.perf_counter()
+    smoke = {a: smoke_twin(a, "cuda") for a in archs}
+    want = cluster_counts(*cluster_serve(smoke, "cuda"))
+    want_chaos = cluster_counts(*cluster_serve(smoke, "cuda", faults=True))
+    smoke_s = time.perf_counter() - t0
+    tenants = {}
+    for arch in sorted(archs):
+        cfg = configs.get(arch)
+        tenants[arch] = (cfg, init_tree(registry.decls(cfg), SEED, "cuda",
+                                        dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    print(f"cluster: the smoke twins' schedules in {smoke_s:.1f} s: {want}; "
+          f"under faults: {want_chaos}", flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    layers = {name: tenants[arch][0].n_layers
+              for name, arch, _ in CLUSTER_ENGINES}
+    budget = CLUSTER["max_awake_banks"]
+    errs, wall_ms, prof, high = [], [], [], [0]
+    real_paged = paged_ops.paged_attention
+
+    def on_step(cl, n, step):
+        every = all(e.active for e in cl.engines.values())
+        arm = not errs and every
+        if arm:
+            paged_ops.paged_attention = checked_paged(torch, kernel, ref, errs)
+        ts = time.perf_counter()
+        try:
+            if len(prof) < 3 and every and errs and not arm:
+                out = []
+                prof.append(device_profile(torch, lambda: out.append(step()))
+                            [:3])
+                stepped = out[0]
+            else:
+                stepped = step()
+                torch.cuda.synchronize()
+                wall_ms.append((time.perf_counter() - ts) * 1e3)
+        finally:
+            paged_ops.paged_attention = real_paged
+        buf = kernel.counter_buffer(dev)
+        assert buf is None or not bool(buf.any()), f"counters, step {n}"
+        assert cl.awake_banks() <= budget, (n, cl.awake_banks())
+        assert sum(cl.pool.owners().values()) == cl.pool.in_use, n
+        high[0] = max(high[0], cl.awake_banks())
+        return stepped
+
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    cl, rep, summary = cluster_serve(tenants, "cuda", on_step=on_step)
+    wall = time.perf_counter() - t0
+    launches = kernel.launches
+    got = cluster_counts(cl, rep, summary)
+    assert got == want, (got, want)
+    st = cl.stats()
+    token_steps = {n: e["token_steps"] for n, e in st["engines"].items()}
+    assert launches == sum(layers[n] * s for n, s in token_steps.items())
+    assert {d for d, _, _ in errs} == {
+        tenants[a][0].resolved_head_dim for a in archs}, errs
+    assert got["power_stalls"] > 0 and got["sheds"] > 0, got
+    served = {n: {r.id: r for r in e.completed}
+              for n, e in cl.engines.items()}
+    for eng in cl.engines.values():
+        assert not eng.journal.incomplete()
+    assert cl.pool.in_use == cl.table.resident
+
+    # each engine alone on the card: its completed requests, all at once
+    for name, arch, kw in CLUSTER_ENGINES:
+        cfg, params = tenants[arch]
+        alone = ContinuousBatchingEngine(cfg, params, device="cuda",
+                                         page_size=CLUSTER["page_size"], **kw)
+        for r in served[name].values():
+            assert alone.submit(Request(r.id, r.prompt, r.max_new_tokens,
+                                        sampling=r.sampling))
+        alone.run_until_idle()
+        for r in alone.completed:
+            assert r.tokens == served[name][r.id].tokens, (name, r.id)
+    del alone
+    paged_per_step = launches / st["steps"]
+    prof_wall = statistics.mean(p[0] for p in prof)
+    prof_busy = statistics.mean(p[1] for p in prof)
+    prof_launches = statistics.mean(p[2] for p in prof)
+    print(f"cluster on {card}: {st['steps']} cluster steps, "
+          f"{sum(len(v) for v in served.values())} of 96 requests served "
+          f"({st['sheds']} shed, {st['slo_preempts']} SLO preemptions, "
+          f"{st['power_stalls']} power stalls, awake banks at most "
+          f"{high[0]} of budget {budget}), one-token steps {token_steps}, "
+          f"equal to the smoke twins' counts, report and metrics "
+          f"(TTFT p50/p99 {summary['ttft_p50']:.2f}/{summary['ttft_p99']:.2f},"
+          f" attainment {summary['slo_attainment']:.4f}); paged launches "
+          f"{launches} = sum of layers x one-token steps; every request's "
+          f"tokens equal its engine's alone; {len(errs)} paged calls of one "
+          f"step (D 64 and D 120) held to the plain version, max abs err "
+          f"{max(e for _, _, e in errs):.3e}; counters zero and the pool "
+          f"conserved after every step", flush=True)
+    print(f"cluster step on {card}: {statistics.median(wall_ms):.3f} ms "
+          f"(median of {len(wall_ms)}), {paged_per_step:.1f} paged launches a "
+          f"step, {wall:.1f} s in all; 3 profiled steps with every tenant "
+          f"busy: {prof_wall:.3f} ms a step, device busy {prof_busy:.3f} ms "
+          f"({100 * prof_busy / prof_wall:.1f}%), {prof_launches:.0f} "
+          f"launches a step", flush=True)
+
+    # the same trace under faults, the danube engine crashed and rebuilt
+    mem = {}
+
+    def watch(cl, n, step):
+        if n == CLUSTER_CHAOS["crash_at"] - 1:
+            mem["engine"] = cl.engines["danube"]
+        out = step()
+        if n == CLUSTER_CHAOS["crash_at"] - 1:
+            torch.cuda.synchronize()
+            mem["before"] = torch.cuda.memory_allocated()
+        if n == CLUSTER_CHAOS["crash_at"]:
+            torch.cuda.synchronize()
+            mem["after"] = torch.cuda.memory_allocated()
+            new = cl.engines["danube"]
+            assert new is not mem["engine"]
+            assert new.params is mem["engine"].params
+            assert new._arena is mem["engine"]._arena
+        return out
+
+    faulted, frep, fsum = cluster_serve(tenants, "cuda", faults=True,
+                                        on_step=watch)
+    fgot = cluster_counts(faulted, frep, fsum)
+    assert fgot == want_chaos, (fgot, want_chaos)
+    assert fgot["faults"]["crashes"] == fgot["faults"]["rebuilds"] == 1
+    both = 0
+    for name, eng in faulted.engines.items():
+        assert not eng.journal.incomplete()
+        ids = [r.id for r in eng.completed]
+        assert len(ids) == len(set(ids))
+        for r in eng.completed:
+            if r.id in served[name]:
+                assert r.tokens == served[name][r.id].tokens, (name, r.id)
+                both += 1
+    assert faulted.pool.in_use == faulted.table.resident
+    assert sum(faulted.pool.owners().values()) == faulted.pool.in_use
+    grew = mem["after"] - mem["before"]
+    assert grew < 64 << 20, mem
+    print(f"cluster under faults on {card}: {fgot['faults']}; {both} "
+          f"requests completed in both runs, tokens equal bit for bit; "
+          f"journals drained, the pool's references reconciled; the rebuilt "
+          f"danube engine on the same arena and parameter tensors, device "
+          f"memory {mem['before'] / 2**30:.3f} GiB before the crash, "
+          f"{mem['after'] / 2**30:.3f} GiB after the rebuild's first step "
+          f"({grew / 2**20:+.1f} MiB)", flush=True)
+    del cl, faulted, tenants
+    return launches
+
+
 def argmax_tie(torch) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -3795,6 +4412,12 @@ def main() -> int:
     small_lane_reference_phase(torch, np)
     torch.cuda.empty_cache()
     by_path = {"serve engine, greedy, sync": launched}
+    by_path["window engine, h2o-danube3-4b (4 of 24 layers)"] = window_phase(
+        torch, np, kernel, ref, card)
+    torch.cuda.empty_cache()
+    by_path["cluster, granite-3-2b x 2 + h2o-danube3-4b"] = cluster_phase(
+        torch, np, kernel, ref, card)
+    torch.cuda.empty_cache()
     by_path.update(sampled_engine_phase(torch, np, kernel, greedy, card))
     paged["launches"] = sum(by_path.values())
     paged["launches_by_path"] = by_path

@@ -1,8 +1,19 @@
-"""The serving engine's durability layer: per-request write-ahead records.
+"""Fault-tolerance runtime: the watchdog and the serving engine's journals.
 
-Port of ``SlotRecord`` and ``RequestJournal`` from
-``src/repro/runtime/ft.py``, with the same records, horizon trimming,
-``size()`` and errors. Their invariants:
+Port of ``src/repro/runtime/ft.py``, host-only, with the same records,
+states, timing rules and errors:
+
+* :class:`FTController` — a tick-driven liveness state machine over
+  workers (heartbeats, straggler detection from step times, deaths by
+  heartbeat timeout or reported failure, rejoin on the next heartbeat, an
+  exponential restart backoff with a budget, elastic rescale plans,
+  straggler microbatch shares). Transport-agnostic and clock-injectable,
+  so a serving cluster drives it on a simulated clock
+  (:class:`repro_torch.serve.cluster.ServeCluster`'s watchdog: one worker
+  an engine);
+* :class:`RequestJournal` — the serving engine's write-ahead record of
+  every admitted request, and :class:`ClusterJournal`, one journal an
+  engine of a cluster. The journal's invariants:
 
 * **Replay determinism** — decode is deterministic even when stochastic:
   greedy replay is argmax, and sampled requests journal their
@@ -21,17 +32,180 @@ Port of ``SlotRecord`` and ``RequestJournal`` from
 * **In-flight records are never evicted** — ``evict`` refuses to drop a
   record whose request has not completed (that would lose replay state).
 
-The reference module's ``FTController`` (training's heartbeats, stragglers
-and elastic rescale) and ``ClusterJournal`` (one journal per engine of a
-serving cluster) come with the slices that port those.
+Training's use of the controller (elastic restore with checkpoints) comes
+with the slice that ports that.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import enum
+import math
+import statistics
+import time
+from typing import Callable
 
-__all__ = ["RequestJournal", "SlotRecord"]
+__all__ = ["ClusterJournal", "FTConfig", "FTController", "RequestJournal",
+           "SlotRecord", "WorkerInfo", "WorkerState"]
+
+
+class WorkerState(enum.Enum):
+    HEALTHY = "healthy"
+    STRAGGLING = "straggling"
+    DEAD = "dead"
+
+
+@dataclasses.dataclass
+class WorkerInfo:
+    last_heartbeat: float = 0.0
+    state: WorkerState = WorkerState.HEALTHY
+    step_times: list = dataclasses.field(default_factory=list)
+    slow_streak: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FTConfig:
+    heartbeat_timeout_s: float = 60.0
+    straggler_factor: float = 1.5      # slower than median x this => slow
+    straggler_streak: int = 3          # consecutive slow steps => flagged
+    max_restarts: int = 5
+    backoff_base_s: float = 2.0
+    window: int = 20                   # step-time history window
+
+
+class FTController:
+    def __init__(self, n_workers: int, cfg: FTConfig = FTConfig(),
+                 clock: Callable[[], float] = time.monotonic):
+        self.cfg = cfg
+        self.clock = clock
+        self.workers = {i: WorkerInfo(last_heartbeat=clock())
+                        for i in range(n_workers)}
+        self.restarts = 0
+        self.events: list[tuple[float, str]] = []
+
+    # -- membership ------------------------------------------------------
+    def add_worker(self) -> int:
+        """Register one more worker and return its id — dynamic
+        registration for controllers built before their workers exist
+        (e.g. a serving cluster adding engines after construction)."""
+        wid = max(self.workers, default=-1) + 1
+        self.workers[wid] = WorkerInfo(last_heartbeat=self.clock())
+        return wid
+
+    # -- reporting -------------------------------------------------------
+    def report_heartbeat(self, worker: int):
+        w = self.workers[worker]
+        w.last_heartbeat = self.clock()
+        if w.state is WorkerState.DEAD:
+            w.state = WorkerState.HEALTHY   # rejoin (elastic upscale)
+            self._log(f"worker {worker} rejoined")
+
+    def report_step_time(self, worker: int, seconds: float):
+        w = self.workers[worker]
+        w.step_times.append(seconds)
+        if len(w.step_times) > self.cfg.window:
+            w.step_times.pop(0)
+
+    def report_failure(self, worker: int, reason: str = "fault"):
+        """Coordinator-observed failure: declare ``worker`` dead now,
+        without waiting out the heartbeat timeout (e.g. an engine crash
+        the serving cluster detected synchronously). A later heartbeat
+        rejoins it, exactly like a timeout death."""
+        w = self.workers[worker]
+        if w.state is not WorkerState.DEAD:
+            w.state = WorkerState.DEAD
+            w.slow_streak = 0
+            self._log(f"worker {worker} declared dead ({reason})")
+
+    # -- detection --------------------------------------------------------
+    def tick(self) -> dict:
+        """Run detection; returns {'dead': [...], 'stragglers': [...]}"""
+        now = self.clock()
+        dead, stragglers = [], []
+        alive_times = [t for w in self.workers.values()
+                       if w.state is not WorkerState.DEAD
+                       for t in w.step_times[-1:]]
+        median = statistics.median(alive_times) if alive_times else None
+        for wid, w in self.workers.items():
+            if w.state is WorkerState.DEAD:
+                continue
+            if now - w.last_heartbeat > self.cfg.heartbeat_timeout_s:
+                w.state = WorkerState.DEAD
+                dead.append(wid)
+                self._log(f"worker {wid} declared dead (heartbeat timeout)")
+                continue
+            if median and w.step_times:
+                if w.step_times[-1] > self.cfg.straggler_factor * median:
+                    w.slow_streak += 1
+                else:
+                    w.slow_streak = 0
+                if w.slow_streak >= self.cfg.straggler_streak:
+                    if w.state is not WorkerState.STRAGGLING:
+                        self._log(f"worker {wid} flagged as straggler")
+                    w.state = WorkerState.STRAGGLING
+                    stragglers.append(wid)
+                elif w.state is WorkerState.STRAGGLING:
+                    w.state = WorkerState.HEALTHY
+        return {"dead": dead, "stragglers": stragglers}
+
+    # -- mitigation --------------------------------------------------------
+    def healthy_workers(self) -> list[int]:
+        return [i for i, w in self.workers.items()
+                if w.state is not WorkerState.DEAD]
+
+    def rescale_plan(self, mesh_shape: tuple[int, ...],
+                     axis: int = 0) -> tuple[int, ...] | None:
+        """Largest valid mesh after losing workers: shrink ``axis`` to the
+        biggest power-of-two of healthy workers (keeps divisibility for
+        checkpoint resharding). None if unchanged."""
+        alive = len(self.healthy_workers())
+        total = math.prod(mesh_shape)
+        if alive >= total:
+            return None
+        per_other = total // mesh_shape[axis]
+        new_axis = 1
+        while new_axis * 2 * per_other <= alive:
+            new_axis *= 2
+        new = list(mesh_shape)
+        new[axis] = new_axis
+        return tuple(new)
+
+    def microbatch_shares(self, n_microbatches: int) -> dict[int, int]:
+        """Straggler mitigation: stragglers get half-weight shares of the
+        next step's microbatches (work rerouted to healthy peers)."""
+        weights = {}
+        for wid, w in self.workers.items():
+            if w.state is WorkerState.DEAD:
+                continue
+            weights[wid] = 0.5 if w.state is WorkerState.STRAGGLING else 1.0
+        total_w = sum(weights.values())
+        shares = {wid: int(n_microbatches * wt / total_w)
+                  for wid, wt in weights.items()}
+        # distribute remainder to healthiest workers
+        rem = n_microbatches - sum(shares.values())
+        for wid in sorted(weights, key=lambda i: -weights[i]):
+            if rem <= 0:
+                break
+            shares[wid] += 1
+            rem -= 1
+        return shares
+
+    def restart_delay(self) -> float | None:
+        """Exponential-backoff restart policy; None when budget exhausted."""
+        if self.restarts >= self.cfg.max_restarts:
+            return None
+        delay = self.cfg.backoff_base_s * (2 ** self.restarts)
+        self.restarts += 1
+        return delay
+
+    def _log(self, msg: str):
+        self.events.append((self.clock(), msg))
+
+
+# ---------------------------------------------------------------------------
+# Preemption-safe slot state for the serving engine
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
@@ -294,3 +468,43 @@ class RequestJournal:
     def completed(self) -> list[SlotRecord]:
         return sorted((r for r in self._records.values() if r.completed),
                       key=lambda r: r.arrival_seq)
+
+
+class ClusterJournal:
+    """One durable root over per-engine :class:`RequestJournal` instances.
+
+    Each engine of a :class:`~repro_torch.serve.cluster.ServeCluster` journals
+    into its own ``RequestJournal`` (obtained via :meth:`journal`), keeping
+    FIFO sequence numbers and replay cross-checks engine-local — a replay
+    of model A must never be validated against model B's tokens. The
+    cluster-level views (:meth:`incomplete` / :meth:`completed`) aggregate
+    per engine name, which is what a coordinator restarts from after a
+    cluster-wide preemption. ``horizon`` is handed to every per-engine
+    journal (completed-record retention bound, see
+    :class:`RequestJournal`).
+    """
+
+    def __init__(self, horizon: int | None = None):
+        self.horizon = horizon
+        self._journals: dict[str, RequestJournal] = {}
+
+    def journal(self, engine: str) -> RequestJournal:
+        """The (created-on-first-use) journal for ``engine``."""
+        if engine not in self._journals:
+            self._journals[engine] = RequestJournal(horizon=self.horizon)
+        return self._journals[engine]
+
+    def engines(self) -> list[str]:
+        """Engine names with a journal, in registration order."""
+        return list(self._journals)
+
+    def incomplete(self) -> dict[str, list[SlotRecord]]:
+        """Engine name -> in-flight records (each list oldest-first) —
+        the cluster-wide replay set after a preemption."""
+        return {name: j.incomplete() for name, j in self._journals.items()
+                if j.incomplete()}
+
+    def completed(self) -> dict[str, list[SlotRecord]]:
+        """Engine name -> completed records, per-engine arrival order."""
+        return {name: j.completed() for name, j in self._journals.items()
+                if j.completed()}

@@ -8,9 +8,15 @@ Port of ``ContinuousBatchingEngine`` and ``Request`` from
   every occupied slot, prefilling slots feed up to ``prefill_chunk`` prompt
   tokens (clamped to the next page boundary when prefix sharing is on),
   decoding slots one token;
-* the **paged backend** (dense configs, the default for them): one global
-  KV page pool with per-slot block tables (:mod:`repro_torch.serve.paged`),
-  decoded through the hand-written paged-attention kernel on the card;
+* the **paged backend** (dense configs, sliding-window ones included: the
+  default for them): one global KV page pool with per-slot block tables
+  (:mod:`repro_torch.serve.paged`), decoded through the hand-written
+  paged-attention kernel on the card. A windowed config's block table is a
+  **ring** of ``ceil(window / page_size) + 1`` entries: the moment a page
+  falls wholly below the window it is recycled (a private page goes back to
+  the pool's free list, an adopted shared-prefix page is disowned, its
+  table residency kept), so a long windowed request holds O(window) pages,
+  and prefix adoption is clamped to the pages the window can still see;
 * the **lane backend** (every family the port decodes: the only one for
   MoE, SSM and hybrid configs, ``paged=False`` for dense ones): one lane
   of the family's decode cache a slot, ``n_lanes = max(slots,
@@ -62,6 +68,17 @@ Port of ``ContinuousBatchingEngine`` and ``Request`` from
   a metered engine's tokens, admissions and launches equal an unmetered
   one's.
 
+* **a tenant of a cluster** (:mod:`repro_torch.serve.cluster`): given a
+  shared ``pool`` and ``page_table`` the engine allocates from the
+  cluster's pool (page ids valid across engines, so a shared table keeps
+  the paged backend), ``namespace`` keys its prefix pages, an
+  ``admission_hook`` vetoes each admission (``True`` admit, ``False`` skip
+  the slot, ``None`` stop the scan, :data:`SHED` drop the queue head),
+  ``reclaim`` replaces ``pages.clear()`` under pool pressure, and ``chaos``
+  (a :class:`~repro_torch.serve.chaos.FaultPlan`) injects faults before
+  every launch and into every retired token. :meth:`occupancy` and
+  :meth:`step_cost` are what a scheduler arbitrates on.
+
 Engine invariants (as the reference's): FIFO admission, with preemption
 requeueing in-flight work at the front in the same order; refcounts never
 negative; replay determinism (sync ≡ async, paged ≡ lanes, chunked ≡
@@ -71,11 +88,9 @@ unchunked, preempted ≡ undisturbed, bit for bit, greedy and sampled).
 (the reference's ``build_sharded_serve`` without a mesh), which serves the
 dense, MoE, hybrid and SSM families.
 
-Later slices port the rest of the reference engine: tensor parallelism, a
-shared external pool or page table, the cluster's admission hook and
-reclaim, fault injection, and sliding-window page recycling on the paged
-backend. Passing a constructor argument of those features with a
-non-default value raises ``NotImplementedError``.
+A later slice ports the reference engine's tensor parallelism: passing
+``mesh`` or ``tp_axis`` with a non-default value raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -100,34 +115,44 @@ from repro_torch.serve.pages import PageTable
 from repro_torch.serve.sampling import GREEDY, SamplingParams
 from repro_torch.sharding.params import tree_leaves
 
-# constructor arguments of the reference engine that later slices port,
-# with the value that leaves each feature off
-_LATER_SLICES = {
-    "page_table": None, "pool": None, "admission_hook": None,
-    "reclaim": None, "chaos": None, "mesh": None, "tp_axis": "model",
-}
+# constructor arguments of the reference engine that a later slice ports
+# (tensor parallelism), with the value that leaves the feature off
+_LATER_SLICES = {"mesh": None, "tp_axis": "model"}
 
 COMPLETE_LINE = "serve.complete"     # interrupt line raised per finished request
 ADMIT_LINE = "serve.admit"           # raised per slot admission
+
+# Admission-hook verdict telling the engine to drop the queue head outright
+# (latency-SLO admission control: the request can no longer meet its SLO).
+# Distinct from False (skip this slot) and None (stop the admission scan);
+# see ``ContinuousBatchingEngine._place``.
+SHED = object()
 
 
 @dataclasses.dataclass
 class Request:
     """One generation request. ``tokens`` is filled in by the engine.
 
-    ``sampling`` (optional) selects stochastic decoding
+    ``slo`` (optional) is a latency target the scheduler and the metrics
+    layer read (:class:`repro_torch.serve.metrics.SLO`); the engine never
+    interprets it. ``sampling`` (optional) selects stochastic decoding
     (:class:`~repro_torch.serve.sampling.SamplingParams`); ``None`` means
     greedy, and rides through preemption untouched, so a replayed admission
     re-seeds the identical chain. ``first_token_time`` stamps the retire of
-    the first generated token. ``energy_uj`` accumulates the joules a
-    metered engine attributes to the request (prefill/decode work, held KV
-    pages, retention; replay after a preemption is charged on top).
+    the first generated token (TTFT is that minus ``arrival_time``).
+    ``slo_preempts`` counts the scheduler's preempt-and-requeue demotions.
+    ``energy_uj`` accumulates the joules a metered engine attributes to the
+    request (prefill/decode work, held KV pages, retention; replay after a
+    preemption is charged on top); ``energy_cap_uj_per_token`` is a tenant
+    cap the cluster's energy-aware admission compares against the engine's
+    projected marginal cost.
     """
 
     id: str
     prompt: Sequence[int]
     max_new_tokens: int
     on_complete: Callable[["Request"], None] | None = None
+    slo: Any = None
     sampling: SamplingParams | None = None
     # engine-written bookkeeping
     tokens: list = dataclasses.field(default_factory=list)
@@ -135,7 +160,9 @@ class Request:
     admit_time: float | None = None
     first_token_time: float | None = None
     finish_time: float | None = None
+    slo_preempts: int = 0
     energy_uj: float = 0.0
+    energy_cap_uj_per_token: float | None = None
 
     def __post_init__(self):
         self.prompt = tuple(int(t) for t in self.prompt)
@@ -333,11 +360,21 @@ class ContinuousBatchingEngine:
     shared.
 
     ``paged=None`` picks the paged backend where the config can page (the
-    dense family without a sliding window, which the paged backend does
-    not serve yet) and lanes otherwise; ``paged=False`` forces lanes, and
-    ``paged=True`` raises for a config that cannot page. ``lane_batch`` and
-    ``device_len`` pad the device shapes (lanes or block tables, and cache
-    positions) past ``slots`` and ``max_len``; the extra lanes ride idle.
+    dense family, sliding-window configs on ring block tables) and lanes
+    otherwise (and for an external ``page_table`` without a shared
+    ``pool``, whose payloads are then lane snapshots); ``paged=False``
+    forces lanes, and ``paged=True`` raises for a config that cannot page.
+    ``lane_batch`` and ``device_len`` pad the device shapes (lanes or block
+    tables, and cache positions) past ``slots`` and ``max_len``; the extra
+    lanes ride idle. A windowed config's window is clamped to
+    ``device_len`` (as the lane ring cache clamps it), and its private pool
+    holds ``slots * (ceil(window / page_size) + 1)`` pages plus the page
+    table's capacity.
+
+    ``pool`` and ``page_table`` make the engine one tenant of a cluster
+    (see the module docstring), with ``namespace``, ``name`` (its pages'
+    owner tag and the scope of its fault draws), ``admission_hook``,
+    ``reclaim`` and ``chaos``.
 
     ``async_dispatch`` launches each step before the previous one retires
     (see the module docstring); the tokens are the same bits either way.
@@ -363,12 +400,15 @@ class ContinuousBatchingEngine:
                  journal: RequestJournal | None = None,
                  pad_token: int = 0, prefill_chunk: int = 1,
                  page_size: int | None = None,
+                 page_table: PageTable | None = None,
                  page_capacity: int | None = None,
                  paged: bool | None = None, async_dispatch: bool = False,
                  lane_batch: int | None = None,
-                 device_len: int | None = None, namespace: str = "",
-                 name: str | None = None,
-                 journal_horizon: int | None = None, metered: bool = True,
+                 device_len: int | None = None,
+                 pool: PagePool | None = None, namespace: str = "",
+                 name: str | None = None, admission_hook=None, reclaim=None,
+                 chaos=None, journal_horizon: int | None = None,
+                 metered: bool = True,
                  operating_point: str = "max", gate_idle_banks: bool = True,
                  **later_slices):
         for arg, value in later_slices.items():
@@ -382,18 +422,29 @@ class ContinuousBatchingEngine:
             raise ValueError("max_len must fit a prompt token plus one output")
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
-        can_page = registry.supports_paged(cfg)
+        # a shared external table is paged territory only when its payloads
+        # are pool ids valid across engines, i.e. the pool is shared too;
+        # otherwise it holds lane snapshots and the lane backend serves
+        if pool is not None and not registry.supports_paged(cfg):
+            raise ValueError(
+                f"{cfg.name} ({cfg.family}) cannot join a shared page pool: "
+                "no paged KV decode for this family")
+        can_page = registry.supports_paged(cfg) and (
+            page_table is None or pool is not None)
         if paged is None:
             paged = can_page
-        elif paged and not can_page:
+        elif paged and not registry.supports_paged(cfg):
             raise NotImplementedError(
                 f"{cfg.name} ({cfg.family}): no paged KV decode for this "
                 "family (MoE routes each lane on its own); it is served on "
                 "lanes")
-        if paged and cfg.sliding_window:
-            raise NotImplementedError(
-                f"{cfg.name}: sliding-window page recycling is not yet "
-                "ported; paged=False serves it on lanes")
+        elif paged and not can_page:
+            raise ValueError(
+                "paged backend needs either an engine-private page table or "
+                "a shared (cluster-owned) pool")
+        if pool is not None and not paged:
+            raise ValueError("a shared pool is a paged-backend resource; "
+                             "drop it or drop paged=False")
         self.paged = paged
         self.cfg = cfg
         self.device = device_mod.resolve(device)
@@ -416,18 +467,42 @@ class ContinuousBatchingEngine:
         self.async_dispatch = async_dispatch
         self.namespace = namespace
         self.name = name if name is not None else (namespace or "engine")
+        # fault injection (a chaos.FaultPlan or None): drawn before every
+        # launch (may raise a retryable DeviceStepFault) and on every
+        # retired token (may corrupt the value the host receives)
+        self.chaos = chaos
+        # scheduler callbacks (a ServeCluster's): ``admission_hook`` vetoes
+        # each admission, ``reclaim`` replaces pages.clear() under pool
+        # pressure with a cross-tenant policy
+        self._admission_hook = admission_hook
+        self._reclaim = reclaim
 
-        self._ps = page_size or 16
-        self._np_slot = -(-self.device_len // self._ps)
+        self._ps = (pool.page_size if pool is not None else page_size) or 16
+        np_max = -(-self.device_len // self._ps)
+        # a windowed config's ring modulus is the lane ring cache's length,
+        # min(window, device_len), and a slot's block table is a ring of
+        # ceil(window / ps) + 1 entries: by the time an entry is reused its
+        # old block lies wholly below the window
+        if cfg.sliding_window:
+            self._window: int | None = min(cfg.sliding_window,
+                                           self.device_len)
+            self._np_slot = min(np_max, -(-self._window // self._ps) + 1)
+        else:
+            self._window = None
+            self._np_slot = np_max
         cap = page_capacity if page_capacity is not None else 16 * slots
-        self._pool: PagePool | None = None
-        self.pages: PageTable | None = None
+        self.owns_pool = pool is None
+        self._pool: PagePool | None = pool
         if paged:
-            self._pool = PagePool(
-                slots * self._np_slot + (cap if page_size else 0), self._ps)
+            if self._pool is None:
+                # O(window) pages a slot for a windowed config, the ring
+                # bound being the private pool's budget
+                self._pool = PagePool(
+                    slots * self._np_slot + (cap if page_size else 0),
+                    self._ps)
             self._arena = self._pool.arena(cfg, self.device)
-            self._pstep = paged_step_fn(cfg)
-            self._pchunk = (paged_chunk_fn(cfg, prefill_chunk)
+            self._pstep = paged_step_fn(cfg, self._window)
+            self._pchunk = (paged_chunk_fn(cfg, prefill_chunk, self._window)
                             if prefill_chunk > 1 else None)
         else:
             # one lane a device slot, each a copy of the family's batch-1
@@ -441,10 +516,16 @@ class ContinuousBatchingEngine:
                                               self.device_len,
                                               device=self.device, lanes=True)
         self._dirty: set[int] = set()          # lanes holding a dead state
-        if page_size:
+        self.pages: PageTable | None = page_table
+        if page_table is None and page_size:
             self.pages = PageTable(
                 page_size, capacity_pages=cap, platform=self.platform,
                 on_evict=self._pool.release if paged else None)
+        if paged and self.pages is not None and self.pages.page_size != self._ps:
+            raise ValueError(
+                f"page table page_size {self.pages.page_size} != pool page "
+                f"size {self._ps}: paged payloads are pool pages, the two "
+                "extents must coincide")
 
         self.queue: collections.deque[Request] = collections.deque()
         self._ids: set[str] = set()            # every id ever submitted
@@ -468,11 +549,14 @@ class ContinuousBatchingEngine:
         self.prompt_tokens_processed = 0
         self.prompt_tokens_reused = 0
         self.stalls = 0                        # lane-steps waiting on a sibling
+        self.admission_stalls = 0              # admissions vetoed by the hook
         self.rematches = 0                     # mid-flight prefix adoptions
         self.rematched_tokens = 0              # prompt tokens adopted mid-flight
+        self.pages_recycled = 0                # ring entries reused (windowed)
         self.sampled_requests = 0              # admissions with sampling on
         self.completed: list[Request] = []
         self.rejected = 0
+        self.shed = 0                          # queue heads dropped by the hook
         self.token_faults = 0                  # corrupted tokens refused
         self.replays = 0                       # quarantine-driven requeues
         # corruption quarantine: slots whose retired token failed the
@@ -529,7 +613,37 @@ class ContinuousBatchingEngine:
     def _admit(self) -> None:
         free = [i for i in range(self.n_slots) if self.slots[i] is None]
         while self.queue and free:
-            self._admit_into(free.pop(0), self.queue.popleft())   # FIFO
+            i = self._place(free)
+            if i is SHED:
+                # latency-SLO admission control: the head can no longer
+                # meet its SLO, so the scheduler drops it
+                self.queue.popleft()
+                self.shed += 1
+                continue
+            if i is None:
+                break        # head unplaceable: FIFO forbids skipping it
+            free.remove(i)
+            self._admit_into(i, self.queue.popleft())   # FIFO
+
+    def _place(self, free: list[int]):
+        """First free slot the scheduler lets the queue head into (None:
+        stalled this step). The hook peeks, never pops, so a veto leaves
+        the request at the head. False vetoes one slot (a later free slot
+        may sit on an awake bank and admit the head at no budget cost);
+        None ends the scan; :data:`SHED` tells :meth:`_admit` to drop the
+        head."""
+        if self._admission_hook is None:
+            return free[0]
+        for i in free:
+            verdict = self._admission_hook(self, i, self.queue[0])
+            if verdict is SHED:
+                return SHED
+            if verdict:
+                return i
+            self.admission_stalls += 1
+            if verdict is None:
+                return None
+        return None
 
     def _admit_into(self, i: int, req: Request) -> None:
         """Bind ``req`` to free slot ``i``: adopt a resident prefix chain
@@ -563,13 +677,29 @@ class ContinuousBatchingEngine:
         slot = _Slot(request=req, seq=rec.arrival_seq)
         if match is not None:
             slot.fed = match.tokens_matched
-            slot.page_keys = match.keys
             if self.paged:
-                for b, idx in enumerate(match.chain):
+                # window clamp: chain pages wholly below the window the slot
+                # will ever attend from (positions < fed + 1 - window) are
+                # never read; their tokens count as reused, but the slot
+                # neither pins them in the pool nor keeps them in the table
+                first_needed = 0
+                if self._window is not None:
+                    first_needed = max(
+                        0, slot.fed + 1 - self._window) // self._ps
+                kept = []
+                for b, (key, idx) in enumerate(zip(match.keys, match.chain)):
+                    if b < first_needed:
+                        continue
                     self._pool.retain(idx)
                     slot.pages_by_block[b] = idx
+                    kept.append(key)
+                dropped = match.keys[:len(match.keys) - len(kept)]
+                if dropped:
+                    self.pages.release(dropped, self.namespace)
+                slot.page_keys = tuple(kept)
                 slot.blocks_covered = slot.fed // self._ps
             else:
+                slot.page_keys = match.keys
                 slot.pending_snapshot = match.snapshot
             self.prompt_tokens_reused += match.tokens_matched
         slot.next_token = req.prompt[slot.fed]
@@ -700,6 +830,8 @@ class ContinuousBatchingEngine:
                                 "prefill" if was_prefilling else "decode",
                                 c, self._page_share(slot)))
             slot.fed += c
+            if self.paged:
+                self._recycle_dead(slot)   # window crossed: free dead blocks
             if was_prefilling:
                 self.prompt_tokens_processed += c
                 self._maybe_publish(i, slot)
@@ -725,7 +857,12 @@ class ContinuousBatchingEngine:
         per lane, the exact argmax for greedy lanes) and advances the
         lanes' keys. The sampling parameters go in as copies of the
         engine's arrays, which admission may rewrite while the launch is in
-        flight."""
+        flight. A fault plan's draw comes first, before anything reaches
+        the device: a ``DeviceStepFault`` leaves device and host state as
+        they were, so the step can be retried (page allocation above it
+        resumes where it stopped)."""
+        if self.chaos is not None:
+            self.chaos.launch(self.name)
         prev = self._prev_nxt
         temp, tk, tp = self._temp.copy(), self._topk.copy(), self._topp.copy()
         if not self.paged:
@@ -784,6 +921,8 @@ class ContinuousBatchingEngine:
             if id(slot) in self._skip_retire:
                 continue
             tok = int(vals[i])
+            if self.chaos is not None:
+                tok = self.chaos.deliver_token(self.name, tok)
             ok = 0 <= tok < self.cfg.vocab
             if ok:
                 try:
@@ -862,43 +1001,100 @@ class ContinuousBatchingEngine:
             if slot is None:
                 continue
             for b, idx in slot.pages_by_block.items():
-                t[i, b] = idx
+                t[i, b % self._np_slot] = idx
             lengths[i] = slot.fed
         return t, lengths
 
     def _ensure_pages(self, slot: _Slot, target: int) -> None:
-        """Grow the slot's block table to cover positions [0, target)."""
+        """Grow the slot's block table to cover positions [0, target).
+
+        Windowed configs: the table is a ring, so covering a new block
+        first recycles whatever older block holds its entry (by then that
+        block lies wholly below the window), and a slot never holds more
+        than ``ceil(window / page_size) + 1`` pages. An allocation that
+        raises (a fault plan's ``AllocFault``) leaves the slot covering
+        what it covered, so the step can be retried."""
         need = -(-target // self._ps)
         while slot.blocks_covered < need:
-            if not self._pool.free_count and self.pages is not None:
-                self.pages.clear()         # recycle unpinned shared residency
-            slot.pages_by_block[slot.blocks_covered] = self._pool.alloc(self.name)
-            slot.blocks_covered += 1
+            b = slot.blocks_covered
+            self._free_entry(slot, b)
+            if not self._pool.free_count:
+                if self._reclaim is not None:
+                    self._reclaim(self)    # cluster: fair cross-tenant evict
+                elif self.pages is not None:
+                    self.pages.clear()     # recycle unpinned shared residency
+            slot.pages_by_block[b] = self._pool.alloc(self.name)
+            slot.blocks_covered = b + 1
+
+    def _free_entry(self, slot: _Slot, b: int) -> None:
+        """Ring recycling's backstop: recycle whatever older block holds
+        block ``b``'s table entry. Eager recycling (:meth:`_recycle_dead`)
+        frees dead blocks the moment they fall out of the window, so this
+        fires only where an entry's reuse comes first (a re-match's jump
+        landing on an entry whose old block is still in the window). A
+        full-width table never puts two blocks on one entry."""
+        if self._window is None:
+            return
+        width = self._np_slot
+        for b_old in [o for o in slot.pages_by_block
+                      if o % width == b % width and o != b]:
+            self._recycle_block(slot, b_old)
+
+    def _recycle_dead(self, slot: _Slot) -> None:
+        """Eager window recycling: free (or disown) every block whose
+        positions lie wholly below the slot's window the moment ``fed``
+        crosses its boundary, so a slot that then stalls holds no dead
+        pages while its peers draw on the shared free list."""
+        if self._window is None or not slot.pages_by_block:
+            return
+        first_needed = max(0, slot.fed + 1 - self._window) // self._ps
+        for b_old in [b for b in slot.pages_by_block if b < first_needed]:
+            self._recycle_block(slot, b_old)
+
+    def _recycle_block(self, slot: _Slot, b_old: int) -> None:
+        """Release one out-of-window block: a private page returns to the
+        pool's free list; an adopted shared-prefix page is *disowned* (the
+        slot's pool reference and table pin released, the table's own
+        residency keeping the page for later admissions)."""
+        self._pool.release(slot.pages_by_block.pop(b_old))
+        key = slot.request.prompt[:(b_old + 1) * self._ps]
+        if key in slot.page_keys:
+            self.pages.release((key,), self.namespace)
+            slot.page_keys = tuple(k for k in slot.page_keys if k != key)
+        self.pages_recycled += 1
+        self.journal.note_recycle(slot.request.id, 1)
 
     def _try_rematch(self, slot: _Slot) -> None:
         """Mid-flight prefix re-match: adopt a sibling's freshly published
         pages covering tokens this slot has not computed yet. Pure
         block-table surgery: a partly written private page in the adopted
         range is released (its positions hold what the shared page holds,
-        since both ran the same prompt prefix)."""
+        since both ran the same prompt prefix). A windowed slot adopts only
+        the blocks its window can still see after the jump; the blocks below
+        count as reused and are never pinned."""
         prompt = slot.request.prompt
         m = self.pages.lookup(prompt, self.namespace)
         if m <= slot.fed:
             return
-        ext = self.pages.acquire_range(prompt, slot.fed // self._ps,
-                                       m // self._ps, self.namespace)
+        from_block = slot.fed // self._ps
+        if self._window is not None:
+            from_block = max(from_block, (m + 1 - self._window) // self._ps)
+        ext = self.pages.acquire_range(prompt, from_block, m // self._ps,
+                                       self.namespace)
         if not ext:
             return
         adopted = m - slot.fed
         for key, idx in ext:
             self._pool.retain(idx)
             b = len(key) // self._ps - 1
+            self._free_entry(slot, b)      # ring: evict the entry's old block
             if b in slot.pages_by_block:
                 self._pool.release(slot.pages_by_block[b])
             slot.pages_by_block[b] = idx
         slot.page_keys += tuple(k for k, _ in ext)
         slot.blocks_covered = max(slot.blocks_covered, m // self._ps)
         slot.fed = m
+        self._recycle_dead(slot)           # the jump may strand dead blocks
         slot.next_token = prompt[m]
         self.prompt_tokens_reused += adopted
         self.rematches += 1
@@ -1132,6 +1328,36 @@ class ContinuousBatchingEngine:
             self._replay_counts.pop(req.id, None)
         return done
 
+    def occupancy(self) -> dict:
+        """Point-in-time load for a scheduler: slot and queue occupancy,
+        and this engine's slice of the (possibly shared) page pool."""
+        out = {
+            "slots": self.n_slots,
+            "active": self.active,
+            "slots_free": self.n_slots - self.active,
+            "queued": len(self.queue),
+        }
+        if self._pool is not None:
+            out.update(pool_free=self._pool.free_count,
+                       pool_in_use=self._pool.in_use,
+                       pool_pages_held=self._pool.in_use_by(self.name))
+        return out
+
+    def step_cost(self) -> int:
+        """Tokens the next :meth:`step` would feed the device (one a
+        decoding lane, up to ``prefill_chunk`` a prefilling one): the cost
+        a cluster's deficit round-robin weighs admissions with."""
+        cost = 0
+        for slot in self.slots:
+            if slot is None:
+                continue
+            if slot.prefilling:
+                cost += min(self.prefill_chunk,
+                            len(slot.request.prompt) - slot.fed)
+            else:
+                cost += 1
+        return cost
+
     def stats(self) -> dict:
         """Lifetime counters (monotone), plus the meter's joules (``energy``,
         when metered) and page-table and pool stats.
@@ -1149,13 +1375,17 @@ class ContinuousBatchingEngine:
             "prefill_chunk": self.prefill_chunk,
             "backend": "paged" if self.paged else "lanes",
             "async_dispatch": self.async_dispatch,
+            "window": self._window,
             "table_entries_per_slot": self._np_slot if self.paged else None,
+            "pages_recycled": self.pages_recycled,
             "stalls": self.stalls,
+            "admission_stalls": self.admission_stalls,
             "rematches": self.rematches,
             "rematched_tokens": self.rematched_tokens,
             "completed": len(self.completed),
             "sampled_requests": self.sampled_requests,
             "rejected": self.rejected,
+            "shed": self.shed,
             "token_faults": self.token_faults,
             "replays": self.replays,
             "queued": len(self.queue),
@@ -1173,5 +1403,8 @@ class ContinuousBatchingEngine:
                                pages=self._pool.n_pages,
                                in_use=self._pool.in_use,
                                free=self._pool.free_count,
-                               held_by_engine=self._pool.in_use_by(self.name))
+                               occupancy=round(
+                                   self._pool.in_use / self._pool.n_pages, 4),
+                               held_by_engine=self._pool.in_use_by(self.name),
+                               shared=not self.owns_pool)
         return out

@@ -7,6 +7,12 @@ table, reached per step through per-slot *block tables*. The allocator
 the device storage lives in per-cache-signature *arenas* created lazily by
 :meth:`PagePool.arena` as torch tensors on the engine's device.
 
+The pool is a *cluster-ownable* resource (:mod:`repro_torch.serve.cluster`):
+it hands out **globally valid page ids** from one id space, and engines
+serving configs of one cache signature on one device share one arena, so a
+page published by one engine is readable by every other through the shared
+ids. Engines of other signatures share only the id space and the budget.
+
 Invariants (as in the reference):
 
 * **Pool refcounts never go negative.** Every page id handed out by
@@ -17,6 +23,9 @@ Invariants (as in the reference):
 * **The null page is write-never and release-never.** Row ``null`` pads
   unused block-table entries; attention never reads a position there that
   it uses, and the allocator refuses to ``retain``/``release`` it.
+* **One id space, many arenas.** ``alloc`` draws from a single free list
+  whichever arena the page's bytes land in, so the pool is one shared
+  budget; per-tenant ``in_use_by`` accounting lets a scheduler arbitrate it.
 
 The step functions are plain functions. They write the arena **in place**
 (the reference donates its buffers and gets new ones back) and return the
@@ -63,7 +72,10 @@ class PagePool:
     ``alloc()`` hands out a page id with one reference; ``retain`` /
     ``release`` follow the shared-bank discipline. :meth:`arena` gives the
     (k, v) tensors for a config's cache signature on a device; every arena
-    spans the whole id space.
+    spans the whole id space. ``fault_hook`` (fault injection, default
+    None) is called with the owner tag at the top of every :meth:`alloc`
+    and may raise (:class:`repro_torch.serve.chaos.AllocFault`), leaving
+    the pool untouched.
     """
 
     def __init__(self, n_pages: int, page_size: int):
@@ -78,6 +90,7 @@ class PagePool:
         self._owner: dict[int, str | None] = {}
         self._by_owner: dict[str | None, int] = {}
         self.stats = {"allocated": 0, "freed": 0, "high_water": 0}
+        self.fault_hook = None
 
     def arena(self, cfg: ModelConfig, device: torch.device) -> PoolArena:
         """Device arena for ``cfg``'s cache signature on ``device``, created
@@ -90,6 +103,16 @@ class PagePool:
             self._arenas[sig] = PoolArena(k, v)
         return self._arenas[sig]
 
+    def bytes_by_device(self) -> dict[str, int]:
+        """KV bytes resident per device, summed over every arena (k and v),
+        keyed by the device's name (``"cuda:0"``, ``"cpu"``)."""
+        out: dict[str, int] = {}
+        for arena in self._arenas.values():
+            for t in (arena.k, arena.v):
+                dev = str(t.device)
+                out[dev] = out.get(dev, 0) + t.numel() * t.element_size()
+        return out
+
     def _check(self, idx: int) -> None:
         if not 0 <= idx < self.n_pages:
             raise ValueError(
@@ -98,7 +121,11 @@ class PagePool:
 
     def alloc(self, owner: str | None = None) -> int:
         """Take a free page (one reference held by the caller), tagged with
-        ``owner`` for per-tenant accounting until it is recycled."""
+        ``owner`` for per-tenant accounting until it is recycled. A
+        ``fault_hook`` runs first and may raise; the pool is then untouched,
+        so the caller's allocation loop can be retried."""
+        if self.fault_hook is not None:
+            self.fault_hook(owner)
         if not self._free:
             raise RuntimeError(
                 f"page pool exhausted ({self.n_pages} pages, all referenced)")
@@ -141,6 +168,12 @@ class PagePool:
         """Pages available for allocation."""
         return len(self._free)
 
+    @property
+    def device_pages(self) -> int:
+        """Device pages materialised: every arena carries the whole id space
+        plus the null row, so ``arenas x (n_pages + 1)``."""
+        return len(self._arenas) * (self.n_pages + 1)
+
     def refcounts(self) -> dict[int, int]:
         """Live page id -> reference count (the energy meter's page shares,
         tests)."""
@@ -151,6 +184,11 @@ class PagePool:
         page stays charged to the tenant that allocated it until its final
         release)."""
         return self._by_owner.get(owner, 0)
+
+    def owners(self) -> dict[str | None, int]:
+        """Tenant tag -> live page count (alloc-origin, see
+        :meth:`in_use_by`); the counts sum to :attr:`in_use`."""
+        return dict(self._by_owner)
 
 
 def to_device(x, dev: torch.device) -> torch.Tensor:

@@ -16,9 +16,12 @@ weights and a seeded shared-prefix trace:
   request served alone;
 * the constructor's validation, backpressure, the backend choice (the
   lane backend's own tests are in ``tests/test_torch_lanes.py``), the
-  features later slices port, which raise ``NotImplementedError``, and
-  those this one brought (async dispatch, the journal, sampled requests:
-  their own tests are in ``tests/test_torch_async.py``).
+  feature a later slice ports (tensor parallelism), which raises
+  ``NotImplementedError``, and those earlier slices brought (async
+  dispatch, the journal, sampled requests: ``tests/test_torch_async.py``;
+  a shared pool and table, the scheduler's hooks, fault injection and
+  windowed configs on the paged backend: ``tests/test_torch_cluster.py``,
+  ``tests/test_torch_chaos.py``, ``tests/test_torch_window.py``).
 """
 
 import dataclasses
@@ -207,10 +210,7 @@ def test_later_slices_raise_not_implemented(model):
     assert eng.journal is journal and eng.stats()["async_dispatch"]
     assert ContinuousBatchingEngine(
         cfg, params, journal_horizon=8, **kw).journal.horizon == 8
-    for arg, value in [("chaos", object()), ("page_table", object()),
-                       ("pool", object()), ("admission_hook", object()),
-                       ("reclaim", object()), ("mesh", object()),
-                       ("tp_axis", "x")]:
+    for arg, value in [("mesh", object()), ("tp_axis", "x")]:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ContinuousBatchingEngine(cfg, params, **{arg: value}, **kw)
     with pytest.raises(TypeError):
@@ -218,9 +218,26 @@ def test_later_slices_raise_not_implemented(model):
     moe = configs.smoke("grok_1_314b")
     with pytest.raises(NotImplementedError, match="no paged KV decode"):
         ContinuousBatchingEngine(moe, params, paged=True, **kw)
+    # the scheduler's surface is ported: a shared pool and table, the
+    # admission hook, reclaim and a fault plan are accepted
+    from repro_torch.serve.chaos import FaultPlan, FaultSpec
+    from repro_torch.serve.paged import PagePool
+    from repro_torch.serve.pages import PageTable
+    pool, table = PagePool(32, PS), PageTable(PS, capacity_pages=32)
+    tenant = ContinuousBatchingEngine(
+        cfg, params, pool=pool, page_table=table, namespace="g",
+        admission_hook=lambda *a: True, reclaim=lambda e: None,
+        chaos=FaultPlan(0, FaultSpec()), **kw)
+    assert tenant.stats()["backend"] == "paged" and tenant._pool is pool
+    assert tenant.stats()["pool"]["shared"]
+    with pytest.raises(ValueError, match="shared pool"):
+        ContinuousBatchingEngine(cfg, params, pool=pool, paged=False, **kw)
+    # a windowed config is served on the paged backend (ring tables), and
+    # on lanes when asked
     swa = dataclasses.replace(cfg, sliding_window=16)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        ContinuousBatchingEngine(swa, params, **kw)
+    ring = ContinuousBatchingEngine(swa, params, **kw).stats()
+    assert (ring["backend"], ring["window"]) == ("paged", 16)
+    assert ring["table_entries_per_slot"] == -(-16 // 16) + 1
     assert ContinuousBatchingEngine(swa, params, paged=False,
                                     **kw).stats()["backend"] == "lanes"
     # sampled decoding is ported: a sampled request is served

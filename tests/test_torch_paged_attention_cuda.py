@@ -2,8 +2,8 @@
 the edges of the design (single-split and merged slots in one call, one
 slot at 4096 positions, G 1 to 16, every load width, rings whose window is
 not a multiple of the page size, page ids outside the pool in unused
-entries, a slot of length 0), each in all four dtype pairs, and the
-reference's cases. Every test skips without a card.
+entries, a slot of length 0, h2o-danube3-4b's windowed decode shape with
+D 120), each in all four dtype pairs, and the reference's cases. Every test skips without a card.
 
 This file imports no JAX, so that it also runs on the card's machine:
 ``python -m pytest -q tests/test_torch_paged_attention_cuda.py``. The cases

@@ -11,7 +11,14 @@ on the smoke config of the same family, on the CPU (prompt tokens taken
 modulo the smoke vocabulary), and prints the counts the card's runs must
 give: the granite paged trace greedy, mixed sync, mixed async and mixed
 async preempted at engine steps 12 and 40; grok-1's lane trace greedy and
-mixed. Takes about a minute.
+mixed; the window phase's trace (h2o-danube3's smoke config with the full
+config's 4096-token window, ring tables of 257 entries); and the cluster
+phase's open-loop trace (granite twice and h2o-danube3, the window set to
+the full config's) plain and under its fault plan with the danube engine
+crashed and rebuilt. ``chip_smoke.py``'s window and cluster phases compute
+the same counts the same way before they run the card and hold the card
+to them. Takes a few minutes; ``--only window`` or ``--only cluster``
+prints one phase.
 """
 
 from __future__ import annotations
@@ -43,7 +50,12 @@ def serve(cfg, params, reqs, mixed, cuts=(), **kw):
     return {k: st[k] for k in KEYS} | ({"requeued": requeued} if cuts else {})
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("engine", "window", "cluster"))
+    only = ap.parse_args(argv).only
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs                     # puts HERE/src on the path
     import numpy as np
@@ -54,6 +66,20 @@ def main() -> int:
     from repro_torch.sharding.params import init_tree
 
     torch.set_num_threads(2)
+    if only in (None, "window"):
+        reqs = cs.window_trace(np, configs.get("h2o_danube3_4b").vocab)
+        eng = cs.window_serve(*cs.smoke_twin("h2o_danube3_4b", "cpu"), "cpu",
+                              reqs)
+        print("window trace (h2o-danube3, window 4096):",
+              cs.window_counts(eng), flush=True)
+    if only in (None, "cluster"):
+        smoke = {a: cs.smoke_twin(a, "cpu")
+                 for a in ("granite_3_2b", "h2o_danube3_4b")}
+        for label, faults in (("plain", False), ("under faults", True)):
+            print(f"cluster trace, {label}:", cs.cluster_counts(
+                *cs.cluster_serve(smoke, "cpu", faults=faults)), flush=True)
+    if only not in (None, "engine"):
+        return 0
     cfg = configs.smoke("granite_3_2b")
     params = init_tree(registry.decls(cfg), cs.SEED, "cpu")
     paged = {"slots": 8, "max_len": 160, "page_size": 16, "prefill_chunk": 16}
