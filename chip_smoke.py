@@ -45,7 +45,7 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
    at depth 40 turns a one-ulp difference into O(1) logit differences
    within a few steps, and a printed control shows the same for the plain
    path against itself perturbed by one bf16 ulp.) Keeps the greedy
-   completions for phase 27;
+   completions for phase 31;
 5. small reference: the granite smoke config (3 layers, float32) served on
    the card and on the CPU's plain path gives equal completions, after a
    check that its greedy margins are clear (and on the card metered and
@@ -127,14 +127,55 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
 16. small mamba2 reference: the mamba2 smoke config served on the card
     (through the kernel) and on the CPU's plain path: logits, caches and
     clear-margin greedy tokens agree;
-17. conv1d phase: the CUDA depthwise causal conv against its plain version
+17. backward phase: the backward kernels of the recurrent families'
+    training against their plain versions: the RG-LRU scan's on the
+    reference's cases, ragged S and W and one step, bit for bit, and
+    against float64; the flash backward at head dim 256 on the edges of its
+    tiles (``FLASH256_EDGES``) in float32 (the CUDA cores, one staging
+    tile) and bfloat16 (the tensor cores: a dV pass and a dK pass of the
+    dK/dV kernel, 32-key dQ steps), against float64; the SSD chunk scan's
+    on the forward's cases and edges, B and C per head and shared by the
+    heads, against float64 at the test's and the model's decay. Then each
+    at the shape the train phases give it (scan (1, 4096, 2560); attention
+    (1, 4096, 10, 1, 256), window 2048, bf16; SSD (2, 4096, 32, 64, 128),
+    float32 x, bf16 B and C shared), and the scan and attention also at
+    the recipe's microbatch of 2, which the card cannot train at this
+    width, held to its plain version, two calls bit for bit, timed beside
+    its plain version, its bound (for the SSD the function's own work,
+    whatever the chunk) and SDPA's backward with the window as a mask (the
+    yardstick for the attention);
+18. hybrid train phase: full-width, full-depth recurrentgemma-2b (26
+    layers, 2.68e9 parameters) trained by ``repro_torch.launch.train``
+    (``--init true-fan-in``): granite's recipe (4 AdamW steps, global batch
+    4 at seq 4096, remat full) in 4 microbatches of 1, as 2 of 2 run out
+    of memory (``tools/train_memory.py``). Prints the launches worked out
+    from the layer pattern before the run and checks them exactly after it
+    (the triples' forwards twice, the tail's once; every flash forward on
+    the tensor-core kernel);
+    finite, falling loss; then on one microbatch holds every scan and
+    attention call, forward and backward, to its plain version (scans bit
+    for bit, attention in float64), checks every parameter leaf's gradient
+    finite and not all zero, and the microbatch's loss before and after;
+    profiles one step (launches, busy share, each kernel's share of device
+    time) and prints step time, tokens/s, mfu and peak memory;
+19. SSM train phase: the same for full-width, full-depth mamba2-370m (48
+    layers) in 2 microbatches of 2, its SSD calls forward and backward held
+    to the plain version in float64, every SSD forward on the tensor-core
+    route;
+20. small recurrent train reference: the recurrentgemma and mamba2 smoke
+    configs, float32 params, one AdamW step of 2 microbatches on the card
+    through the kernels and on the CPU through the plain versions: the
+    gradients handed to AdamW agree leaf by leaf (``RECURRENT_GRAD_TOL``),
+    loss, grad norm and every parameter after the step
+    (``RECURRENT_STEP_TOL``), the card's launches as worked out;
+21. conv1d phase: the CUDA depthwise causal conv against its plain version
     on the reference's cases (float32 at 1e-5 and bit for bit, bfloat16 at
     5e-2), at width 1, ragged S and D, stride-0 and transposed inputs,
     against float64, and at the seizure CNN's three layer shapes; timed at
     layer 0's shape (1, 1024, 32) and at recurrentgemma's conv shape (8,
     4096, 2560, bf16, on no path) against the plain version and cuDNN's
     depthwise conv (the yardstick, never called by the port);
-18. healthcare phase: the flow of ``examples/healthcare_pipeline.py``
+22. healthcare phase: the flow of ``examples/healthcare_pipeline.py``
     through the port on the card (the HEEPocrates platform with the CGRA
     attached, bank gating from each acquisition, ``run_heartbeat``, the
     seizure CNN on the host path and through the CGRA, the 4.9x energy
@@ -143,7 +184,7 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     within 1e-4, and the card's logits and clear-margin flags against the
     CPU's plain path; prints the wall times of one ``apply`` and one
     ``classify``;
-19. gmm phase: the CUDA grouped matmul against its plain version on the
+23. gmm phase: the CUDA grouped matmul against its plain version on the
     reference's cases (float32 at 1e-4, bfloat16 at 5e-2), ragged C, D and
     F, the edges of the bf16 TMA routes' tiles (C 1 to 129, D 8 to 1008,
     F 8 to 264, one persistent block walking two experts' tiles), an input
@@ -154,7 +195,7 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     the C entry's report, two calls giving the same bits; timed at the four
     shapes against the plain version and ``torch.bmm`` (the yardstick,
     never called by the port);
-20. moe serve phase: full-width grok-1 cut to 4 of its 64 layers (42.58
+24. moe serve phase: full-width grok-1 cut to 4 of its 64 layers (42.58
     GB of bf16 weights) through the serve driver
     ``repro_torch.launch.serve.run`` (batch 8, a 1024-token prompt, 64
     greedy steps). Checks 12 grouped-matmul and 4 flash-forward launches in
@@ -167,7 +208,7 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     decode-step time, tokens/s and peak memory, profiles a prefill and a
     decode step (the grouped matmul's kernels checked by name), and keeps
     the weights for the next phase;
-21. lane engine phase: the same grok-1 weights served by
+25. lane engine phase: the same grok-1 weights served by
     ``ContinuousBatchingEngine`` on its lane backend (8 slots, 16-token
     pages, prefill chunk 16, metered): 16 requests sharing a 32-token
     system prompt, 16 tokens of their own and 16 greedy tokens each.
@@ -184,21 +225,21 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     the kernel at the packed shapes; prints decode-step time, tokens/s,
     busy share, peak memory and the snapshots resident; then frees the
     weights;
-22. small MoE reference: the grok and llama4 smoke configs served on the
+26. small MoE reference: the grok and llama4 smoke configs served on the
     card (through the kernel) and on the CPU's plain path: routing equal
     on every MoE call, logits and caches at the bf16 bound, clear-margin
     greedy tokens equal; prints the smallest top-k router margin;
-23. recurrent lane phase: full-width, full-depth mamba2-370m and
+27. recurrent lane phase: full-width, full-depth mamba2-370m and
     recurrentgemma-2b on the same engine and trace: completions, reuse,
     backend and the meter; decode-step time, peak memory and the bytes of
     one lane snapshot;
-24. small lane reference: the granite, grok, mamba2 and recurrentgemma
+28. small lane reference: the granite, grok, mamba2 and recurrentgemma
     smoke configs through the lane engine on the card and on the CPU's
     plain path, completions equal where the margins are clear; granite's
     on lanes equal to the paged backend's on the card, greedy and with
     every second request sampled (equal to the CPU's plain path where the
     margins of the sampler's scores are clear);
-25. window phase: h2o-danube3-4b at full width (d_model 3840, 32/8 heads
+29. window phase: h2o-danube3-4b at full width (d_model 3840, 32/8 heads
     of dim 120, window 4096), 4 of its 24 layers, on the paged backend
     with ring block tables (4 slots, 16-token pages, max_len 4352: 257
     entries a slot), 4 requests of one 4160-token prompt and 16 own
@@ -212,7 +253,7 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     tokens bit for bit, every live lane's logits finite, and every paged
     call of one prefill and one decode step past the window (D 120, a ring
     table) held to the plain version (``close_scaled``);
-26. cluster phase: granite-3-2b (two same-namespace tenants of 8 and 4
+30. cluster phase: granite-3-2b (two same-namespace tenants of 8 and 4
     slots, one parameter tree) and h2o-danube3-4b (24 layers, 8 slots,
     max_len 512) on one ``ServeCluster`` (one pool and table, 16-token
     pages, a budget of 5 awake banks, deficit round-robin with TTFT shed
@@ -231,7 +272,7 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     parameter tensors, device memory within 64 MiB of its value before the
     crash. Prints wall ms a cluster step, paged launches a step, and three
     profiled steps' launches and device busy share;
-27. sampled engine phase, last because its profiled windows make the
+31. sampled engine phase, last because its profiled windows make the
     profiler drop kernels of later windows: full-width granite-3-2b's
     weights made again, phase 4's trace with every second request sampled
     (temperature 0.8, top_k 50, top_p 0.9, seed 100 + i), all submitted at
@@ -250,10 +291,13 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     phase 4's one-token step with 4 of 8 lanes sampled and the sampler
     alone.
 
-Prints a ``{"kernels": [...]}`` JSON line (eight entries; paged
+Prints a ``{"kernels": [...]}`` JSON line (eleven entries; paged
 attention's launches are those of the greedy serve run, the window and
-cluster phases' main runs and the three sampled engine runs, the grouped matmul's those of the serve driver and
-the lane engine's greedy and mixed runs, each under ``launches_by_path``),
+cluster phases' main runs and the three sampled engine runs, the grouped
+matmul's those of the serve driver and the lane engine's greedy and mixed
+runs, the RG-LRU scan's, the D 256 flash forward's and the SSD's those of
+the serve driver and the train phase, each under ``launches_by_path``; the
+three backward kernels' those of their train phase),
 the card line again,
 and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
@@ -2306,16 +2350,16 @@ def ssd_bound_ms(b, s, h, p, n, chunk, x_bytes, bc_bytes, bc_bf16, shared):
     return out
 
 
-def ptxas_report(lib) -> dict:
-    """Registers and spilled bytes of each kernel in a library's ``-Xptxas
-    -v`` report (kept beside it as ``.log``), by kernel name and first
-    template argument."""
+def ptxas_report(lib, names: str = r"ssd_chunk_scan_kernel|ssd_tc_[a-z]+_kernel"
+                 ) -> dict:
+    """Registers and spilled bytes of each kernel whose name matches
+    ``names`` in a library's ``-Xptxas -v`` report (kept beside it as
+    ``.log``), by kernel name and first template argument."""
     kinds = {"f": "<float>", "13__nv_bfloat16": "<bf16>", None: ""}
     out = {}
     for block in lib.with_suffix(".log").read_text().split(
             "Compiling entry function")[1:]:
-        m = re.search(r"(ssd_chunk_scan_kernel|ssd_tc_[a-z]+_kernel)"
-                      r"(?:I(f|13__nv_bfloat16))?", block)
+        m = re.search(rf"({names})(?:I(f|13__nv_bfloat16))?", block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
         if m and regs and spill:
@@ -2604,6 +2648,739 @@ def small_mamba2_reference_phase(torch, np) -> None:
           f"{tol} + {tol} * |plain|), caches within it; greedy tokens equal at "
           f"all {int(clear.sum())} of {clear.numel()} steps with a clear "
           f"margin")
+
+
+# ---------------------------------------------------------------------------
+# Training the hybrid and SSM families: the backward kernels of the RG-LRU
+# scan, of flash attention at head dim 256 and of the SSD chunk scan, and
+# full-width recurrentgemma-2b and mamba2-370m through the launcher
+# ---------------------------------------------------------------------------
+
+# granite's recipe (AdamW, lr 3e-4, global batch 4, seq 4096, remat full, 4
+# steps); recurrentgemma-2b in 4 microbatches of 1: in 2 of 2 it runs out
+# of memory on an 80 GB H100 (``tools/train_memory.py``: 82.13 GB allocated
+# at its peak when the loss over 2 x 4096 rows of its 256,000-entry
+# vocabulary asked for 8.4 GB more; in 4 of 1 it peaks at about 66 GB);
+# width and depth are whole
+TRAIN_RECIPE = {"global_batch": 4, "seq": 4096, "steps": 4, "lr": 3e-4}
+RG_TRAIN = {"arch": "recurrentgemma-2b", "accum": 4, "init": "true-fan-in"}
+M2_TRAIN = {"arch": "mamba2-370m", "accum": 2, "init": "reference"}
+RG_TRAIN_SCAN = (1, 4096, 2560)             # B, S, W: a microbatch's scans
+RG_TRAIN_ATTN = (1, 4096, 10, 1, 256, 2048)  # B, S, H, K, D, window
+# the recipe's microbatch of 2, which does not fit the card at
+# recurrentgemma-2b's width: its backward kernels are timed there too
+RG_RECIPE_SCAN = (2, 4096, 2560)
+RG_RECIPE_ATTN = (2, 4096, 10, 1, 256, 2048)
+M2_TRAIN_SSD = (2, 4096, 32, 64, 128, 256)  # b, s, h, p, n, chunk
+RGLRU_TOL = 1e-5                            # tests/test_kernels.py:118
+# one AdamW step, card against the CPU's plain path (and, in
+# tests/test_torch_train.py, the port against the JAX package): loss, grad
+# norm (relative), and the share of parameter elements allowed past 2e-6.
+# Both families run bf16 activations, so their gradients agree to bf16's
+# precision, and AdamW's first update moves each element by about lr
+# whatever its gradient's size: an element whose gradient is below the
+# bf16 noise may step either way (|diff| up to 2 lr)
+RECURRENT_STEP_TOL = (1e-3, 1e-2, 5e-2)
+# the gradients one step hands AdamW, leaf by leaf (the same two
+# comparisons): the 2-norm of the difference relative to the reference's.
+# Port against the JAX package on the CPU the largest readings were 6.4e-2
+# (Griffin, whose bf16 noise passes through every layer) and 1.5e-2
+# (Mamba-2); a leaf with a missing, flipped or wrongly scaled gradient reads
+# 1 or more
+RECURRENT_GRAD_TOL = {"hybrid": 0.15, "ssm": 0.05}
+
+
+def leaf_grad_errs(got, want) -> list[float]:
+    """``||got - want|| / ||want||`` for each pair of gradient leaves
+    (numpy arrays); a leaf whose reference gradient is all zero reads the
+    norm of ``got``."""
+    import numpy as np
+
+    out = []
+    for g, w in zip(got, want, strict=True):
+        g, w = (np.asarray(x, np.float64) for x in (g, w))
+        ref = float(np.linalg.norm(w))
+        diff = float(np.linalg.norm(g - w))
+        out.append(diff / ref if ref > 0 else diff)
+    return out
+
+
+def train_launches(cfg, accum: int, steps: int) -> dict:
+    """The kernel launches of ``steps`` train steps of ``accum``
+    microbatches, from the layer pattern: a layer under remat (``"full"``
+    or ``"dots"``) launches its forward kernels twice, in the forward and
+    in the backward's recompute; a layer outside it (griffin's tail) once.
+    Keys: ``scan``, ``scan_bwd``, ``flash_fwd``, ``flash_bwd`` (hybrid),
+    ``ssd``, ``ssd_bwd`` (SSM)."""
+    from repro_torch.models import griffin
+
+    twice = 1 if cfg.remat == "none" else 2
+    if cfg.family == "hybrid":
+        n_full, tail = griffin.plan(cfg)
+        pat = list(griffin._block(cfg))
+        per = {}
+        for kind, fwd, bwd in (("rec", "scan", "scan_bwd"),
+                               ("attn", "flash_fwd", "flash_bwd")):
+            inner, outer = pat.count(kind) * n_full, tail.count(kind)
+            per[fwd], per[bwd] = twice * inner + outer, inner + outer
+    elif cfg.family == "ssm":
+        per = {"ssd": twice * cfg.n_layers, "ssd_bwd": cfg.n_layers}
+    else:
+        raise ValueError(f"{cfg.family}: not a recurrent family")
+    return {k: v * accum * steps for k, v in per.items()}
+
+
+def rglru_bwd_case(torch, gen, rkernel, rref, b, s, w):
+    """The backward kernel against its plain version on the forward
+    kernel's own y: ``(errors of da and db, bitwise equal)``."""
+    a, bb = rglru_inputs(torch, gen, b, s, w)
+    y, _ = rkernel.rglru_scan_cuda(a, bb)
+    dy = torch.randn((b, s, w), generator=gen, device="cuda")
+    dh = torch.randn((b, w), generator=gen, device="cuda")
+    da, db = rkernel.rglru_scan_bwd_cuda(a, y, dy, dh)
+    wa, wb = rref.rglru_bwd(a, y, dy, dh)
+    errs = (close_scaled(da, wa, RGLRU_TOL, RGLRU_TOL),
+            close_scaled(db, wb, RGLRU_TOL, RGLRU_TOL))
+    return errs, torch.equal(da, wa) and torch.equal(db, wb)
+
+
+def ssd_bwd_case(torch, gen, skernel, sref, b, s, h, p, n, chunk, x_dtype,
+                 bc_dtype, shared=False, decay=False, f64=False) -> dict:
+    """The backward kernels against the plain backward (``ref.ssd_bwd``,
+    autograd of the chunked version; in float64 with ``f64``) on the same
+    inputs and output gradients, each gradient at :func:`close_scaled`'s
+    bound with the forward's tolerance for x's dtype; a second call gives
+    the same bits. ``decay``: the model's dA (:func:`model_decay`).
+    Returns ``{name: (max abs err, scale)}`` for dx, ddA, dB, dC."""
+    x, dA, B, C = ssd_inputs(torch, gen, b, s, h, p, n, x_dtype=x_dtype,
+                             bc_dtype=bc_dtype, heads_share_bc=shared)
+    if decay:
+        dA = model_decay(torch, gen, b, s, h)
+    dy = (torch.randn(x.shape, generator=gen, device="cuda") * 0.5).to(x.dtype)
+    dst = torch.randn((b, h, p, n), generator=gen, device="cuda") * 0.1
+    got = skernel.ssd_bwd_cuda(x, dA, B, C, dy, dst)
+    want = sref.ssd_bwd(x.double() if f64 else x, dA, B, C, dy, dst,
+                        chunk=chunk)
+    tol = SSD_TOL[str(x.dtype).split(".")[1]]
+    errs = {name: close_scaled(g, w, tol, tol)
+            for name, g, w in zip(("dx", "ddA", "dB", "dC"), got, want)}
+    again = skernel.ssd_bwd_cuda(x, dA, B, C, dy, dst)
+    assert all(torch.equal(u, v) for u, v in zip(got, again)), \
+        (b, s, h, p, n, chunk)
+    return errs
+
+
+def ssd_bwd_bound_ms(b, s, h, p, n, x_bytes, bc_bytes):
+    """Least time for one backward call: the larger of its operations and
+    its bytes (x, dA, dy, the stored B and C and the final state's gradient
+    read once; dx, ddA and the per-head dB and dC written once) over the
+    memory rate. Operations (2 a multiply-add): what the function needs
+    whatever the chunking, six (p, n) multiply-adds a step and head (the
+    state recomputed, the state's gradient carried back, and dy.h, dh.B,
+    dh^T.x and dh.h for dC, dx, dB and ddA); the kernels' own chunks of 64
+    add a quadratic term that a chunk of 1 would not have, so it is left
+    out. Float32-accurate on the tensor cores (3 TF32 products each, 495
+    TFLOP/s) and on the CUDA cores (67 TFLOP/s). Returns ``{"tc": (ms, by),
+    "cuda_core": (ms, by), "f32": ops, "bytes": n}``."""
+    ops = 2 * 6 * p * n * b * s * h
+    moved = 3 * b * s * h * p * x_bytes + 2 * b * s * h * 4 + bc_bytes \
+        + b * h * p * n * 4 + 2 * b * s * h * n * 4
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    out = {"f32": ops, "bytes": moved}
+    for key, t_ops in (("tc", 3 * ops / TF32_OPS_PER_S * 1e3),
+                       ("cuda_core", ops / FP32_OPS_PER_S * 1e3)):
+        out[key] = (max(t_ops, t_bytes),
+                    "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def sdpa_windowed_bwd(torch, q, k, v, do, window):
+    """SDPA's backward (the yardstick, never called by the port) on (B, S,
+    H, D) inputs with the window as a boolean mask: ``(fn, backend)``, fn
+    running the backward of one forward kept alive, on the first backend
+    that takes both passes, in PyTorch's own order."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, s = q.shape[2], q.shape[1]
+    qs, ks, vs = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    kr, vr = (x.repeat_interleave(h // x.shape[1], dim=1) for x in (ks, vs))
+    pos = torch.arange(s, device=q.device)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+    dos = do.transpose(1, 2).contiguous()
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:                 # the yardstick only: a backend that refuses
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")     # the mask or D 256
+                out = sdpa(qs, kr, vr, attn_mask=mask)
+                torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return (lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
+                                            retain_graph=True)), name
+    raise RuntimeError("no SDPA backend takes the windowed backward")
+
+
+def backward_phase(torch, rkernel, rref, fkernel, fref, skernel,
+                   sref) -> list[dict]:
+    """The three backward kernels of the recurrent families' training
+    against their plain versions: the RG-LRU scan's on the reference's
+    cases and a ragged S and W, bit for bit by design, and against float64;
+    the flash backward at head dim 256 on the edges of its tiles
+    (``FLASH256_EDGES``) in float32 (CUDA cores) and bf16 (tensor cores),
+    against float64; the SSD chunk scan's on the forward's cases, its edges
+    with B and C per head and shared, float32 and bf16 x, against float64
+    and at the model's decay. Then each at the training shape that the
+    train phases give it (the RG-LRU and flash backwards also at the
+    recipe's microbatch of 2, :data:`RG_RECIPE_SCAN` and
+    :data:`RG_RECIPE_ATTN`), held to its plain version, two calls bit for bit,
+    timed (CUDA events) beside its plain version, its bound and the library
+    call (SDPA's backward with the window as a mask, for the flash
+    backward; none computes a scan). Returns the three JSON entries (no
+    launches)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    out = []
+
+    # RG-LRU
+    for case in RGLRU_CASES:
+        (ea, eb), exact = rglru_bwd_case(torch, gen, rkernel, rref, *case)
+        assert exact, case
+        print(f"rglru backward case B,S,W={case}: max abs err da {ea[0]:.3e}, "
+              f"db {eb[0]:.3e}; bitwise equal {exact}")
+    a, bb = rglru_inputs(torch, gen, 2, 512, 256)
+    y, _ = rkernel.rglru_scan_cuda(a, bb)
+    dy = torch.randn(a.shape, generator=gen, device="cuda")
+    dh = torch.randn((2, 256), generator=gen, device="cuda")
+    got = rkernel.rglru_scan_bwd_cuda(a, y, dy, dh)
+    want = rref.rglru_bwd(a.double(), y.double(), dy.double(), dh.double())
+    e64 = max((g.double() - w).abs().max().item() for g, w in zip(got, want))
+    assert e64 <= RGLRU_TOL, e64
+    print(f"rglru backward against float64 (B 2, S 512, W 256): max abs err "
+          f"{e64:.3e}")
+    for (b, s, w), label in ((RG_TRAIN_SCAN, "the training microbatch"),
+                             (RG_RECIPE_SCAN, "the recipe's microbatch")):
+        a, bb = rglru_inputs(torch, gen, b, s, w)
+        y, _ = rkernel.rglru_scan_cuda(a, bb)
+        dy = torch.randn(a.shape, generator=gen, device="cuda")
+        dh = torch.randn((b, w), generator=gen, device="cuda")
+        da, db = rkernel.rglru_scan_bwd_cuda(a, y, dy, dh)
+        wa, wb = rref.rglru_bwd(a, y, dy, dh)
+        errs = (close_scaled(da, wa, RGLRU_TOL, RGLRU_TOL),
+                close_scaled(db, wb, RGLRU_TOL, RGLRU_TOL))
+        assert torch.equal(da, wa) and torch.equal(db, wb)
+        again = rkernel.rglru_scan_bwd_cuda(a, y, dy, dh)
+        assert torch.equal(da, again[0]) and torch.equal(db, again[1])
+        del wa, wb, again
+        ms = time_ms(torch, lambda i: rkernel.rglru_scan_bwd_cuda(
+            a, y, dy, dh), 1, inner=10, reps=11)
+        plain_ms = time_ms(torch, lambda i: rref.rglru_bwd(a, y, dy, dh), 1,
+                           inner=1, reps=3)
+        moved = 5 * b * s * w * 4 + b * w * 4   # dy, a, y, dh in; da, db out
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = 3 * b * s * w / FP32_OPS_PER_S * 1e3
+        print(f"rglru backward at {label} B={b} S={s} W={w}: max abs err "
+              f"da {errs[0][0]:.3e} (scale {errs[0][1]:.3e}), db "
+              f"{errs[1][0]:.3e}; bitwise equal to the plain version, two "
+              f"calls bit for bit; kernel {ms:.4f} ms "
+              f"({moved / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, bound "
+              f"{max(t_bytes, t_ops):.4f} ms ({moved} bytes); no single "
+              f"PyTorch call computes a linear recurrence")
+        del a, bb, y, dy, da, db
+        if (b, s, w) != RG_TRAIN_SCAN:
+            continue
+        out.append({"name": "rglru_scan_bwd", "route": "cuda",
+                    "source": "src/repro_torch/kernels/rglru/csrc/"
+                              "rglru_scan.cu",
+                    "replaces": "none (backward of src/repro/kernels/rglru/"
+                                "kernel.py:46; the reference differentiates "
+                                "src/repro/models/griffin.py:87)",
+                    "max_abs_err": max(errs[0][0], errs[1][0]), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": None})
+
+    # flash backward at head dim 256
+    for b, sq, sk, h, kh, d, win, causal in FLASH256_EDGES:
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            q, k, v, do = flash_inputs(torch, gen, b, sq, h, kh, d, dt, sk=sk)
+            fe = flash_check(torch, fkernel, fref, q, k, v, do, causal, win,
+                             name)
+            print(f"flash D 256 backward edge B,Sq,Sk,H,K,D,window,causal="
+                  f"{(b, sq, sk, h, kh, d, win, causal)} {name}: max abs err "
+                  f"{fmt_errs(fe)}")
+    q, k, v, do = flash_inputs(torch, gen, 1, 96, 4, 1, 256, torch.float32)
+    o, lse = fkernel.flash_attention_fwd_cuda(q, k, v, causal=True, window=40)
+    got = fkernel.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True,
+                                           window=40)
+    x64 = [t.double() for t in (q, k, v, do)]
+    eo, el = fref.flash_attention_ref(*x64[:3], causal=True, window=40)
+    want = fref.flash_attention_bwd_ref(*x64[:3], eo, el, x64[3], causal=True,
+                                        window=40)
+    pg = fref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True,
+                                      window=40)
+    e_kernel = max((g.double() - w).abs().max().item() for g, w in zip(got, want))
+    e_plain = max((g.double() - w).abs().max().item() for g, w in zip(pg, want))
+    assert e_kernel <= GRAD_TOL["float32"][0], e_kernel
+    print(f"flash D 256 backward against float64 (B 1, S 96, H 4, K 1, window "
+          f"40, float32): max abs err of dq, dk, dv: kernel {e_kernel:.3e}, "
+          f"plain {e_plain:.3e}")
+    for (b, s, h, kh, d, win), label in (
+            (RG_TRAIN_ATTN, "the training microbatch"),
+            (RG_RECIPE_ATTN, "the recipe's microbatch")):
+        q, k, v, do = flash_inputs(torch, gen, b, s, h, kh, d,
+                                   torch.bfloat16)
+        fe = flash_check(torch, fkernel, fref, q, k, v, do, True, win,
+                         "bfloat16")
+        o, lse = fkernel.flash_attention_fwd_cuda(q, k, v, causal=True,
+                                                  window=win)
+        first, second = (fkernel.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal=True, window=win) for _ in range(2))
+        assert all(torch.equal(x, z) for x, z in zip(first, second))
+        del first, second
+        ms = time_ms(torch, lambda i: fkernel.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal=True, window=win), 1, inner=3, reps=7)
+        plain_ms = time_ms(torch, lambda i: fref.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, causal=True, window=win), 1, inner=1, reps=3)
+        kernels = device_profile(
+            torch, lambda: fkernel.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, causal=True, window=win), n=3)[3]
+        # the tensor-core route: the dK/dV kernel twice a call (its dV and dK
+        # passes, two instantiations), the dQ kernel and delta's once. Names
+        # only: after the earlier phases' profiles the profiler may drop
+        # events (a full run saw 6 of the 12 launches), so counts are printed
+        names = {}
+        for e in kernels:
+            base = kernel_name(e.key).split("<")[0]
+            names[base] = names.get(base, 0) + e.count
+        assert "flash_bwd_dkdv_mma_kernel" in names and set(names) <= {
+            "flash_bwd_delta_kernel", "flash_bwd_dkdv_mma_kernel",
+            "flash_bwd_dq_mma_kernel"}, names
+        sdpa_bwd, backend = sdpa_windowed_bwd(torch, q, k, v, do, win)
+        lib_ms = time_ms(torch, lambda i: sdpa_bwd(), 1, inner=3, reps=5)
+        del sdpa_bwd
+        pairs = window_pairs(s, win)
+        bound, by = flash_bound_ms(b, s, h, kh, d, 2, pairs, True)
+        print(f"flash D 256 backward at {label} B={b} S={s} H={h} K={kh} "
+              f"D={d} window {win} bf16 ({pairs} visible pairs a head): "
+              f"max abs err {fmt_errs(fe)}; two calls bit for bit; kernel "
+              f"{ms:.3f} ms ({10 * b * h * d * pairs / ms / 1e9:.1f} "
+              f"TFLOP/s), 3 calls under the profiler, "
+              f"{sum(names.values())} of 12 launches seen: "
+              + "; ".join(f"{kernel_name(e.key)} "
+                          f"{dev_us(e) / e.count / 1e3:.3f} ms x{e.count}"
+                          for e in kernels)
+              + f"; plain {plain_ms:.3f} ms, sdpa backward with the window as "
+              f"a mask {lib_ms:.3f} ms (backend {backend}), bound "
+              f"{bound:.4f} ms ({by})")
+        del q, k, v, do, o, lse
+        if (b, s, h, kh, d, win) != RG_TRAIN_ATTN:
+            continue
+        out.append({"name": "flash_attention_bwd_d256", "route": "cuda",
+                    "source": "src/repro_torch/kernels/attention/csrc/"
+                              "flash_attention.cu",
+                    "replaces": "none (backward of src/repro/kernels/"
+                                "attention/kernel.py:69; the reference "
+                                "differentiates "
+                                "src/repro/models/layers.py:243)",
+                    "max_abs_err": max(fe[n][0] for n in ("dq", "dk", "dv")),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": lib_ms})
+
+    # SSD
+    runs = ([(case, dt, torch.float32, False) for case in SSD_CASES + SSD_RAGGED
+             for dt in (torch.float32, torch.bfloat16)]
+            + [(case, dt, torch.bfloat16, shared) for case in SSD_EDGES
+               for dt in (torch.float32, torch.bfloat16)
+               for shared in (False, True)])
+    for case, dt, bc_dt, shared in runs:
+        se = ssd_bwd_case(torch, gen, skernel, sref, *case, dt, bc_dt, shared)
+        print(f"ssd backward case b,s,h,p,n,chunk={case} x {str(dt)[6:]} B/C "
+              f"{str(bc_dt)[6:]}{' shared' if shared else ''}: max abs err "
+              + ", ".join(f"{k} {e:.3e}" for k, (e, _) in se.items()))
+    for decay in (False, True):
+        se = ssd_bwd_case(torch, gen, skernel, sref, 2, 300, 4, 32, 64, 64,
+                          torch.float32, torch.bfloat16, True, decay=decay,
+                          f64=True)
+        print(f"ssd backward against float64 (b 2, s 300, h 4, p 32, n 64, "
+              f"{'the model' if decay else 'the test'}'s decay): max abs err "
+              + ", ".join(f"{k} {e:.3e} (scale {sc:.3e})"
+                          for k, (e, sc) in se.items()))
+    b, s, h, p, n, chunk = M2_TRAIN_SSD
+    x, _, B, C = ssd_inputs(torch, gen, b, s, h, p, n,
+                            bc_dtype=torch.bfloat16, heads_share_bc=True)
+    dA = model_decay(torch, gen, b, s, h)
+    dy = torch.randn(x.shape, generator=gen, device="cuda") * 0.5
+    dst = torch.randn((b, h, p, n), generator=gen, device="cuda") * 0.1
+    got = skernel.ssd_bwd_cuda(x, dA, B, C, dy, dst)
+    want = sref.ssd_bwd(x.double(), dA, B, C, dy, dst, chunk=chunk)
+    tol = SSD_TOL["float32"]
+    se = {name: close_scaled(g, w, tol, tol)
+          for name, g, w in zip(("dx", "ddA", "dB", "dC"), got, want)}
+    pg = sref.ssd_bwd(x, dA, B, C, dy, dst, chunk=chunk)
+    e_plain = {name: (g.double() - w).abs().max().item()
+               for name, g, w in zip(("dx", "ddA", "dB", "dC"), pg, want)}
+    del want, pg
+    again = skernel.ssd_bwd_cuda(x, dA, B, C, dy, dst)
+    assert all(torch.equal(u, z) for u, z in zip(got, again))
+    del got, again
+    ms = time_ms(torch, lambda i: skernel.ssd_bwd_cuda(x, dA, B, C, dy, dst),
+                 1, inner=3, reps=7)
+    plain_ms = time_ms(torch, lambda i: sref.ssd_bwd(x, dA, B, C, dy, dst,
+                                                     chunk=chunk),
+                       1, inner=1, reps=3)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            skernel.ssd_bwd_cuda(x, dA, B, C, dy, dst)
+        torch.cuda.synchronize()
+    parts = {kernel_name(ev.key): dev_us(ev) / ev.count / 1e3
+             for ev in prof.key_averages() if "ssd_bwd" in ev.key}
+    bd = ssd_bwd_bound_ms(b, s, h, p, n, 4, 2 * b * s * n * B.element_size())
+    (bound, by), (core_bound, core_by) = bd["tc"], bd["cuda_core"]
+    regs = ptxas_report(skernel.build(), r"ssd_bwd_[a-z]+_kernel")
+    print(f"ssd backward at mamba2-370m's training microbatch b={b} s={s} "
+          f"h={h} p={p} n={n} (x float32, B and C bf16 shared by the heads, "
+          f"the model's decay), 3 launches a call in chunks of "
+          f"{skernel.BWD_CHUNK}: against the plain version in float64, max "
+          f"abs err " + ", ".join(f"{k} {e:.3e} (scale {sc:.3e})"
+                                  for k, (e, sc) in se.items())
+          + "; the float32 plain version's: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in e_plain.items())
+          + f"; two calls bit for bit; kernel {ms:.4f} ms "
+          f"({bd['f32'] / ms / 1e9:.1f} TFLOP/s of the function's float32 "
+          f"operations), its launches "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+          + f"; plain {plain_ms:.3f} ms; bound {bound:.4f} ms ({by}: "
+          f"{bd['f32']:.4e} float32-accurate operations, 6 (p, n) "
+          f"multiply-adds a step and head, as 3 TF32 products "
+          f"each at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s; {bd['bytes']} bytes); "
+          f"CUDA-core bound {core_bound:.4f} ms ({core_by}, "
+          f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s); -Xptxas -v "
+          + ", ".join(f"{k} {r} registers, {sp} B spilled"
+                      for k, (r, sp) in regs.items())
+          + "; no single PyTorch call computes the SSD scan", flush=True)
+    out.append({"name": "ssd_bwd", "route": "cuda",
+                "source": "src/repro_torch/kernels/ssd/csrc/ssd_chunk_scan.cu",
+                "replaces": "none (backward of src/repro/kernels/ssd/"
+                            "kernel.py:67; the reference differentiates "
+                            "src/repro/models/mamba2.py:47)",
+                "max_abs_err": max(e for e, _ in se.values()), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": None})
+    return out
+
+
+def recurrent_counts(rkernel, fkernel, skernel) -> dict:
+    """The launch counters of the recurrent families' kernels, by the keys
+    of :func:`train_launches`, and the flash forwards the C entry ran on
+    the tensor-core kernel."""
+    return {"scan": rkernel.launches, "scan_bwd": rkernel.launches_bwd,
+            "flash_fwd": fkernel.launches_fwd,
+            "flash_bwd": fkernel.launches_bwd,
+            "flash_fwd_mma": fkernel.launches_fwd_mma,
+            "ssd": skernel.launches, "ssd_tc": skernel.launches_tc,
+            "ssd_bwd": skernel.launches_bwd}
+
+
+def zero_counts(rkernel, fkernel, skernel) -> None:
+    rkernel.launches = rkernel.launches_bwd = 0
+    fkernel.launches_fwd = fkernel.launches_bwd = fkernel.launches_fwd_mma = 0
+    skernel.launches = skernel.launches_tc = skernel.launches_bwd = 0
+
+
+def checked_kernels(torch, rkernel, rref, fkernel, fref, skernel, sref,
+                    errs: dict):
+    """Patches that hold every kernel call of a pass to its plain version on
+    that call's own inputs, errors appended to ``errs[name]``: the RG-LRU
+    scan and its backward bit for bit (by design) and at 1e-5 under
+    :func:`close_scaled`; the flash forward (o, lse) and backward (dq, dk,
+    dv), and the SSD scan (y, state) and its backward (dx, ddA, dB, dC),
+    against the plain versions computed in float64 on the same inputs (at
+    full width the float32 plain versions themselves come near the bound
+    from float64: ROADMAP queue 3), at the reference's tolerances."""
+    real = {"scan": rkernel.rglru_scan_cuda,
+            "scan_bwd": rkernel.rglru_scan_bwd_cuda,
+            "flash_fwd": fkernel.flash_attention_fwd_cuda,
+            "flash_bwd": fkernel.flash_attention_bwd_cuda,
+            "ssd": skernel.ssd_cuda, "ssd_bwd": skernel.ssd_bwd_cuda}
+
+    def scan(a, b):
+        y, h = real["scan"](a, b)
+        wy, wh = rref.rglru(a, b)
+        assert torch.equal(y, wy) and torch.equal(h, wh)
+        errs.setdefault("scan", []).append(
+            close_scaled(y, wy, RGLRU_TOL, RGLRU_TOL))
+        return y, h
+
+    def scan_bwd(a, y, dy, dh):
+        da, db = real["scan_bwd"](a, y, dy, dh)
+        wa, wb = rref.rglru_bwd(a, y, dy, dh)
+        assert torch.equal(da, wa) and torch.equal(db, wb)
+        errs.setdefault("scan_bwd", []).append(max(
+            close_scaled(da, wa, RGLRU_TOL, RGLRU_TOL),
+            close_scaled(db, wb, RGLRU_TOL, RGLRU_TOL)))
+        return da, db
+
+    def flash_fwd(q, k, v, causal, window):
+        o, lse = real["flash_fwd"](q, k, v, causal=causal, window=window)
+        wo, wl = fref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                          causal=causal, window=window)
+        close(lse, wl, TOL["float32"])
+        errs.setdefault("flash_fwd", []).append(
+            close_scaled(o, wo, TOL["bfloat16"], TOL["bfloat16"]))
+        return o, lse
+
+    def flash_bwd(q, k, v, o, lse, do, causal, window):
+        got = real["flash_bwd"](q, k, v, o, lse, do, causal=causal,
+                                window=window)
+        want = fref.flash_attention_bwd_ref(
+            *(t.double() for t in (q, k, v, o, lse, do)), causal=causal,
+            window=window)
+        errs.setdefault("flash_bwd", []).append(max(
+            close_scaled(g, w, *GRAD_TOL["bfloat16"])
+            for g, w in zip(got, want)))
+        return got
+
+    def ssd(x, dA, B, C, chunk):
+        y, st = real["ssd"](x, dA, B, C, chunk=chunk)
+        wy, wst = sref.ssd_chunked(x.double(), dA, B, C, chunk=chunk)
+        tol = SSD_TOL["float32"]
+        errs.setdefault("ssd", []).append(max(close_scaled(y, wy, tol, tol),
+                                              close_scaled(st, wst, tol, tol)))
+        return y, st
+
+    def ssd_bwd(x, dA, B, C, dy, dstate):
+        got = real["ssd_bwd"](x, dA, B, C, dy, dstate)
+        want = sref.ssd_bwd(x.double(), dA, B, C, dy, dstate,
+                            chunk=skernel.BWD_CHUNK)
+        tol = SSD_TOL["float32"]
+        errs.setdefault("ssd_bwd", []).append(max(
+            close_scaled(g, w, tol, tol) for g, w in zip(got, want)))
+        return got
+
+    return [mock.patch.object(rkernel, "rglru_scan_cuda", scan),
+            mock.patch.object(rkernel, "rglru_scan_bwd_cuda", scan_bwd),
+            mock.patch.object(fkernel, "flash_attention_fwd_cuda", flash_fwd),
+            mock.patch.object(fkernel, "flash_attention_bwd_cuda", flash_bwd),
+            mock.patch.object(skernel, "ssd_cuda", ssd),
+            mock.patch.object(skernel, "ssd_bwd_cuda", ssd_bwd)]
+
+
+def recurrent_train_phase(torch, np, spec: dict, kernels: tuple,
+                          card: str) -> dict:
+    """Full-width, full-depth ``spec["arch"]`` trained by the training
+    entry point (``repro_torch.launch.train``) on ``LMPipeline`` batches:
+    granite's recipe (:data:`TRAIN_RECIPE`) in ``spec["accum"]``
+    microbatches. Prints the launch counts worked out from the layer
+    pattern (:func:`train_launches`) before the run and checks them exactly
+    after it, with every bf16 flash forward on the tensor-core kernel and
+    every SSD forward on the tensor-core route; checks finite, falling
+    losses; then on one microbatch holds every kernel call, forward and
+    backward, to its plain version (:func:`checked_kernels`), checks that
+    every parameter leaf's gradient is finite and not all zero, and
+    compares the microbatch's loss before and after the steps; profiles one
+    step. Returns the run's launches by counter."""
+    import contextlib
+
+    from repro_torch import configs
+    from repro_torch.data.lm import LMDataConfig, LMPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry
+    from repro_torch.sharding.params import init_tree, tree_leaves
+    from repro_torch.train import trainer
+
+    rkernel, rref, fkernel, fref, skernel, sref = kernels
+    cfg = configs.get(spec["arch"])
+    r = TRAIN_RECIPE
+    accum, steps = spec["accum"], r["steps"]
+    argv = ["--arch", spec["arch"], "--init", spec["init"],
+            "--steps", str(steps), "--global-batch", str(r["global_batch"]),
+            "--accum", str(accum), "--seq", str(r["seq"]), "--lr", str(r["lr"]),
+            "--optimizer", "adamw", "--seed", str(SEED)]
+    want = train_launches(cfg, accum, steps)
+    print(f"{spec['arch']} train: python -m repro_torch.launch.train "
+          f"{' '.join(argv)} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count()} parameters in bf16, remat {cfg.remat}); "
+          f"launches worked out from the layer pattern: "
+          + ", ".join(f"{k} {v}" for k, v in want.items()), flush=True)
+    tc = trainer.TrainConfig(optimizer="adamw", lr=r["lr"], accum=accum)
+    loss_fn = trainer.make_loss_fn(cfg, tc)
+    mb = {k: v[0] for k, v in LMPipeline(LMDataConfig(
+        vocab=cfg.vocab, seq=r["seq"], global_batch=r["global_batch"],
+        accum=accum, seed=SEED)).batch_at(0).items()}
+    params = init_tree(registry.decls(cfg), SEED, "cuda", dtype=torch.bfloat16)
+    if spec["init"] == "true-fan-in":
+        params = registry.true_fan_in(params, cfg)
+    with torch.no_grad():
+        loss_before = loss_fn(params, mb)[0].item()
+    del params
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(rkernel, fkernel, skernel)
+    run = launch_train.main(argv)
+    got = recurrent_counts(rkernel, fkernel, skernel)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert {k: got[k] for k in want} == want, (got, want)
+    assert got["flash_fwd_mma"] == got["flash_fwd"], got
+    assert got["ssd_tc"] == got["ssd"], got
+    losses, times = run.losses, run.seconds
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    assert all(np.isfinite(run.grad_norms)), run.grad_norms
+    assert losses[-1] < losses[0], losses
+    assert torch.equal(run.data.batch_at(0)["tokens"][0], mb["tokens"])
+    tokens = r["global_batch"] * r["seq"]
+    step_flops = 6 * cfg.param_count() * tokens
+    steady = statistics.median(times[1:])
+    print(f"{spec['arch']} train on {card}: step {steady:.3f} s (median of "
+          f"steps 2-{steps}; step 1 {times[0]:.3f} s), {tokens / steady:.0f} "
+          f"tokens/s, mfu {step_flops / (steady * BF16_OPS_PER_S):.4f} (6 N T "
+          f"= {step_flops:.4e} FLOPs a step at 989 TFLOP/s), peak memory "
+          f"{peak_gb:.2f} GB; launches "
+          + ", ".join(f"{k} {got[k]}" for k in want)
+          + f" (as worked out); losses {' '.join(f'{x:.4f}' for x in losses)}; "
+          f"grad norms {' '.join(f'{x:.4f}' for x in run.grad_norms)}",
+          flush=True)
+
+    # one microbatch: every kernel call held to its plain version, and the
+    # gradient of every parameter leaf
+    errs: dict = {}
+    key, n_stack = registry.stacked(cfg)
+    zero_counts(rkernel, fkernel, skernel)
+    with contextlib.ExitStack() as stack:
+        for patch in checked_kernels(torch, *kernels, errs):
+            stack.enter_context(patch)
+        tree, leaves = trainer._layer_leaves(run.params, key, n_stack)
+        loss, _ = loss_fn(tree, mb)
+        grads = torch.autograd.grad(loss, leaves)
+    one = train_launches(cfg, 1, 1)
+    assert {k: len(errs.get(k, [])) for k in one} == one, \
+        ({k: len(v) for k, v in errs.items()}, one)
+    bad = [i for i, g in enumerate(grads)
+           if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    assert not bad, f"{len(bad)} of {len(grads)} leaves have a non-finite or " \
+                    f"all-zero gradient (first: leaf {bad[0]})"
+    n_leaves = len(grads)
+    del grads, leaves, tree
+    assert loss.item() < loss_before, (loss.item(), loss_before)
+    span = lambda xs: (f"max abs err {max(e for e, _ in xs):.3e}, scales "
+                       f"{min(s for _, s in xs):.3e} to "
+                       f"{max(s for _, s in xs):.3e}")
+    print(f"{spec['arch']} train: on one microbatch every kernel call held to "
+          f"its plain version on its own inputs: "
+          + "; ".join(f"{k} x{len(v)} {span(v)}" for k, v in errs.items())
+          + f" (scans bit for bit; the flash and SSD calls against float64); "
+          f"all {n_leaves} parameter leaves have finite, not all-zero "
+          f"gradients; loss on that microbatch {loss_before:.4f} before the "
+          f"{steps} steps, {loss.item():.4f} after", flush=True)
+    del errs, loss
+
+    # one step under the profiler
+    batch = run.data.batch_at(steps)
+    wall_ms, busy_ms, launches, kern = device_profile(
+        torch, lambda: run.train_step(run.params, run.opt_state, batch))
+    ours = ("rglru_scan", "flash_", "ssd_")
+    shares, seen = {}, 0
+    for e in kern:
+        name = kernel_name(e.key)
+        if name.startswith(ours):
+            shares[name] = shares.get(name, 0.0) + dev_us(e) / 1e3
+            seen += e.count
+    # device kernels a step launches: a call of the scan, its backward or
+    # the flash forward is one; a D 256 flash backward four (delta, the
+    # dK/dV kernel's two passes, dQ); an SSD call or its backward three
+    one = train_launches(cfg, accum, 1)
+    weights = {"scan": 1, "scan_bwd": 1, "flash_fwd": 1, "flash_bwd": 4,
+               "ssd": 3, "ssd_bwd": 3}
+    expected = sum(weights[k] * v for k, v in one.items())
+    top = "; ".join(f"{kernel_name(e.key)[:40]} {dev_us(e) / 1e3:.1f} ms "
+                    f"x{e.count}" for e in kern[:6])
+    print(f"{spec['arch']} train profile on {card}, one step: wall "
+          f"{wall_ms:.1f} ms (under the profiler), device busy {busy_ms:.1f} "
+          f"ms ({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} kernel "
+          f"launches; the port's kernels' share of device time ({seen} of "
+          f"their {expected} launches seen: fewer means the profiler dropped "
+          f"events and these are lower bounds): "
+          + "; ".join(f"{k} {v:.2f} ms ({100 * v / busy_ms:.2f}%)"
+                      for k, v in sorted(shares.items()))
+          + f"; top device time: {top}", flush=True)
+    del run, batch
+    return {k: got[k] for k in want}
+
+
+def small_recurrent_train_reference_phase(torch, np) -> None:
+    """The card's training path against the CPU's plain path on a small
+    input: the recurrentgemma smoke config (attention at its true fan-in)
+    and the mamba2 smoke config, float32 params, remat full, one AdamW
+    step of 2 microbatches of 2 x 48 tokens from the same params and numpy
+    batches. The gradients handed to AdamW agree leaf by leaf at
+    :data:`RECURRENT_GRAD_TOL`; loss, grad norm and every parameter after
+    the step at :data:`RECURRENT_STEP_TOL` (both families run bf16
+    activations); and the card's step went through every kernel of its
+    family."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.attention import kernel as fkernel
+    from repro_torch.kernels.rglru import kernel as rkernel
+    from repro_torch.kernels.ssd import kernel as skernel
+    from repro_torch.models import registry
+    from repro_torch.sharding.params import init_tree, tree_leaves, tree_map
+    from repro_torch.train.trainer import (TrainConfig, make_grad_fn,
+                                           make_train_step)
+
+    loss_tol, norm_tol, share_tol = RECURRENT_STEP_TOL
+    for arch in ("recurrentgemma_2b", "mamba2_370m"):
+        cfg = dataclasses.replace(configs.smoke(arch), dtype="float32",
+                                  remat="full")
+        params = registry.true_fan_in(
+            init_tree(registry.decls(cfg), SEED, "cpu"), cfg)
+        rng = np.random.default_rng(SEED)
+        toks = rng.integers(0, cfg.vocab, size=(2, 2, 49))
+        batch = {"tokens": torch.from_numpy(toks[..., :-1]),
+                 "labels": torch.from_numpy(toks[..., 1:])}
+        tc = TrainConfig(accum=2)
+        out, grads = {}, {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev, copy=True), params)
+            grads[dev] = [g.double().cpu().numpy() for g in
+                          tree_leaves(make_grad_fn(cfg, tc)(p, batch)[2])]
+            step, opt = make_train_step(cfg, tc)
+            zero_counts(rkernel, fkernel, skernel)
+            m = step(p, opt.init(p), batch)[2]
+            counts = recurrent_counts(rkernel, fkernel, skernel)
+            out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                        [t.cpu() for t in tree_leaves(p)])
+        want = train_launches(cfg, 2, 1)
+        assert {k: counts[k] for k in want} == want, (counts, want)
+        gerrs = leaf_grad_errs(grads["cuda"], grads["cpu"])
+        gtol = RECURRENT_GRAD_TOL[cfg.family]
+        assert max(gerrs) <= gtol, (max(gerrs), gerrs.index(max(gerrs)))
+        (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
+        np.testing.assert_allclose(lg, lc, rtol=loss_tol)
+        np.testing.assert_allclose(gg, gc, rtol=norm_tol)
+        diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
+        assert diffs.max().item() <= 2 * tc.lr, diffs.max().item()
+        share = (diffs > 2e-6).float().mean().item()
+        assert share < share_tol, share
+        print(f"small train reference ({cfg.name}, float32 params, one step "
+              f"of 2 x 2 x 48 tokens, kernels "
+              + ", ".join(f"{k} {v}" for k, v in want.items())
+              + f") on the card vs the CPU's plain path: gradients of all "
+              f"{len(gerrs)} leaves within {gtol} (relative 2-norm, largest "
+              f"{max(gerrs):.3e}, median {statistics.median(gerrs):.3e}); "
+              f"loss {lg:.6f} vs "
+              f"{lc:.6f}, grad norm {gg:.6f} vs {gc:.6f}; params max abs diff "
+              f"{diffs.max().item():.3e}, {100 * share:.3f}% of elements "
+              f"above 2e-6")
 
 
 # ---------------------------------------------------------------------------
@@ -4388,6 +5165,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     small_mamba2_reference_phase(torch, np)
     torch.cuda.empty_cache()
+    scan_bwd, bwd256, ssd_bwd = backward_phase(torch, rkernel, rref, fkernel,
+                                               fref, skernel, sref)
+    torch.cuda.empty_cache()
+    kernels = (rkernel, rref, fkernel, fref, skernel, sref)
+    rg = recurrent_train_phase(torch, np, RG_TRAIN, kernels, card)
+    torch.cuda.empty_cache()
+    m2 = recurrent_train_phase(torch, np, M2_TRAIN, kernels, card)
+    torch.cuda.empty_cache()
+    small_recurrent_train_reference_phase(torch, np)
+    torch.cuda.empty_cache()
+    # the recurrent kernels' two main paths: the serve driver and training
+    for entry, train in ((scan, rg["scan"]), (fwd256, rg["flash_fwd"]),
+                         (ssd, m2["ssd"])):
+        entry["launches_by_path"] = {"serve driver": entry["launches"],
+                                     "train": train}
+        entry["launches"] += train
+    scan_bwd["launches"] = rg["scan_bwd"]
+    bwd256["launches"] = rg["flash_bwd"]
+    ssd_bwd["launches"] = m2["ssd_bwd"]
     conv = conv1d_phase(torch, ckernel, cref)
     conv["launches"] = healthcare_phase(torch, np, ckernel, cref, card)
     torch.cuda.empty_cache()
@@ -4425,7 +5221,7 @@ def main() -> int:
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [paged, fwd, bwd, scan, fwd256, ssd, conv,
-                                  gmm]}))
+                                  gmm, scan_bwd, bwd256, ssd_bwd]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,10 +30,13 @@
 // Which kernel runs, by dtype and D (no flag or fallback chooses):
 //   forward   bfloat16, any D      tensor cores   flash_fwd_mma_kernel
 //             float32, any D       CUDA cores     flash_fwd_kernel
-//   backward  bfloat16, D <= 128   tensor cores   flash_bwd_dkdv_mma_kernel,
-//                                                 flash_bwd_dq_mma_kernel
+//   backward  bfloat16, any D      tensor cores   flash_bwd_dkdv_mma_kernel
+//                                                 (twice at D 256: dV, then
+//                                                 dK), flash_bwd_dq_mma_kernel
 //             float32, D <= 128    CUDA cores     flash_bwd_dkdv_kernel,
 //                                                 flash_bwd_dq_kernel
+//             float32, D 256       CUDA cores     flash_bwd_dkdv_seq_kernel,
+//                                                 flash_bwd_dq_seq_kernel
 // and flash_bwd_delta_kernel before either backward.
 //
 // The tensor-core kernels are FlashAttention-2 built from mma.sync m16n8k16
@@ -106,8 +109,22 @@
 // window's leading key steps are skipped (kv_range), and the masks,
 // numerics and outputs are those of D <= 128. At
 // RecurrentGemma's prefill shape (B 8, S 4096, bf16) the forward does
-// 5.15e11 FLOPs: 0.52 ms on the tensor cores. The backward keeps D <= 128
-// (the hybrid family's training is a later slice).
+// 5.15e11 FLOPs: 0.52 ms on the tensor cores.
+//
+// The backward at head dim 256 (RecurrentGemma-2B's training: B 2, S 4096,
+// H 10, K 1, window 2048). bf16: a warp's dK and dV accumulators together
+// would be 2 x 16 x 256 float32, 256 registers a thread before anything
+// else. So the dK/dV kernel runs twice, as two template passes over the
+// same tiles: the first forms P^T and adds P^T dO to dV only, the second
+// forms P^T again, then dP^T and dS^T, and adds dS^T Q to dK only; each
+// holds one 128-register accumulator (QT 16 query rows a step, as at D
+// 128). P^T is recomputed once more, so the backward does 12 products'
+// worth of mma where D <= 128 does 10. The dQ kernel takes 32-key steps, as
+// the forward does, for the same reason. Shared memory: 101,632 B a dK/dV
+// block, 135,168 B a dQ block. Masks, hi + lo splits of P and dS, delta and
+// the window's skipped tiles are those of D <= 128. At the training shape
+// the backward does 3.22e11 FLOPs (2.5 x the forward's 1.29e11): 0.326 ms
+// on the tensor cores.
 //
 // The CUDA-core design (float32) is simple and exact, not fast. Every
 // product runs in float32 on the CUDA cores, so
@@ -129,7 +146,11 @@
 // at DMAX 256 the V tile reuses the K tile's buffer: a KV step loads K,
 // forms the scores and P, then loads V over K and applies P (one more
 // barrier per KV tile), and the block holds 148 KB. The D <= 128
-// instantiations keep their separate K and V buffers and their code.
+// instantiations keep their separate K and V buffers and their code. The
+// float32 backward at head dim 256 does the same with its own two kernels
+// (flash_bwd_dkdv_seq_kernel, flash_bwd_dq_seq_kernel): K and V (or Q and
+// dO) stay resident and one staging tile takes Q, dO and Q again (or K, V
+// and K again) in turn, 231,168 B (214,528 B) a block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -536,6 +557,252 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// acc[i][j] = sum_d A[ty + 16 i][d] Bm[tx + 16 j][d] over [0, D): a 64 x 64
+// score tile from two staged tiles, in grad_scores' order of operations.
+template <int DMAX>
+__device__ __forceinline__ void tile_dot(const float* A, const float* Bm, int D,
+                                         float (&acc)[4][4]) {
+  constexpr int DS = DMAX + 1;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; ++d) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = A[(ty + 16 * i) * DS + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = Bm[(tx + 16 * j) * DS + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// P = exp(s scale - lse) under the mask, for the 4 x 4 entries a thread owns
+// (rows q0 + ty + 16 i, keys k0 + tx + 16 j): s is overwritten by P.
+__device__ __forceinline__ void tile_p(float (&s)[4][4], const float* lse_s,
+                                       int q0, int k0, int Sq, int Sk,
+                                       int causal, int window, float scale) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = ty + 16 * i, c = tx + 16 * j;
+      s[i][j] = visible(q0 + r, k0 + c, Sq, Sk, causal, window)
+                    ? expf(s[i][j] * scale - lse_s[r])
+                    : 0.f;
+    }
+}
+
+// dS = P (dP - delta) scale into dSs[query][key] (kPS stride).
+__device__ __forceinline__ void tile_ds(float* dSs, const float (&p)[4][4],
+                                        const float (&dp)[4][4],
+                                        const float* dl_s, float scale) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = ty + 16 * i;
+      dSs[r * kPS + tx + 16 * j] = p[i][j] * (dp[i][j] - dl_s[r]) * scale;
+    }
+}
+
+// The float32 backward at head dim 256 (see the header): four 64 x 257
+// float32 tiles do not fit a block's shared memory, so one staging buffer
+// takes Q, dO and Q again in turn (dK/dV kernel), or K, V and K again (dQ
+// kernel), with a barrier between; the arithmetic is that of the D <= 128
+// kernels.
+//
+// dK, dV. grid: x = key tiles, y = B * K. block: kThreads.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_seq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, T* __restrict__ dk,
+                          T* __restrict__ dv, int Sq, int Sk, int H, int K,
+                          int D, int causal, int window, float scale) {
+  constexpr int DS = DMAX + 1, CPT = DMAX / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + kTile * DS;
+  float* Xs = Vs + kTile * DS;  // Q, dO, then Q again
+  float* Ps = Xs + kTile * DS;
+  float* dSs = Ps + kTile * kPS;
+  float* lse_s = dSs + kTile * kPS;
+  float* dl_s = lse_s + kTile;
+
+  const int k0 = blockIdx.x * kTile;
+  const int b = blockIdx.y / K, kh = blockIdx.y % K, G = H / K;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)K * D;
+  load_tile<T, DMAX>(Ks, k + ((size_t)b * Sk * K + kh) * D, k0, Sk, kv_stride, D);
+  load_tile<T, DMAX>(Vs, v + ((size_t)b * Sk * K + kh) * D, k0, Sk, kv_stride, D);
+
+  float dka[4][CPT], dva[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(Sq, k0 + kTile - 1 + window) : Sq;
+  for (int g = 0; g < G; ++g) {
+    const int h = kh * G + g;
+    const T* qb = q + ((size_t)b * Sq * H + h) * D;
+    const T* dob = dout + ((size_t)b * Sq * H + h) * D;
+    for (int q0 = (q_lo / kTile) * kTile; q0 < q_hi; q0 += kTile) {
+      __syncthreads();  // the previous tile's readers are done
+      load_tile<T, DMAX>(Xs, qb, q0, Sq, q_stride, D);
+      load_row_vec(lse_s, lse + ((size_t)b * H + h) * Sq, q0, Sq);
+      load_row_vec(dl_s, delta + ((size_t)b * H + h) * Sq, q0, Sq);
+      __syncthreads();
+      float p[4][4], dp[4][4];
+      tile_dot<DMAX>(Xs, Ks, D, p);  // S = Q K^T
+      tile_p(p, lse_s, q0, k0, Sq, Sk, causal, window, scale);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * kPS + tx + 16 * j] = p[i][j];
+      __syncthreads();  // Q's readers are done
+      load_tile<T, DMAX>(Xs, dob, q0, Sq, q_stride, D);
+      __syncthreads();
+      tile_dot<DMAX>(Xs, Vs, D, dp);  // dP = dO V^T
+      tile_ds(dSs, p, dp, dl_s, scale);
+      __syncthreads();
+#pragma unroll 2
+      for (int r = 0; r < kTile; ++r) {  // dV += P^T dO
+        float pv[4], dov[CPT];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[i] = Ps[r * kPS + ty + 16 * i];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) dov[c] = Xs[r * DS + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) dva[i][c] = fmaf(pv[i], dov[c], dva[i][c]);
+      }
+      __syncthreads();  // dO's readers are done
+      load_tile<T, DMAX>(Xs, qb, q0, Sq, q_stride, D);
+      __syncthreads();
+#pragma unroll 2
+      for (int r = 0; r < kTile; ++r) {  // dK += dS^T Q
+        float dsv[4], qv[CPT];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dsv[i] = dSs[r * kPS + ty + 16 * i];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) qv[c] = Xs[r * DS + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) dka[i][c] = fmaf(dsv[i], qv[c], dka[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kpos = k0 + ty + 16 * i;
+    if (kpos >= Sk) continue;
+    const size_t row = (((size_t)b * Sk + kpos) * K + kh) * D;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) {
+        dk[row + d] = from_float<T>(dka[i][c]);
+        dv[row + d] = from_float<T>(dva[i][c]);
+      }
+    }
+  }
+}
+
+// dQ at head dim 256. grid: x = query tiles (heaviest first), y = B * H.
+// block: kThreads.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_seq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int Sq, int Sk, int H, int K, int D, int causal,
+                        int window, float scale) {
+  constexpr int DS = DMAX + 1, CPT = DMAX / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + kTile * DS;
+  float* Xs = dOs + kTile * DS;  // K, V, then K again
+  float* dSs = Xs + kTile * DS;
+  float* lse_s = dSs + kTile * kPS;
+  float* dl_s = lse_s + kTile;
+
+  const int n_qt = (Sq + kTile - 1) / kTile;
+  const int q0 = (n_qt - 1 - blockIdx.x) * kTile;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / (H / K);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)K * D;
+  const T* kb = k + ((size_t)b * Sk * K + kh) * D;
+  const T* vb = v + ((size_t)b * Sk * K + kh) * D;
+  load_tile<T, DMAX>(Qs, q + ((size_t)b * Sq * H + h) * D, q0, Sq, q_stride, D);
+  load_tile<T, DMAX>(dOs, dout + ((size_t)b * Sq * H + h) * D, q0, Sq, q_stride, D);
+  load_row_vec(lse_s, lse + ((size_t)b * H + h) * Sq, q0, Sq);
+  load_row_vec(dl_s, delta + ((size_t)b * H + h) * Sq, q0, Sq);
+
+  float dqa[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) dqa[i][c] = 0.f;
+
+  int k_lo, k_hi;
+  kv_range(q0, Sq, Sk, causal, window, &k_lo, &k_hi);
+  for (int k0 = (k_lo / kTile) * kTile; k0 < k_hi; k0 += kTile) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, DMAX>(Xs, kb, k0, Sk, kv_stride, D);
+    __syncthreads();
+    float p[4][4], dp[4][4];
+    tile_dot<DMAX>(Qs, Xs, D, p);  // S = Q K^T
+    tile_p(p, lse_s, q0, k0, Sq, Sk, causal, window, scale);
+    __syncthreads();  // K's readers are done
+    load_tile<T, DMAX>(Xs, vb, k0, Sk, kv_stride, D);
+    __syncthreads();
+    tile_dot<DMAX>(dOs, Xs, D, dp);  // dP = dO V^T
+    tile_ds(dSs, p, dp, dl_s, scale);
+    __syncthreads();  // V's readers are done, dS is whole
+    load_tile<T, DMAX>(Xs, kb, k0, Sk, kv_stride, D);
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < kTile; ++j) {  // dQ += dS K
+      float dsv[4], kv[CPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty + 16 * i) * kPS + j];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) kv[c] = Xs[j * DS + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) dqa[i][c] = fmaf(dsv[i], kv[c], dqa[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= Sq) continue;
+    T* row = dq + (((size_t)b * Sq + qpos) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) row[d] = from_float<T>(dqa[i][c]);
+    }
+  }
+}
+
 // delta[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d] in float32, one thread
 // a row, the rows in memory order, 16-byte loads (D is a multiple of 8, the
 // rows 16-byte aligned).
@@ -909,9 +1176,15 @@ __device__ __forceinline__ void load_q_step(
   load_rows_async<QT>(dl_s + buf * QT, delta + row, q0, Sq);
 }
 
+// Which of dK and dV a dK/dV launch forms: both (D <= 128), or one of them
+// (D 256, where the two accumulators would hold 256 float32 a thread: see
+// the header), each pass recomputing P^T.
+enum BwdPass { kPassDV = 1, kPassDK = 2, kPassBoth = 3 };
+
 // dK, dV. grid: x = 64-key tiles, y = B * K. block: kMmaThreads; warp w owns
-// keys k0 + 16 w .. + 16. QT query rows a step.
-template <int DMAX, int QT>
+// keys k0 + 16 w .. + 16. QT query rows a step; PASS says which of dK and
+// dV it forms and stores.
+template <int DMAX, int QT, int PASS = kPassBoth>
 __global__ void __launch_bounds__(kMmaThreads, DMAX == 64 ? 3 : 1)  // 168 registers
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v,
@@ -996,17 +1269,26 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       }
     }
     to_a_frags(hi, lo, x);                    // P^T as hi + lo
-    mma_ab<NK, DMAX>(dva, hi, lo, dOb, n16);  // dV += P^T dO
-    zero(x);
-    mma_abt<NT, DMAX>(x, Vs + warp * 16 * LD, dOb, n16);  // dP^T = V dO^T
-    ds_from_p(x, hi, lo, dl_b, scale);        // dS^T = P^T (dP^T - delta) scale
-    to_a_frags(hi, lo, x);
-    mma_ab<NK, DMAX>(dka, hi, lo, Qb, n16);   // dK += dS^T Q
+    if constexpr ((PASS & kPassDV) != 0)
+      mma_ab<NK, DMAX>(dva, hi, lo, dOb, n16);  // dV += P^T dO
+    if constexpr ((PASS & kPassDK) != 0) {
+      zero(x);
+      mma_abt<NT, DMAX>(x, Vs + warp * 16 * LD, dOb, n16);  // dP^T = V dO^T
+      ds_from_p(x, hi, lo, dl_b, scale);      // dS^T = P^T (dP^T - delta) scale
+      to_a_frags(hi, lo, x);
+      mma_ab<NK, DMAX>(dka, hi, lo, Qb, n16);  // dK += dS^T Q
+    }
   }
   cp_async_wait<0>();
 
-  store_rows(dk + kv_base, dka, kw, Sk, kv_stride, D);
-  store_rows(dv + kv_base, dva, kw, Sk, kv_stride, D);
+  if constexpr ((PASS & kPassDK) != 0) store_rows(dk + kv_base, dka, kw, Sk, kv_stride, D);
+  if constexpr ((PASS & kPassDV) != 0) store_rows(dv + kv_base, dva, kw, Sk, kv_stride, D);
+}
+
+// Keys a dQ step takes: 64, and 32 at D 256, where the warp's dQ
+// accumulator alone holds 128 float32 a thread (see the header).
+__host__ __device__ constexpr int bwd_kt(int dmax) {
+  return dmax > 128 ? 32 : kMmaTile;
 }
 
 // dQ. grid: x = 64-query tiles (heaviest causal first), y = B * H. block:
@@ -1019,7 +1301,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const float* __restrict__ delta, bf16* __restrict__ dq,
                         int Sq, int Sk, int H, int K, int D, int causal,
                         int window, float scale) {
-  constexpr int LD = DMAX + 8, KT = kMmaTile, NT = KT / 8, NK = KT / 16,
+  constexpr int LD = DMAX + 8, KT = bwd_kt(DMAX), NT = KT / 8, NK = KT / 16,
                 DT = DMAX / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -1324,6 +1606,39 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T, int DMAX>
+cudaError_t bwd_seq(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
+                    int K, int D, int causal, int window, float scale,
+                    cudaStream_t stream) {
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  // K, V, the staging tile, P, dS, lse, delta: 231,168 B at DMAX 256
+  const size_t smem_kv =
+      sizeof(float) * (3 * kTile * (DMAX + 1) + 2 * kTile * kPS + 2 * kTile);
+  cudaError_t err = set_smem(flash_bwd_dkdv_seq_kernel<T, DMAX>, smem_kv);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_seq_kernel<T, DMAX>
+      <<<dim3((Sk + kTile - 1) / kTile, B * K), kThreads, smem_kv, stream>>>(
+          tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+          Sq, Sk, H, K, D, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // Q, dO, the staging tile, dS, lse, delta: 214,528 B at DMAX 256
+  const size_t smem_q =
+      sizeof(float) * (3 * kTile * (DMAX + 1) + kTile * kPS + 2 * kTile);
+  err = set_smem(flash_bwd_dq_seq_kernel<T, DMAX>, smem_q);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_seq_kernel<T, DMAX>
+      <<<dim3((Sq + kTile - 1) / kTile, B * H), kThreads, smem_q, stream>>>(
+          tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), Sq, Sk, H, K, D,
+          causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int DMAX>
 cudaError_t bwd_typed(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, void* dk, void* dv, int B, int Sq, int Sk,
@@ -1368,16 +1683,36 @@ cudaError_t bwd_mma(const void* q, const void* k, const void* v,
   // K, V; Q and dO, lse and delta in each stage
   constexpr size_t smem_kv = sizeof(bf16) * (2 * kMmaTile + 2 * kStages * QT) * LD +
                              sizeof(float) * 2 * kStages * QT;
-  cudaError_t err = set_smem(flash_bwd_dkdv_mma_kernel<DMAX, QT>, smem_kv);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_mma_kernel<DMAX, QT>
-      <<<dim3((Sk + kMmaTile - 1) / kMmaTile, B * K), kMmaThreads, smem_kv, stream>>>(
-          tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
-          static_cast<bf16*>(dv), Sq, Sk, H, K, D, causal, window, scale);
+  const dim3 grid_kv((Sk + kMmaTile - 1) / kMmaTile, B * K);
+  cudaError_t err;
+  if constexpr (DMAX > 128) {  // dV, then dK: one accumulator a pass
+    err = set_smem(flash_bwd_dkdv_mma_kernel<DMAX, QT, kPassDV>, smem_kv);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_mma_kernel<DMAX, QT, kPassDV>
+        <<<grid_kv, kMmaThreads, smem_kv, stream>>>(
+            tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+            static_cast<bf16*>(dv), Sq, Sk, H, K, D, causal, window, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = set_smem(flash_bwd_dkdv_mma_kernel<DMAX, QT, kPassDK>, smem_kv);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_mma_kernel<DMAX, QT, kPassDK>
+        <<<grid_kv, kMmaThreads, smem_kv, stream>>>(
+            tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+            static_cast<bf16*>(dv), Sq, Sk, H, K, D, causal, window, scale);
+  } else {
+    err = set_smem(flash_bwd_dkdv_mma_kernel<DMAX, QT>, smem_kv);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_mma_kernel<DMAX, QT>
+        <<<grid_kv, kMmaThreads, smem_kv, stream>>>(
+            tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+            static_cast<bf16*>(dv), Sq, Sk, H, K, D, causal, window, scale);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // Q, dO; K and V in each stage
-  constexpr size_t smem_q = sizeof(bf16) * (2 + 2 * kStages) * kMmaTile * LD;
+  constexpr size_t smem_q =
+      sizeof(bf16) * (2 * kMmaTile + 2 * kStages * bwd_kt(DMAX)) * LD;
   err = set_smem(flash_bwd_dq_mma_kernel<DMAX>, smem_q);
   if (err != cudaSuccess) return err;
   flash_bwd_dq_mma_kernel<DMAX>
@@ -1401,7 +1736,6 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// d_max: 256 for the forward, 128 for the backward
 bool bad_args(int B, int Sq, int Sk, int H, int K, int D, int dtype,
               int d_max) {
   return B < 1 || Sq < 1 || Sk < 1 || K < 1 || H % K != 0 || D < 8 ||
@@ -1411,7 +1745,7 @@ bool bad_args(int B, int Sq, int Sk, int H, int K, int D, int dtype,
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, dO, dq, dk, dv alike).
-// The forward takes D <= 256, the backward D <= 128. causal is 0 or 1;
+// Both take D <= 256. causal is 0 or 1;
 // window <= 0 means no window. Each returns 0 on success, a cudaError_t from
 // a launch, or -1 for arguments the kernels do not take (the Python wrapper
 // checks these first).
@@ -1455,7 +1789,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    void* dk, void* dv, int B, int Sq, int Sk,
                                    int H, int K, int D, int causal, int window,
                                    float scale, int dtype, void* stream) {
-  if (bad_args(B, Sq, Sk, H, K, D, dtype, 128)) return -1;
+  if (bad_args(B, Sq, Sk, H, K, D, dtype, 256)) return -1;
   const void* tensors[] = {q, k, v, o, dout};
   for (const void* p : tensors)
     if (!aligned16(p)) return -1;
@@ -1467,11 +1801,13 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                : delta_typed<bf16>(o, dout, dl, B, Sq, H, D, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype == 0)  // float32: the CUDA-core kernels
-    err = D <= 64 ? bwd_typed<float, 64>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
-                  : bwd_typed<float, 128>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s);
+    err = D <= 64    ? bwd_typed<float, 64>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
+          : D <= 128 ? bwd_typed<float, 128>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
+                     : bwd_seq<float, 256>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s);
   else  // bfloat16: the tensor cores
-    err = D <= 64 ? bwd_mma<64, 64>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
-                  : bwd_mma<128, 16>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s);
+    err = D <= 64    ? bwd_mma<64, 64>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
+          : D <= 128 ? bwd_mma<128, 16>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
+                     : bwd_mma<256, 16>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s);
   return static_cast<int>(err);
 }
 

@@ -10,9 +10,11 @@ kernel. The route is by dtype and head dim D, nothing else:
 - bfloat16 runs on the tensor cores (bf16 ``mma.sync`` with float32
   accumulators): the forward ``flash_fwd_mma_kernel`` at any D (a 64-key
   step at D <= 128, a 32-key step at D 256), the backward
-  ``flash_bwd_dkdv_mma_kernel`` and ``flash_bwd_dq_mma_kernel``;
+  ``flash_bwd_dkdv_mma_kernel`` (at D 256 twice: a dV pass, then a dK
+  pass) and ``flash_bwd_dq_mma_kernel`` (32-key steps at D 256);
 - float32 runs on the CUDA cores: ``flash_fwd_kernel``,
-  ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``.
+  ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``, at D 256
+  ``flash_bwd_dkdv_seq_kernel`` and ``flash_bwd_dq_seq_kernel``.
 
 The source is ``csrc/flash_attention.cu`` (its header gives the design and
 what bounds it). It is built with ``nvcc`` for ``sm_90a`` on first use into
@@ -81,7 +83,7 @@ def _load():
     return _lib
 
 
-def _check(tensors: dict, q, k, d_max: int) -> None:
+def _check(tensors: dict, q, k) -> None:
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"want q (B,S,H,D) and k/v (B,S,K,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
@@ -89,12 +91,8 @@ def _check(tensors: dict, q, k, d_max: int) -> None:
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"match (same B and D, H % K == 0)")
-    if d_max == 128 and d > 128:
-        raise ValueError(f"head dim {d}: the flash backward takes D <= 128; "
-                         f"larger D waits for the hybrid family's training "
-                         f"slice (ROADMAP.md)")
-    if d % 8 or not 8 <= d <= d_max:
-        raise ValueError(f"head dim {d}: the kernel takes D <= {d_max}, a "
+    if d % 8 or not 8 <= d <= 256:
+        raise ValueError(f"head dim {d}: the kernel takes D <= 256, a "
                          f"multiple of 8")
     if b * h > 65535:
         raise ValueError(f"B * H = {b * h} exceeds the grid's 65535")
@@ -145,7 +143,7 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True,
     and when the launch fails.
     """
     global launches_fwd, launches_fwd_mma
-    _check({"q": q, "k": k, "v": v}, q, k, d_max=256)
+    _check({"q": q, "k": k, "v": v}, q, k)
     _check_like("v", v, k)
     if k.dtype != q.dtype:
         raise ValueError(f"q, k and v must share a dtype ({q.dtype}, {k.dtype})")
@@ -181,7 +179,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     """Launch the backward: ``(dq, dk, dv)`` in the dtype of q.
 
     ``o`` and ``lse`` are the forward's outputs and ``do`` the gradient of
-    ``o``; all as in :func:`flash_attention_fwd_cuda`, but ``D <= 128``.
+    ``o``; all as in :func:`flash_attention_fwd_cuda` (``D <= 256``; at D
+    256 bf16 runs the dK/dV kernel twice, dV then dK, and float32 its own
+    two kernels with one staging tile).
     ``delta = rowsum(do * o)`` (float32, ``(B, H, Sq)``) is the kernels'
     scratch: a pre-pass kernel writes it before the dK/dV and dQ kernels
     read it (``_flash_bwd`` computes it outside its tile loops too). The
@@ -189,8 +189,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     float32.
     """
     global launches_bwd
-    _check({"q": q, "k": k, "v": v, "o": o, "lse": lse, "do": do}, q, k,
-           d_max=128)
+    _check({"q": q, "k": k, "v": v, "o": o, "lse": lse, "do": do}, q, k)
     _check_like("v", v, k)
     _check_like("o", o, q)
     _check_like("do", do, q)

@@ -13,6 +13,9 @@ shape and contiguity, allocates the outputs with ``torch.empty``, launches
 on PyTorch's current stream, raises if the launch fails, and counts its
 launches in the module-level integer :data:`launches`. Unlike the Pallas
 wrapper it takes any ``S >= 1`` and any ``W`` (no block divisibility).
+:func:`rglru_scan_bwd_cuda` launches the same source's backward kernel (the
+gradient of the scan, which no TPU kernel computes) and counts its launches
+in :data:`launches_bwd`.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ from repro_torch.kernels import build as _build
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the CUDA forward / backward kernel since the count was last
+# set to 0
 launches = 0
+launches_bwd = 0
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -49,14 +54,16 @@ def _load():
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.rglru_scan.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
             lib.rglru_scan.restype = i32
+            lib.rglru_scan_bwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+            lib.rglru_scan_bwd.restype = i32
             lib.rglru_scan_error_string.argtypes = [i32]
             lib.rglru_scan_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
 
 
-def _check(a, b) -> None:
-    for name, t in (("a", a), ("b", b)):
+def _check(a, b, **more) -> None:
+    for name, t in (("a", a), ("b", b), *more.items()):
         if t.device.type != "cuda" or t.device != a.device:
             raise ValueError(f"{name} must be a CUDA tensor on {a.device} "
                              f"(got {t.device})")
@@ -64,9 +71,10 @@ def _check(a, b) -> None:
             raise ValueError(f"{name} must be float32 (got {t.dtype})")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if a.dim() != 3 or a.shape != b.shape:
-        raise ValueError(f"want a and b (B, S, W) of one shape; got "
-                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dim() != 3 or any(t.shape != a.shape for t in (b, *more.values())):
+        raise ValueError(f"want {', '.join(['a', 'b', *more])} (B, S, W) of "
+                         f"one shape; got {tuple(a.shape)}, "
+                         f"{[tuple(t.shape) for t in (b, *more.values())]}")
     bsz, s, w = a.shape
     if not (1 <= bsz <= 65535 and s >= 1 and w >= 1):
         raise ValueError(f"shape {tuple(a.shape)}: want 1 <= B <= 65535, "
@@ -98,3 +106,33 @@ def rglru_scan_cuda(a: torch.Tensor,
         raise RuntimeError(f"RG-LRU scan kernel launch failed: {msg}")
     launches += 1
     return y, h_final
+
+
+def rglru_scan_bwd_cuda(a: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                        dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel: ``(da, db)`` (B, S, W) float32, the
+    gradients of :func:`rglru_scan_cuda` (h starting at 0) for the output
+    gradients ``dy`` of ``y`` and ``dh`` (B, W) of ``h_final``; ``y`` is
+    the forward's output (``h_{t-1}`` for ``da``). All float32, contiguous,
+    on one CUDA device. Raises on anything the kernel does not take and when
+    the launch fails."""
+    global launches_bwd
+    _check(a, y, dy=dy)
+    bsz, s, w = a.shape
+    if dh.device != a.device or dh.dtype != torch.float32 or \
+            tuple(dh.shape) != (bsz, w) or not dh.is_contiguous():
+        raise ValueError(f"dh must be ({bsz}, {w}) float32, contiguous, on "
+                         f"{a.device} (got {tuple(dh.shape)} {dh.dtype} on "
+                         f"{dh.device})")
+    lib = _load()
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.rglru_scan_bwd(a.data_ptr(), y.data_ptr(), dy.data_ptr(),
+                                 dh.data_ptr(), da.data_ptr(), db.data_ptr(),
+                                 bsz, s, w, stream)
+    if err != 0:
+        msg = lib.rglru_scan_error_string(err).decode()
+        raise RuntimeError(f"RG-LRU scan backward kernel launch failed: {msg}")
+    launches_bwd += 1
+    return da, db

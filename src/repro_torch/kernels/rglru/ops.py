@@ -2,11 +2,15 @@
 
 Port of ``src/repro/kernels/rglru/ops.py``. As the reference's wrapper does
 (``ops.py:18-23``), :func:`rglru` folds ``h0`` into the first step
-(``b[:, 0] += a[:, 0] * h0``) and casts ``a`` and ``b`` to float32. CUDA
-tensors then launch the hand-written kernel
-(:func:`repro_torch.kernels.rglru.kernel.rglru_scan_cuda`), CPU tensors
-take the plain version (``ref.py``), and any other device raises. There is
-no fallback from the kernel to the plain version. :data:`SPEC` registers
+(``b[:, 0] += a[:, 0] * h0``, differentiable, so ``h0`` and ``a[:, 0]``
+get their share of the gradient) and casts ``a`` and ``b`` to float32.
+The scan itself is a ``torch.autograd.Function`` on both devices: CUDA
+tensors launch the hand-written kernels, the forward
+(:func:`repro_torch.kernels.rglru.kernel.rglru_scan_cuda`) and its
+backward (:func:`~repro_torch.kernels.rglru.kernel.rglru_scan_bwd_cuda`,
+which reads ``h_{t-1}`` from the saved ``y``); CPU tensors take the plain
+versions (``ref.py``), and any other device raises. There is no fallback
+from a kernel to its plain version. :data:`SPEC` registers
 :func:`rglru` with the XAIF registry under the impl key ``"cuda"``, with
 the reference's ports and power domain (``ops.py:26-39``).
 """
@@ -22,10 +26,27 @@ from repro_torch.sharding import axes as lx
 from repro_torch.sharding.params import Axes
 
 
+class _Scan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        if a.device.type == "cuda":
+            y, h = kernel.rglru_scan_cuda(a, b)
+        else:
+            y, h = ref.rglru(a, b)
+        ctx.save_for_backward(a, y)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        a, y = ctx.saved_tensors
+        dy, dh = dy.contiguous(), dh.contiguous()
+        if a.device.type == "cuda":
+            return kernel.rglru_scan_bwd_cuda(a, y, dy, dh)
+        return ref.rglru_bwd(a, y, dy, dh)
+
+
 def _scan(a, b):
-    if a.device.type == "cuda":
-        return kernel.rglru_scan_cuda(a, b)
-    return ref.rglru(a, b)
+    return _Scan.apply(a, b)
 
 
 def rglru(a: torch.Tensor, b: torch.Tensor,

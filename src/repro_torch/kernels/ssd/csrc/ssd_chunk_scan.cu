@@ -1098,6 +1098,342 @@ int launch_tc(const void* x, const void* dA, const void* B, const void* C,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Backward of the chunk scan (see the header): three launches a call, the
+// backward's own chunks of kBQ steps, float32 FMAs on the CUDA cores, the
+// cumsums in float64, every sum in a fixed order
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 64;            // the backward's chunk (any chunk gives the
+                                   // same function; 64 keeps a chunk's Q x Q
+                                   // matrices in shared memory)
+constexpr int kBThreads = 256;
+
+// the row's inclusive cumsum of dA over chunk [t0, t0 + kBQ) in float64, 0
+// past S (identity steps), by one thread, in order
+__device__ __forceinline__ void bwd_cumsum(double* cs, const float* dA,
+                                           long long ds, int t0, int S) {
+  if (threadIdx.x == 0) {
+    double acc = 0.0;
+    for (int i = 0; i < kBQ; ++i) {
+      if (t0 + i < S) acc += (double)dA[(long long)(t0 + i) * ds];
+      cs[i] = acc;
+    }
+  }
+}
+
+// rows [t0, t0 + kBQ) of a (b, s, h, width) row-strided input as float32 into
+// tile[kBQ][stride], each row scaled by scale[r] (or not, if null); 0 past S
+template <typename T>
+__device__ __forceinline__ void bwd_stage(float* tile, int stride, const T* src,
+                                          long long row_stride, int t0, int S,
+                                          int width, const float* scale) {
+  for (int e = threadIdx.x; e < kBQ * width; e += kBThreads) {
+    const int r = e / width, c = e % width;
+    float v = t0 + r < S ? to_f(src[(long long)(t0 + r) * row_stride + c]) : 0.f;
+    if (scale) v *= scale[r];
+    tile[r * stride + c] = v;
+  }
+}
+
+// (1) grid (nc, b * H): the chunk's own state U = sum_s exp(a_end - a_s)
+//     x_s B_s^T and its state gradient D = sum_l exp(a_l) dy_l C_l^T (both
+//     P x N), and its decay exp(a_end).
+template <typename TX, typename TBC>
+__global__ void __launch_bounds__(kBThreads)
+ssd_bwd_chunk_kernel(const TX* __restrict__ x, const float* __restrict__ dA,
+                     const TBC* __restrict__ B, const TBC* __restrict__ C,
+                     const TX* __restrict__ dy, float* __restrict__ ws_u,
+                     float* __restrict__ ws_d, float* __restrict__ ws_a, int H,
+                     int S, int P, int N, int nc, Strides st) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* cs = reinterpret_cast<double*>(smem_raw);
+  float* ev = reinterpret_cast<float*>(cs + kBQ);  // exp(a_end - a_s)
+  float* fv = ev + kBQ;                            // exp(a_l)
+  float* Xs = fv + kBQ;                            // [kBQ][P], scaled by ev
+  float* Ys = Xs + kBQ * P;                        // [kBQ][P], dy scaled by fv
+  float* Bs = Ys + kBQ * P;                        // [kBQ][N]
+  float* Cs = Bs + kBQ * N;                        // [kBQ][N]
+
+  const int c = blockIdx.x, t0 = c * kBQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const float* dAp = dA + b * st.db + h * st.dh;
+  bwd_cumsum(cs, dAp, st.ds, t0, S);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kBQ; i += kBThreads) {
+    ev[i] = expf((float)(cs[kBQ - 1] - cs[i]));
+    fv[i] = expf((float)cs[i]);
+  }
+  __syncthreads();
+  bwd_stage(Xs, P, x + b * st.xb + h * st.xh, st.xs, t0, S, P, ev);
+  bwd_stage(Ys, P, dy + ((long long)b * S * H + h) * P, (long long)H * P, t0, S,
+            P, fv);
+  bwd_stage(Bs, N, B + b * st.bb + h * st.bh, st.bs, t0, S, N, nullptr);
+  bwd_stage(Cs, N, C + b * st.cb + h * st.ch, st.cs, t0, S, N, nullptr);
+  __syncthreads();
+  const size_t base = ((size_t)blockIdx.y * nc + c) * P * N;
+  for (int e = threadIdx.x; e < P * N; e += kBThreads) {
+    const int p = e / N, n = e % N;
+    float u = 0.f, d = 0.f;
+    for (int r = 0; r < kBQ; ++r) {
+      u = fmaf(Xs[r * P + p], Bs[r * N + n], u);
+      d = fmaf(Ys[r * P + p], Cs[r * N + n], d);
+    }
+    ws_u[base + e] = u;
+    ws_d[base + e] = d;
+  }
+  if (threadIdx.x == 0) ws_a[(size_t)blockIdx.y * nc + c] = fv[kBQ - 1];
+}
+
+// (2) grid (ceil(P N / 256), b * H): along each (b, h) row, in place, the
+//     state entering each chunk, H_in[c] = exp(a_end[c-1]) H_in[c-1] +
+//     U[c-1] (H_in[0] = 0) over ws_u, and the gradient of the state leaving
+//     it, G[c] = exp(a_end[c+1]) G[c+1] + D[c+1] (G[last] = the final
+//     state's gradient) over ws_d.
+__global__ void __launch_bounds__(kBThreads)
+ssd_bwd_pass_kernel(float* __restrict__ ws_u, float* __restrict__ ws_d,
+                    const float* __restrict__ ws_a,
+                    const float* __restrict__ dstate, int P, int N, int nc) {
+  const int e = blockIdx.x * kBThreads + threadIdx.x;
+  if (e >= P * N) return;
+  const size_t row = blockIdx.y;
+  const size_t pn = (size_t)P * N;
+  float* u = ws_u + row * nc * pn + e;
+  float* d = ws_d + row * nc * pn + e;
+  const float* a = ws_a + row * nc;
+  float hs = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    const float uc = u[c * pn];
+    u[c * pn] = hs;
+    hs = fmaf(a[c], hs, uc);
+  }
+  float g = dstate[row * pn + e];
+  for (int c = nc - 1; c >= 0; --c) {
+    const float dc = d[c * pn];
+    d[c * pn] = g;
+    g = fmaf(a[c], g, dc);
+  }
+}
+
+// deterministic sum over the block (a fixed tree); every thread gets it
+__device__ __forceinline__ float bwd_block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < kBThreads / 32; ++w) t += red[w];
+  return t;
+}
+
+// (3) grid (nc, b * H): the chunk's gradients, from its inputs, dy, the state
+//     entering it (H_in, ws_u after (2)) and the gradient of the state
+//     leaving it (G, ws_d after (2)); with L[l, s] = exp(a_l - a_s) for
+//     s <= l (else 0), e_s = exp(a_end - a_s), f_l = exp(a_l):
+//   dx_s  = sum_{l >= s} L[l,s] (C_l . B_s) dy_l + e_s G B_s
+//   dB_s  = sum_{l >= s} L[l,s] (dy_l . x_s) C_l + e_s G^T x_s
+//   dC_l  = sum_{s <= l} L[l,s] (dy_l . x_s) B_s + f_l H_in^T dy_l
+//   da_l  = sum_s T[l,s] - sum_s T[s,l] + f_l dy_l . (H_in C_l) - F_l
+//           (+ f_end <G, H_in> + sum_s F_s at l = end),
+//           T[l,s] = L[l,s] (C_l . B_s)(dy_l . x_s), F_s = e_s x_s . (G B_s)
+//   d(dA)_t = sum_{l >= t} da_l within the chunk (a_l sums dA over [0, l]).
+// dB and dC are written per head, float32; summing them over heads that
+// share B and C is left to the caller (autograd's expand).
+template <typename TX, typename TBC>
+__global__ void __launch_bounds__(kBThreads)
+ssd_bwd_grad_kernel(const TX* __restrict__ x, const float* __restrict__ dA,
+                    const TBC* __restrict__ B, const TBC* __restrict__ C,
+                    const TX* __restrict__ dy, const float* __restrict__ ws_h,
+                    const float* __restrict__ ws_g, TX* __restrict__ dx,
+                    float* __restrict__ ddA, float* __restrict__ dB,
+                    float* __restrict__ dC, int H, int S, int P, int N, int nc,
+                    Strides st) {
+  constexpr int QS = kBQ + 1;
+  const int PS = P + 1, NS = N + 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* cs = reinterpret_cast<double*>(smem_raw);
+  float* ev = reinterpret_cast<float*>(cs + kBQ);
+  float* fv = ev + kBQ;
+  float* Fv = fv + kBQ;        // F_s
+  float* dcs = Fv + kBQ;       // da_l
+  float* red = dcs + kBQ;      // [kBThreads / 32]
+  float* Xs = red + kBThreads / 32;  // [kBQ][P + 1]
+  float* Ys = Xs + kBQ * PS;         // dy, [kBQ][P + 1]
+  float* Bs = Ys + kBQ * PS;         // [kBQ][N + 1]
+  float* Cs = Bs + kBQ * NS;         // [kBQ][N + 1]
+  float* Hs = Cs + kBQ * NS;         // G, then H_in: [P][N + 1]
+  float* M = Hs + P * NS;            // L (C . B), [l][s]
+  float* LX = M + kBQ * QS;          // L (dy . x), [l][s]
+  float* Tt = LX + kBQ * QS;         // T, then scratch [kBQ][P + 1]
+
+  const int c = blockIdx.x, t0 = c * kBQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  bwd_cumsum(cs, dA + b * st.db + h * st.dh, st.ds, t0, S);
+  const size_t wbase = ((size_t)blockIdx.y * nc + c) * P * N;
+  for (int e = threadIdx.x; e < P * N; e += kBThreads)
+    Hs[(e / N) * NS + e % N] = ws_g[wbase + e];
+  const long long y_rows = (long long)H * P;
+  const TX* dyp = dy + ((long long)b * S * H + h) * P;
+  bwd_stage(Xs, PS, x + b * st.xb + h * st.xh, st.xs, t0, S, P, nullptr);
+  bwd_stage(Ys, PS, dyp, y_rows, t0, S, P, nullptr);
+  bwd_stage(Bs, NS, B + b * st.bb + h * st.bh, st.bs, t0, S, N, nullptr);
+  bwd_stage(Cs, NS, C + b * st.cb + h * st.ch, st.cs, t0, S, N, nullptr);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kBQ; i += kBThreads) {
+    ev[i] = expf((float)(cs[kBQ - 1] - cs[i]));
+    fv[i] = expf((float)cs[i]);
+  }
+  // the Q x Q matrices of the chunk
+  for (int e = threadIdx.x; e < kBQ * kBQ; e += kBThreads) {
+    const int l = e / kBQ, s = e % kBQ;
+    float m = 0.f, lx = 0.f, t = 0.f;
+    if (s <= l) {
+      const float L = expf((float)(cs[l] - cs[s]));
+      float cb = 0.f, xd = 0.f;
+      for (int n = 0; n < N; ++n) cb = fmaf(Cs[l * NS + n], Bs[s * NS + n], cb);
+      for (int p = 0; p < P; ++p) xd = fmaf(Ys[l * PS + p], Xs[s * PS + p], xd);
+      m = L * cb;
+      lx = L * xd;
+      t = m * xd;
+    }
+    M[l * QS + s] = m;
+    LX[l * QS + s] = lx;
+    Tt[l * QS + s] = t;
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < kBQ; l += kBThreads) {
+    float row = 0.f, col = 0.f;
+    for (int s = 0; s < kBQ; ++s) {
+      row += Tt[l * QS + s];
+      col += Tt[s * QS + l];
+    }
+    dcs[l] = row - col;
+  }
+  __syncthreads();  // T's readers are done: Tt is scratch from here
+
+  // dx, with x_s . (G B_s) into the scratch
+  TX* dxp = dx + ((long long)b * S * H + h) * P;
+  for (int e = threadIdx.x; e < kBQ * P; e += kBThreads) {
+    const int s = e / P, p = e % P;
+    float acc = 0.f, r = 0.f;
+    for (int l = s; l < kBQ; ++l) acc = fmaf(M[l * QS + s], Ys[l * PS + p], acc);
+    for (int n = 0; n < N; ++n) r = fmaf(Hs[p * NS + n], Bs[s * NS + n], r);
+    Tt[s * PS + p] = Xs[s * PS + p] * r;
+    if (t0 + s < S) from_f(fmaf(ev[s], r, acc), dxp + (long long)(t0 + s) * y_rows + p);
+  }
+  // dB
+  const long long g_rows = (long long)H * N;
+  float* dBp = dB + ((long long)b * S * H + h) * N;
+  float* dCp = dC + ((long long)b * S * H + h) * N;
+  for (int e = threadIdx.x; e < kBQ * N; e += kBThreads) {
+    const int s = e / N, n = e % N;
+    float acc = 0.f, r = 0.f;
+    for (int l = s; l < kBQ; ++l) acc = fmaf(LX[l * QS + s], Cs[l * NS + n], acc);
+    for (int p = 0; p < P; ++p) r = fmaf(Hs[p * NS + n], Xs[s * PS + p], r);
+    if (t0 + s < S) dBp[(long long)(t0 + s) * g_rows + n] = fmaf(ev[s], r, acc);
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < kBQ; s += kBThreads) {
+    float f = 0.f;
+    for (int p = 0; p < P; ++p) f += Tt[s * PS + p];
+    Fv[s] = ev[s] * f;
+  }
+  // <G, H_in>, and H_in over G in Hs (each thread its own entries)
+  float hd = 0.f;
+  for (int e = threadIdx.x; e < P * N; e += kBThreads) {
+    const float hin = ws_h[wbase + e];
+    float* at = Hs + (e / N) * NS + e % N;
+    hd = fmaf(*at, hin, hd);
+    *at = hin;
+  }
+  const float hdot = bwd_block_sum(hd, red);  // its barriers also end F's reads
+
+  // dC, with dy_l . (H_in C_l) into the scratch
+  for (int e = threadIdx.x; e < kBQ * N; e += kBThreads) {
+    const int l = e / N, n = e % N;
+    float acc = 0.f, w = 0.f;
+    for (int s = 0; s <= l; ++s) acc = fmaf(LX[l * QS + s], Bs[s * NS + n], acc);
+    for (int p = 0; p < P; ++p) w = fmaf(Hs[p * NS + n], Ys[l * PS + p], w);
+    if (t0 + l < S) dCp[(long long)(t0 + l) * g_rows + n] = fmaf(fv[l], w, acc);
+  }
+  for (int e = threadIdx.x; e < kBQ * P; e += kBThreads) {
+    const int l = e / P, p = e % P;
+    float v = 0.f;
+    for (int n = 0; n < N; ++n) v = fmaf(Hs[p * NS + n], Cs[l * NS + n], v);
+    Tt[l * PS + p] = Ys[l * PS + p] * v;
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < kBQ; l += kBThreads) {
+    float ev_l = 0.f;
+    for (int p = 0; p < P; ++p) ev_l += Tt[l * PS + p];
+    dcs[l] += fv[l] * ev_l - Fv[l];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float fsum = 0.f;
+    for (int s = 0; s < kBQ; ++s) fsum += Fv[s];
+    dcs[kBQ - 1] += fv[kBQ - 1] * hdot + fsum;
+    float acc = 0.f;
+    float* ddAp = ddA + ((long long)b * S * H + h);
+    for (int t = kBQ - 1; t >= 0; --t) {
+      acc += dcs[t];
+      if (t0 + t < S) ddAp[(long long)(t0 + t) * H] = acc;
+    }
+  }
+}
+
+size_t bwd_chunk_smem(int P, int N) {
+  return sizeof(double) * kBQ + sizeof(float) * (2 * kBQ + 2 * kBQ * P + 2 * kBQ * N);
+}
+
+size_t bwd_grad_smem(int P, int N) {
+  return sizeof(double) * kBQ +
+         sizeof(float) * (4 * kBQ + kBThreads / 32 + 2 * kBQ * (P + 1) +
+                          2 * kBQ * (N + 1) + P * (N + 1) + 3 * kBQ * (kBQ + 1));
+}
+
+template <typename TX, typename TBC>
+int launch_bwd(const void* x, const void* dA, const void* B, const void* C,
+               const void* dy, const void* dstate, void* dx, void* ddA,
+               void* dB, void* dC, void* ws_u, void* ws_d, void* ws_a, int b,
+               int S, int H, int P, int N, const Strides& st,
+               cudaStream_t stream) {
+  const int nc = (S + kBQ - 1) / kBQ;
+  const dim3 grid(nc, b * H);
+  const size_t smem1 = bwd_chunk_smem(P, N), smem3 = bwd_grad_smem(P, N);
+  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<TX, TBC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_grad_kernel<TX, TBC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem3);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_chunk_kernel<TX, TBC><<<grid, kBThreads, smem1, stream>>>(
+      static_cast<const TX*>(x), static_cast<const float*>(dA),
+      static_cast<const TBC*>(B), static_cast<const TBC*>(C),
+      static_cast<const TX*>(dy), static_cast<float*>(ws_u),
+      static_cast<float*>(ws_d), static_cast<float*>(ws_a), H, S, P, N, nc, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_pass_kernel<<<dim3((P * N + kBThreads - 1) / kBThreads, b * H),
+                        kBThreads, 0, stream>>>(
+      static_cast<float*>(ws_u), static_cast<float*>(ws_d),
+      static_cast<const float*>(ws_a), static_cast<const float*>(dstate), P, N,
+      nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_grad_kernel<TX, TBC><<<grid, kBThreads, smem3, stream>>>(
+      static_cast<const TX*>(x), static_cast<const float*>(dA),
+      static_cast<const TBC*>(B), static_cast<const TBC*>(C),
+      static_cast<const TX*>(dy), static_cast<const float*>(ws_u),
+      static_cast<const float*>(ws_d), static_cast<TX*>(dx),
+      static_cast<float*>(ddA), static_cast<float*>(dB), static_cast<float*>(dC),
+      H, S, P, N, nc, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x (b, S, H, P), dA (b, S, H), B/C (b, S, H, N), each through its element
@@ -1158,6 +1494,34 @@ extern "C" int ssd_chunk_scan_smem(int kernel, int x_bf16, int Q) {
   if (kernel == 0)
     return (int)(x_bf16 ? tc_state_smem<bf16>(q_pad) : tc_state_smem<float>(q_pad));
   return (int)(x_bf16 ? tc_out_smem<bf16>(q_pad) : tc_out_smem<float>(q_pad));
+}
+
+// The backward: x, dA, B, C as for ssd_chunk_scan (the same strides); dy
+// (b, S, H, P) contiguous in x's dtype, dstate (b, H, P, N) float32; out dx
+// (b, S, H, P) contiguous in x's dtype, ddA (b, S, H) float32,
+// dB and dC (b, S, H, N) float32, per head; workspaces ws_u and ws_d
+// (float32, b H nc P N) and ws_a (float32, b H nc), nc = ceil(S / 64).
+extern "C" int ssd_chunk_scan_bwd(const void* x, const void* dA,
+                                  const void* B, const void* C,
+                                  const void* dy, const void* dstate,
+                                  void* dx, void* ddA, void* dB, void* dC,
+                                  void* ws_u, void* ws_d, void* ws_a,
+                                  int x_bf16, int bc_bf16, int b, int S, int H,
+                                  int P, int N, long long sxb, long long sxs,
+                                  long long sxh, long long sdb, long long sds,
+                                  long long sdh, long long sbb, long long sbs,
+                                  long long sbh, long long scb, long long scs,
+                                  long long sch, void* stream) {
+  if (b < 1 || S < 1 || H < 1 || P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
+      (long long)b * H > 65535)
+    return -1;
+  const Strides st{sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs, sbh, scb, scs, sch};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return bc_bf16 ? launch_bwd<bf16, bf16>(x, dA, B, C, dy, dstate, dx, ddA, dB, dC, ws_u, ws_d, ws_a, b, S, H, P, N, st, s)
+                   : launch_bwd<bf16, float>(x, dA, B, C, dy, dstate, dx, ddA, dB, dC, ws_u, ws_d, ws_a, b, S, H, P, N, st, s);
+  return bc_bf16 ? launch_bwd<float, bf16>(x, dA, B, C, dy, dstate, dx, ddA, dB, dC, ws_u, ws_d, ws_a, b, S, H, P, N, st, s)
+                 : launch_bwd<float, float>(x, dA, B, C, dy, dstate, dx, ddA, dB, dC, ws_u, ws_d, ws_a, b, S, H, P, N, st, s);
 }
 
 extern "C" const char* ssd_chunk_scan_error_string(int code) {

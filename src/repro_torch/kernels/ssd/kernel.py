@@ -33,6 +33,12 @@ and of those the ones the C entry reports it ran on the tc route in
 :data:`launches_tc`. Unlike the Pallas wrapper it takes the model's layout
 through strides (no head-major copy; B and C may be broadcast over heads
 with stride 0) and any ``S >= 1``.
+
+:func:`ssd_bwd_cuda` launches the backward of the scan (no TPU kernel
+computes it: the reference differentiates ``ssd_chunked`` with
+``jax.grad``), three more kernels of the same source on the CUDA cores in
+chunks of their own (:data:`BWD_CHUNK`), and counts its calls in
+:data:`launches_bwd`.
 """
 
 from __future__ import annotations
@@ -52,9 +58,11 @@ _BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024      # the kernel's tile limits
 
 # calls of the CUDA kernels since the count was last set to 0, and of those
-# the ones the C entry reports it ran on the tc route
+# the ones the C entry reports it ran on the tc route; calls of the backward
 launches = 0
 launches_tc = 0
+launches_bwd = 0
+BWD_CHUNK = 64               # the backward kernels' own chunk
 
 # the C entry's route codes
 ROUTES = {"fma": 0, "tc": 1}
@@ -79,6 +87,9 @@ def _load():
                                            + [i64] * 12
                                            + [ptr, ctypes.POINTER(i32)])
             lib.ssd_chunk_scan.restype = i32
+            lib.ssd_chunk_scan_bwd.argtypes = ([ptr] * 13 + [i32] * 7
+                                               + [i64] * 12 + [ptr])
+            lib.ssd_chunk_scan_bwd.restype = i32
             lib.ssd_chunk_scan_smem.argtypes = [i32] * 3
             lib.ssd_chunk_scan_smem.restype = i32
             lib.ssd_chunk_scan_error_string.argtypes = [i32]
@@ -236,3 +247,59 @@ def ssd_cuda(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     launches += 1
     launches_tc += int(ran.value == ROUTES["tc"])
     return y, state
+
+
+def ssd_bwd_cuda(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
+                 C: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor
+                 ) -> tuple[torch.Tensor, ...]:
+    """Launch the backward: ``(dx, ddA, dB, dC)``, the gradients of
+    :func:`ssd_cuda`'s ``(y, state)`` (the state starting at 0) for the
+    output gradients ``dy`` (b, s, h, p) of y and ``dstate`` (b, h, p, n)
+    float32 of the final state. The function does not depend on the
+    forward's chunk: the kernels take chunks of :data:`BWD_CHUNK`.
+
+    x, dA, B and C as :func:`ssd_cuda` takes them (B and C may be expanded
+    over h with stride 0); dy in x's dtype. dx comes back in x's dtype,
+    ddA float32 (b, s, h), dB and dC float32 per head (b, s, h, n): a caller
+    whose B and C are shared by the heads sums them over h (autograd's
+    expand does). Raises on anything the kernels do not take and when a
+    launch fails.
+    """
+    global launches_bwd
+    _check(x, dA, B, C, BWD_CHUNK)
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    dev = x.device
+    if b * h > 65535:
+        raise ValueError(f"b * h = {b * h} exceeds the backward's grid")
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != dev:
+        raise ValueError(f"dy must match x {tuple(x.shape)} {x.dtype} (got "
+                         f"{tuple(dy.shape)} {dy.dtype} on {dy.device})")
+    if tuple(dstate.shape) != (b, h, p, n) or dstate.dtype != torch.float32 \
+            or dstate.device != dev:
+        raise ValueError(f"dstate must be ({b}, {h}, {p}, {n}) float32 on "
+                         f"{dev} (got {tuple(dstate.shape)} {dstate.dtype})")
+    lib = _load()
+    dy, dstate = dy.contiguous(), dstate.contiguous()
+    nc = -(-s // BWD_CHUNK)
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    ddA = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, s, h, n), dtype=torch.float32, device=dev)
+    dC = torch.empty_like(dB)
+    ws_u = torch.empty(b * h * nc * p * n, dtype=torch.float32, device=dev)
+    ws_d = torch.empty_like(ws_u)
+    ws_a = torch.empty(b * h * nc, dtype=torch.float32, device=dev)
+    strides = [*x.stride()[:3], *dA.stride(), *B.stride()[:3], *C.stride()[:3]]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd_chunk_scan_bwd(
+            x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(),
+            dy.data_ptr(), dstate.data_ptr(), dx.data_ptr(), ddA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), ws_u.data_ptr(), ws_d.data_ptr(),
+            ws_a.data_ptr(), int(x.dtype == torch.bfloat16),
+            int(B.dtype == torch.bfloat16), b, s, h, p, n, *strides, stream)
+    if err != 0:
+        msg = lib.ssd_chunk_scan_error_string(err).decode()
+        raise RuntimeError(f"SSD chunk-scan backward launch failed: {msg}")
+    launches_bwd += 1
+    return dx, ddA, dB, dC

@@ -10,7 +10,10 @@ kernel is held to on the card. Ports of ``src/repro/models/mamba2.py``:
   ``compute_dtype``, so the reference computes it in float32 too), or in
   float64 given float64 x (the yardstick of the card's checks at the
   model's scale);
-* :func:`ssd_ref` (``:105-122``): the sequential oracle, one step at a time.
+* :func:`ssd_ref` (``:105-122``): the sequential oracle, one step at a time;
+* :func:`ssd_bwd`: the gradients of :func:`ssd_chunked` (the reference
+  takes them with ``jax.grad``; here ``torch.autograd.grad`` of a
+  recomputation), what the backward kernels are held to.
 
 Layout (the model's): x ``(b, s, h, p)`` (already scaled by dt), dA
 ``(b, s, h)``, B and C ``(b, s, h, n)``; outputs y ``(b, s, h, p)`` in x's
@@ -71,6 +74,24 @@ def ssd_chunked(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :s]
     return y.to(x.dtype), state
+
+
+def ssd_bwd(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor, *,
+            chunk: int) -> tuple[torch.Tensor, ...]:
+    """``(dx, ddA, dB, dC)``: the gradients of :func:`ssd_chunked`'s ``(y,
+    final_state)`` for the output gradients ``dy`` and ``dstate``, taken by
+    ``torch.autograd.grad`` of a recomputation. In float32, or float64 for
+    float64 x (the yardstick of the card's checks at the model's scale);
+    dB and dC per head, (b, s, h, n), also where B and C are expanded over
+    the heads."""
+    dt = torch.float64 if x.dtype == torch.float64 else F32
+    with torch.enable_grad():
+        leaves = [t.detach().to(dt).contiguous().requires_grad_()
+                  for t in (x, dA, B, C)]
+        y, state = ssd_chunked(*leaves, chunk=chunk)
+        return torch.autograd.grad((y, state), leaves,
+                                   (dy.to(dt), dstate.to(dt)))
 
 
 def ssd_ref(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,

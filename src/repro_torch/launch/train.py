@@ -11,11 +11,14 @@ unless ``--device cpu`` is given; without a card and without ``--device``
 it raises. Random weights from ``--seed``, batches from
 :class:`repro_torch.data.lm.LMPipeline`; prints one line per step with the
 loss, the gradient norm and the step time, and raises when either is not
-finite. ``--init reference`` (the default) is the reference's init, whose
-gradients overflow at full depth (granite-3-2b's 40 layers: a gradient
-norm of inf on the first step); ``--init true-fan-in`` rescales the
-attention projections to their true fan-in
-(:func:`repro_torch.models.transformer.true_fan_in`).
+finite. The dense family (granite-3-2b), the hybrid family
+(recurrentgemma-2b) and the SSM family (mamba2-370m) train. ``--init
+reference`` (the default) is the reference's init, whose gradients overflow
+at full depth (granite-3-2b's 40 layers: a gradient norm of inf on the
+first step); ``--init true-fan-in`` rescales the attention projections to
+their true fan-in (:func:`repro_torch.models.registry.true_fan_in`: every
+attention layer of the transformer or of griffin's pattern; mamba2 has no
+attention projections, so for it the flag changes nothing).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 from repro_torch import configs
 from repro_torch import device as device_mod
 from repro_torch.data.lm import LMDataConfig, LMPipeline
-from repro_torch.models import registry, transformer
+from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.params import init_tree
 from repro_torch.train.trainer import TrainConfig, make_train_step
@@ -68,7 +71,8 @@ def main(argv=None) -> TrainRun:
     ap.add_argument("--init", default="reference",
                     choices=["reference", "true-fan-in"],
                     help="true-fan-in rescales the attention projections "
-                         "(needed at granite-3-2b's full depth)")
+                         "(needed at granite-3-2b's full depth; mamba2 has "
+                         "none, so it changes nothing there)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -82,7 +86,7 @@ def main(argv=None) -> TrainRun:
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     params = init_tree(registry.decls(cfg), args.seed, dev, dtype=dtype)
     if args.init == "true-fan-in":
-        params = transformer.true_fan_in(params, cfg)
+        params = registry.true_fan_in(params, cfg)
     opt_state = optimizer.init(params)
 
     run = TrainRun(cfg, params, opt_state, train_step, data, [], [], [])

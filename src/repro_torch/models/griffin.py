@@ -1,8 +1,8 @@
 """RecurrentGemma / Griffin hybrid (arXiv:2402.19427): RG-LRU + local attention.
 
-Port of ``src/repro/models/griffin.py`` for serving: the parameter
-declarations, :class:`GriffinCache`, :func:`prefill` and :func:`decode_step`
-(the training ``forward`` waits for a later slice of the port). The layer
+Port of ``src/repro/models/griffin.py``: the parameter declarations, the
+training :func:`forward`, :class:`GriffinCache`, :func:`prefill` and
+:func:`decode_step`. The layer
 pattern is (rec, rec, attn) repeating: RecurrentGemma-2B's 26 layers are 8
 triples and a (rec, rec) tail. The parameter tree keeps the reference's
 layout (``triples`` stacked along a leading axis, ``tail`` per layer), so
@@ -10,9 +10,10 @@ weights map one to one; the reference's ``lax.scan`` over the triples is a
 Python loop here.
 
 Every RG-LRU scan goes through :func:`linear_scan`
-(:func:`repro_torch.kernels.rglru.ops.rglru`: the CUDA kernel on the card),
-and every multi-token attention call through
-:func:`repro_torch.models.layers.attention` (the CUDA flash forward). The
+(:func:`repro_torch.kernels.rglru.ops.rglru`: the CUDA kernels on the card,
+forward and backward), and every multi-token attention call through
+:func:`repro_torch.models.layers.attention` (the CUDA flash forward and
+backward). The
 one-token decode step needs neither: its recurrence is one multiply-add,
 and its attention over the ring cache is :func:`layers.attention_ref`
 (plain PyTorch), as the reference computes it with ``attention_chunked``,
@@ -39,8 +40,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (_attn_decls, _attn_out, _ffn,
                                            _project_qkv, _rope, advance,
-                                           cache_tail, decode_attend,
-                                           rescale_attention)
+                                           cache_tail, decode_attend, remat,
+                                           rescale_attention, superblocks)
 from repro_torch.sharding import axes as lx
 from repro_torch.sharding.params import Axes, ParamDecl, stack_tree, tree_map
 
@@ -251,30 +252,81 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=BF16)
 
 
-def _rec_mix_prefill(x, p, cfg: ModelConfig):
+def _rec_mix(x, p, cfg: ModelConfig):
+    """The recurrent mix over a whole sequence (training and prefill):
+    ``(x + out, conv tail, h_final)``. The conv tail is the last w-1 rows
+    of [zeros, u], so a prompt shorter than w-1 keeps the zero history
+    GriffinCache.init starts from (the reference slices u itself and then
+    fails to decode)."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     y = F.gelu(h @ p["w_y"].to(h.dtype), approximate="tanh")
     u = h @ p["w_x"].to(h.dtype)
-    # the conv state: the last w-1 rows of [zeros, u], so a prompt shorter
-    # than w-1 keeps the zero history GriffinCache.init starts from (the
-    # reference slices u itself and then fails to decode); a copy, since a
-    # view would keep all of u alive
     u, tail = L.causal_conv1d(u, p["conv"].to(u.dtype))
-    tail = tail.clone()
     a, b_in = rglru_gates(u, p["rglru"], cfg.rglru_c)
     ys, h_fin = linear_scan(a, b_in)
     out = (ys.to(x.dtype) * y) @ p["w_out"].to(x.dtype)
     return x + out, tail, h_fin
 
 
-def _attn_mix_prefill(x, p, cfg: ModelConfig, rope_cs, win: int):
+def _rec_mix_prefill(x, p, cfg: ModelConfig):
+    x, tail, h_fin = _rec_mix(x, p, cfg)
+    return x, tail.clone(), h_fin    # a view would keep all of u alive
+
+
+def _attn_mix(x, p, cfg: ModelConfig, rope_cs):
+    """The local-attention mix over a whole sequence: ``(x + out, k, v)``."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     w = {n: p[n].to(h.dtype) for n in ("wq", "wk", "wv", "wo")}
     q, k, v = _project_qkv(h, w, cfg, rope_cs)
     o = L.attention(q, k, v, causal=True, window=cfg.attn_window)
-    x = _attn_out(x, o, w["wo"])
+    return _attn_out(x, o, w["wo"]), k, v
+
+
+def _attn_mix_prefill(x, p, cfg: ModelConfig, rope_cs, win: int):
+    x, k, v = _attn_mix(x, p, cfg, rope_cs)
     ck, cv = cache_tail(k, v, win, BF16)   # position p at ring slot p % win
     return x, ck, cv
+
+
+def _layer_train(x, lp, kind: str, cfg: ModelConfig, rope_cs):
+    mix = _rec_mix(x, lp["mix"], cfg) if kind == "rec" else \
+        _attn_mix(x, lp["mix"], cfg, rope_cs)
+    return _ffn(mix[0], lp, cfg)
+
+
+def _triple_train(x, tp, cfg: ModelConfig, rope_cs):
+    for j, kind in enumerate(_block(cfg)):
+        x = _layer_train(x, tp[f"p{j}_{kind}"], kind, cfg, rope_cs)
+    return x
+
+
+def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
+    """Training forward: tokens (B, S) -> ``(logits (B, S, V), aux = 0)``
+    (``src/repro/models/griffin.py:313-329``).
+
+    Runs where the params are, in bf16 activations whatever ``cfg.dtype``
+    is, after gemma's sqrt(d_model) scaling. Each pattern triple runs under
+    ``cfg.remat`` (:func:`repro_torch.models.transformer.remat`), the tail
+    layers outside it, as the reference's ``lax.scan`` over the triples and
+    its loop over the tail do. ``params["triples"]`` may be stacked or a
+    list of per-triple trees (:func:`repro_torch.models.transformer.
+    superblocks`).
+    """
+    if embeds is not None:
+        raise NotImplementedError("embeds inputs are not yet ported")
+    dev = params["embed"].device
+    tokens = tokens.to(dev)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=dev)[None]
+    rope_cs = _rope(cfg, positions.to(dev))
+    x = _embed(params, cfg, tokens)
+    n_full, tail = plan(cfg)
+    for tp in superblocks(params["triples"], n_full):
+        x = remat(_triple_train, cfg, x, tp, cfg, rope_cs)
+    for j, kind in enumerate(tail):
+        x = _layer_train(x, params["tail"][f"t{j}_{kind}"], kind, cfg, rope_cs)
+    x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return L.lm_head(x, params, cfg), torch.zeros((), device=dev)
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,

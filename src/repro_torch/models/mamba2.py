@@ -1,14 +1,15 @@
-"""Mamba-2 (state-space duality, arXiv:2405.21060) for serving.
+"""Mamba-2 (state-space duality, arXiv:2405.21060): training and serving.
 
-Port of ``src/repro/models/mamba2.py``: the parameter declarations,
-:class:`SSMCache`, :func:`prefill` and :func:`decode_step` (the training
-``forward`` waits for a later slice of the port). The parameter tree keeps
+Port of ``src/repro/models/mamba2.py``: the parameter declarations, the
+training :func:`forward`, :class:`SSMCache`, :func:`prefill` and
+:func:`decode_step`. The parameter tree keeps
 the reference's layout (``blocks`` stacked along a leading layer axis), so
 weights map one to one; the reference's ``lax.scan`` over the layers is a
 Python loop here.
 
-Every prefill's SSD scan goes through :func:`repro_torch.kernels.ssd.ops.ssd`
-(the CUDA chunk-scan kernel on the card), whatever ``cfg.scan_impl`` says:
+Every multi-token SSD scan goes through :func:`repro_torch.kernels.ssd.ops.ssd`
+(the CUDA chunk-scan kernels on the card, forward and backward), whatever
+``cfg.scan_impl`` says:
 the reference picks one of three backends, the port has the one. The
 one-token decode step needs no kernel: its recurrence is one
 multiply-add of the state, as in the reference.
@@ -33,7 +34,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.griffin import _softplus
-from repro_torch.models.transformer import advance
+from repro_torch.models.transformer import advance, remat, superblocks
 from repro_torch.sharding import axes as lx
 from repro_torch.sharding.params import Axes, ParamDecl, stack_tree, tree_map
 
@@ -183,6 +184,38 @@ def _convs(xin, Braw, Craw, lp, tails=(None, None, None)):
             for u, k, t in zip((xin, Braw, Craw),
                                ("conv_x", "conv_B", "conv_C"), tails)]
     return [o for o, _ in outs], [t for _, t in outs]
+
+
+def _block_train(x, lp, cfg: ModelConfig):
+    z, xin, Braw, Craw, dt_raw = _mix(x, lp, cfg)
+    (xin, Braw, Craw), _ = _convs(xin, Braw, Craw, lp)
+    xh, xs, dA, Bh, Ch = _ssm_math(xin, Braw, Craw, dt_raw, lp, cfg)
+    y, _ = ssd_ops.ssd(xs, dA, Bh, Ch, chunk=cfg.ssm_chunk,
+                       compute_dtype=getattr(torch, cfg.ssm_compute_dtype))
+    return _out(x, y, xh, z, lp, cfg)
+
+
+def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
+    """Training forward: tokens (B, S) -> ``(logits (B, S, V), aux = 0)``
+    (``src/repro/models/mamba2.py:247-271``).
+
+    Runs where the params are, in bf16 activations. Each layer runs under
+    ``cfg.remat`` (:func:`repro_torch.models.transformer.remat`). Unlike
+    :func:`prefill`, it passes ``cfg.ssm_compute_dtype`` to the scan, as
+    only the reference's ``forward`` does; the scan takes float32 only and
+    raises for bfloat16. ``params["blocks"]`` may be
+    stacked or a list of per-layer trees. ``positions`` is accepted for the
+    registry's common signature (the SSM has no positional encoding).
+    """
+    del positions
+    if embeds is not None:
+        raise NotImplementedError("embeds inputs are not yet ported")
+    dev = params["embed"].device
+    x = _embed(params, tokens.to(dev))
+    for lp in superblocks(params["blocks"], cfg.n_layers):
+        x = remat(_block_train, cfg, x, lp, cfg)
+    x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return L.lm_head(x, params, cfg), torch.zeros((), device=dev)
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,

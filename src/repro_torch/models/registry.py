@@ -9,7 +9,8 @@ dense family on its paged backend (``decode_step_paged``) or on lanes, the
 MoE, hybrid and SSM families on lanes only (``supports_paged`` is False
 for them), through ``decode_step`` over a lane cache
 (``cache_init(..., lanes=True)``, :func:`lane_read`, :func:`lane_write`).
-Training (``forward``) is the dense family's only.
+Training (``forward``) runs the dense, hybrid and SSM families; the MoE,
+audio and VLM families raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -50,15 +51,51 @@ def decls(cfg: ModelConfig):
     return _mod(cfg).decls(cfg)
 
 
+# the families the training forward runs, and the ROADMAP.md items
+# ("Still to port") that bring the others
+_TRAIN = {"dense": transformer, "hybrid": griffin, "ssm": mamba2}
+_LATER_TRAIN = {
+    "moe": "MoE training, after tensor parallelism (one grok-1 layer's "
+           "experts with AdamW's state take 77 GB)",
+    "audio": "embeds inputs",
+    "vlm": "embeds inputs",
+}
+
+
 def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
-    """Training forward ``(logits, aux)``; see :func:`transformer.forward`.
-    Dense family only: the audio family's ``embeds`` inputs and the MoE,
-    hybrid and SSM families' training are not yet ported."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): training "
-                                  f"forward not yet ported")
-    return transformer.forward(params, cfg, tokens, positions=positions,
-                               embeds=embeds)
+    """Training forward ``(logits, aux)``; see :func:`transformer.forward`,
+    :func:`griffin.forward` and :func:`mamba2.forward`. Dense, hybrid and
+    SSM families; the others raise ``NotImplementedError`` naming their
+    ROADMAP item."""
+    if cfg.family not in _TRAIN:
+        later = _LATER_TRAIN.get(cfg.family, "not yet planned")
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): the training forward is not yet "
+            f"ported for this family (ROADMAP.md, still to port: {later})")
+    return _TRAIN[cfg.family].forward(params, cfg, tokens,
+                                      positions=positions, embeds=embeds)
+
+
+def stacked(cfg: ModelConfig) -> tuple[str, int]:
+    """``(key, n)``: the params entry whose leaves are stacked along a
+    leading layer axis, and that axis' length (``blocks`` of superblocks;
+    griffin's ``triples``; mamba2's ``blocks`` of layers). A trainer gives
+    each entry of it its own leaves (see :func:`transformer.superblocks`)."""
+    if cfg.family == "hybrid":
+        return "triples", griffin.plan(cfg)[0]
+    if cfg.family == "ssm":
+        return "blocks", cfg.n_layers
+    return "blocks", cfg.n_layers // transformer._interleave(cfg)
+
+
+def true_fan_in(params, cfg: ModelConfig):
+    """``params`` with the attention projections rescaled to their true
+    fan-in (:func:`transformer.true_fan_in`, :func:`griffin.true_fan_in`).
+    The SSM family has no attention projections: its params come back as
+    they are."""
+    if cfg.family == "ssm":
+        return params
+    return _mod(cfg).true_fan_in(params, cfg)
 
 
 def _serve(cfg: ModelConfig, what: str):

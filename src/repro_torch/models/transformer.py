@@ -3,7 +3,8 @@ prefill and decode, and paged decode.
 
 Port of ``src/repro/models/transformer.py`` (``decls`` with dense and MoE
 superblocks, ``forward`` for the dense family, ``KVCache``, ``prefill`` and
-``decode_step`` for the dense and MoE families, ``supports_paged``,
+``decode_step`` for the dense and MoE families, ``remat`` (the training
+forward's remat point, shared with griffin and mamba2), ``supports_paged``,
 ``paged_pool_init``, ``decode_step_paged`` without tensor parallelism, and
 the helpers they use). The parameter tree keeps the reference's stacked
 layout, so weights map one to one: ``blocks[...]["l{j}"]`` with a leading
@@ -33,10 +34,12 @@ masked rows' cache bit for bit as it was.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import device as device_mod
 from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -216,6 +219,42 @@ def superblocks(blocks, n_super: int) -> list:
     return [tree_map(lambda t, s=s: t[s], blocks) for s in range(n_super)]
 
 
+def _no_batch_dot(op, args) -> bool:
+    """Whether an aten op is a matrix product without batch dimensions:
+    ``mm``/``addmm`` (``x @ w`` with a 2-d weight), or ``bmm`` over a batch
+    of one (an ``einsum`` that contracts without a batch axis)."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default):
+        return True
+    return op == aten.bmm.default and args[0].shape[0] == 1
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if _no_batch_dot(op, args)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, cfg: ModelConfig, *args):
+    """``fn(*args)`` under ``cfg.remat``, the training forward's one remat
+    point for every family (port of ``_maybe_remat``,
+    ``src/repro/models/transformer.py:181-187``): ``"none"`` keeps every
+    activation; ``"full"`` checkpoints the call (non-reentrant: its
+    forward, kernels included, runs again in the backward); ``"dots"``
+    (``checkpoint_dots_with_no_batch_dims``) keeps the outputs of matrix
+    products without batch dimensions and recomputes the rest, through
+    PyTorch's selective checkpointing."""
+    if cfg.remat == "none":
+        return fn(*args)
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
 def _attn_train(x, p, cfg: ModelConfig, rope_cs):
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _project_qkv(h, p, cfg, rope_cs)
@@ -234,18 +273,12 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
 
     Runs where the params are. Every attention call goes through
     :func:`repro_torch.models.layers.attention` (the CUDA flash kernels on
-    the card). Remat ``"full"`` checkpoints each layer
-    (``torch.utils.checkpoint``, non-reentrant: its forward, attention
-    included, runs again in the backward); ``"none"`` keeps every
-    activation. ``params["blocks"]`` may be stacked or a list of
-    per-superblock trees (:func:`superblocks`).
+    the card). Each layer runs under ``cfg.remat`` (:func:`remat`).
+    ``params["blocks"]`` may be stacked or a list of per-superblock trees
+    (:func:`superblocks`).
     """
     if embeds is not None:
         raise NotImplementedError("embeds inputs are not yet ported")
-    if cfg.remat == "dots":
-        raise NotImplementedError("remat 'dots' is not yet ported")
-    if cfg.remat not in ("none", "full"):
-        raise ValueError(f"unknown remat {cfg.remat!r}")
     dev = params["embed"].device
     tokens = tokens.to(dev)
     if positions is None:
@@ -258,11 +291,7 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
         for j in range(il):
             if _is_moe_layer(cfg, j):
                 raise NotImplementedError("MoE training is not yet ported")
-            if cfg.remat == "full":
-                x = checkpoint(_layer_train, x, blk[f"l{j}"], cfg, rope_cs,
-                               use_reentrant=False)
-            else:
-                x = _layer_train(x, blk[f"l{j}"], cfg, rope_cs)
+            x = remat(_layer_train, cfg, x, blk[f"l{j}"], cfg, rope_cs)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return L.lm_head(x, params, cfg), torch.zeros((), device=dev)
 

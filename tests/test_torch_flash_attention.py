@@ -132,8 +132,9 @@ def test_plain_forward_d256_matches_jax(dtype, impl):
 
 
 def test_kernel_head_dim_limits():
-    """The CUDA forward takes D up to 256 and the backward up to 128; the
-    shape checks come before the device check, so they show on the CPU."""
+    """The CUDA forward and backward both take D up to 256 and refuse 264;
+    the shape checks come before the device check, so they show on the
+    CPU."""
     def qkv(d):
         return [torch.zeros((1, 8, 2, d)) for _ in range(3)]
 
@@ -142,8 +143,46 @@ def test_kernel_head_dim_limits():
     with pytest.raises(ValueError, match="D <= 256"):
         kernel.flash_attention_fwd_cuda(*qkv(264))
     q, k, v = qkv(256)
-    with pytest.raises(ValueError, match="hybrid family's training"):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
         kernel.flash_attention_bwd_cuda(q, k, v, q, torch.zeros(1, 2, 8), q)
+    q, k, v = qkv(264)
+    with pytest.raises(ValueError, match="D <= 256"):
+        kernel.flash_attention_bwd_cuda(q, k, v, q, torch.zeros(1, 2, 8), q)
+
+
+# recurrentgemma's training attention at smoke length: head dim 256, G 4 or
+# 10 query heads a KV head, a window shorter than S
+D256_GRAD = [pytest.param(2, 80, 4, 1, 256, 24, id="g4"),
+             pytest.param(1, 70, 10, 1, 256, 32, id="g10")]
+
+
+@pytest.mark.parametrize("impl", ["chunked", "banded"])
+@pytest.mark.parametrize("b,s,h,k,d,win", D256_GRAD)
+def test_plain_backward_d256_matches_jax_vjp(b, s, h, k, d, win, impl):
+    """The backward at head dim 256 (the hybrid family's training) through
+    ``ops.flash_attention``'s autograd on the plain versions, against
+    ``jax.vjp`` of the reference's two windowed paths:
+    ``attention_banded``, which its training forward takes
+    (``layers.py:303-305``), and ``attention_chunked``. float32, 2e-5
+    (KV repeated over the group in JAX, summed over it here)."""
+    q, kk, vv, do = _inputs(b, s, h, k, d, seed=5)
+    if impl == "chunked":
+        fn = lambda q_, k_, v_: JL.attention_chunked(
+            q_, k_, v_, causal=True, window=win, q_block=16, kv_block=16)
+    else:
+        fn = lambda q_, k_, v_: JL.attention_banded(q_, k_, v_, window=win,
+                                                    q_block=16)
+    g = h // k
+    rep = lambda t: jnp.repeat(t, g, axis=2)     # layers.attention's repeat
+    _, vjp = jax.vjp(lambda q_, k_, v_: fn(q_, rep(k_), rep(v_)),
+                     *(jnp.asarray(a) for a in (q, kk, vv)))
+    want = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, kk, vv)]
+    o = ops.flash_attention(*leaves, causal=True, window=win)
+    got = torch.autograd.grad(o, leaves, torch.from_numpy(do))
+    for name, gt, w in zip("qkv", got, want):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=2e-5, err_msg=f"d{name}")
 
 
 @pytest.mark.parametrize("b,s,h,k,d,win,causal", ATTN_CASES)

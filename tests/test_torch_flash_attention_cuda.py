@@ -1,14 +1,16 @@
-"""The CUDA flash forward at head dims above 128 against its plain version
-on the card: the edges of the bf16 tensor-core kernel's D 256 tile (64
-queries a block, 16 a warp, 32 keys a step) and its route. Every test skips
-without a card.
+"""The CUDA flash forward and backward at head dims above 128 against their
+plain versions on the card: the edges of the bf16 tensor-core kernels' D
+256 tiles (64 queries a block, 16 a warp, 32 keys a forward or dQ step, 16
+queries a dK/dV step in its two passes) and of the float32 backward's
+staged tiles, and the routes. Every test skips without a card.
 
 This file imports no JAX, so that it also runs on the card's machine:
 ``python -m pytest -q tests/test_torch_flash_attention_cuda.py``. Its
 inputs come from numpy seeds, the cases (``FLASH256_EDGES``) and bounds
 from ``chip_smoke.py``: the reference's tolerances (float32 2e-5, bfloat16
 3e-2), o at a bound scaled to its size (``close_scaled``), lse at 2e-5 +
-2e-5 |lse|.
+2e-5 |lse|; dq, dk and dv at ``GRAD_TOL`` under ``close_scaled``, through
+its one-call check ``flash_check``.
 """
 
 import importlib.util
@@ -86,3 +88,39 @@ def test_cuda_forward_d256_route(card):
     q, kk, vv = (x.float() for x in (q, kk, vv))
     kernel.flash_attention_fwd_cuda(q, kk, vv, **args)
     assert (kernel.launches_fwd_mma - mma0, kernel.launches_fwd - fwd0) == (1, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,k,d,win,causal", D256_EDGES)
+def test_cuda_backward_d256_edges_match_plain(card, b, sq, sk, h, k, d, win,
+                                              causal, dtype):
+    """The backward above D 128: bf16 on the tensor cores (the dK/dV kernel
+    in a dV pass and a dK pass, 32-key dQ steps), float32 on the CUDA cores
+    (one staging tile), against the plain backward; two calls give the
+    same bits."""
+    q, kk, vv = _qkv(b, sq, sk, h, k, d, dtype)
+    do = _qkv(b, sq, sq, h, h, d, dtype, seed=12)[0]
+    cs.flash_check(torch, kernel, ref, q, kk, vv, do, causal, win, dtype)
+    o, lse = kernel.flash_attention_fwd_cuda(q, kk, vv, causal=causal,
+                                             window=win)
+    first, second = (kernel.flash_attention_bwd_cuda(
+        q, kk, vv, o, lse, do, causal=causal, window=win) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_cuda_backward_d256_through_autograd(card):
+    """``ops.flash_attention`` at D 256 on the card: one forward and one
+    backward launch, gradients of the plain path's size on the CPU."""
+    from repro_torch.kernels.attention import ops
+    q, kk, vv = _qkv(1, 70, 70, 10, 1, 256, "bfloat16")
+    do = _qkv(1, 70, 70, 10, 10, 256, "bfloat16", seed=12)[0]
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in (q, kk, vv)]
+        f0, b0 = kernel.launches_fwd, kernel.launches_bwd
+        o = ops.flash_attention(*leaves, causal=True, window=24)
+        grads[dev] = torch.autograd.grad(o, leaves, do.to(dev))
+        launched = (kernel.launches_fwd - f0, kernel.launches_bwd - b0)
+        assert launched == ((1, 1) if dev == "cuda" else (0, 0)), launched
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        cs.close_scaled(g.cpu(), w, *cs.GRAD_TOL["bfloat16"])

@@ -7,8 +7,12 @@ and to the Pallas kernel in interpret mode (as the JAX tests run it) on the
 reference's cases (``tests/test_kernels.py:110``), at the reference's
 tolerance: atol 1e-5. Also: the ``h0`` fold, a ragged S and W (which the
 Pallas wrapper does not take, so against ``linear_scan_ref`` only), and the
-plain version in float64. The CUDA kernel is held to the plain version on
-the card by the test that skips here and by ``chip_smoke.py``.
+plain version in float64. The backward (``ops.rglru``'s autograd function
+on the plain ``ref.rglru_bwd``) is held to ``jax.vjp`` of
+``linear_scan_blocked``, the function the reference trains through, with
+and without ``h0``, within one block and across blocks, at 2e-5. The CUDA
+kernels are held to the plain versions on the card by the tests that skip
+here, ``tests/test_torch_rglru_cuda.py`` and ``chip_smoke.py``.
 """
 
 import jax
@@ -155,3 +159,63 @@ def test_cuda_kernel_matches_plain(b, s, w):
     wy, wh = ref.rglru(a, bb, h0)
     torch.testing.assert_close(y, wy, atol=ATOL, rtol=0)
     torch.testing.assert_close(h, wh, atol=ATOL, rtol=0)
+
+
+def _cotangents(b, s, w, seed=11):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, w)).astype(np.float32),
+            rng.normal(size=(b, w)).astype(np.float32))
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["no_h0", "h0"])
+@pytest.mark.parametrize("b,s,w", [(2, 64, 32), (2, 300, 16)],
+                         ids=["one_block", "two_blocks"])
+def test_backward_matches_jax_vjp_of_linear_scan_blocked(b, s, w, with_h0):
+    """Gradients of a, b (and h0) for cotangents of y and h_final: the
+    port's autograd function on the plain reverse scan against ``jax.vjp``
+    of ``linear_scan_blocked`` (block 256: S 300 crosses a block and is
+    padded), float32, 2e-5."""
+    a, bb, h0 = _inputs(b, s, w, seed=13)
+    dy, dh = _cotangents(b, s, w)
+    args = [a, bb] + ([h0] if with_h0 else [])
+    _, vjp = jax.vjp(jg.linear_scan_blocked, *map(jnp.asarray, args))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in args]
+    y, h = ops.rglru(*leaves)
+    got = torch.autograd.grad((y, h), leaves,
+                              (torch.from_numpy(dy), torch.from_numpy(dh)))
+    assert len(got) == len(want)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_), atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_plain_backward_is_the_reverse_scan():
+    """``ref.rglru_bwd`` written out against a float64 numpy loop: g_t =
+    dy_t + a_{t+1} g_{t+1} from g_{S-1} = dy_{S-1} + dh, db = g, da_t = g_t
+    y_{t-1}; and float64 inputs keep it in float64."""
+    a, bb, _ = (x.astype(np.float64) for x in _inputs(2, 40, 8, seed=17))
+    dy, dh = (x.astype(np.float64) for x in _cotangents(2, 40, 8))
+    y, _ = ref.rglru(torch.from_numpy(a), torch.from_numpy(bb))
+    g = dh + dy[:, -1]
+    want_a, want_b = np.zeros_like(a), np.zeros_like(a)
+    for t in range(39, -1, -1):
+        if t < 39:
+            g = dy[:, t] + a[:, t + 1] * g
+        want_b[:, t] = g
+        want_a[:, t] = g * y.numpy()[:, t - 1] if t else 0.0
+    da, db = ref.rglru_bwd(torch.from_numpy(a), y, torch.from_numpy(dy),
+                           torch.from_numpy(dh))
+    assert da.dtype == torch.float64
+    np.testing.assert_allclose(da.numpy(), want_a, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(db.numpy(), want_b, rtol=1e-12, atol=1e-12)
+
+
+def test_backward_refuses_cpu_tensors_on_the_kernel():
+    """The backward kernel's wrapper takes CUDA tensors only, and counts
+    no launch for a refusal."""
+    a = torch.rand(1, 8, 4)
+    before = kernel.launches_bwd
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kernel.rglru_scan_bwd_cuda(a, a, a, torch.zeros(1, 4))
+    assert kernel.launches_bwd == before

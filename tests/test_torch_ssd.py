@@ -11,8 +11,14 @@ port's own oracle ``ssd_ref`` is held to JAX's the same way. Also: a
 ragged S (which the Pallas wrapper does not take, so against
 ``ssd_chunked`` only), ``segsum`` with its ``-inf``, B and C broadcast over
 the heads with stride 0, the oracle in float64, and the dispatch's
-refusals. The CUDA kernel is held to the plain version on the card by the
-tests that skip here and by ``chip_smoke.py``.
+refusals. The backward (``ops.ssd``'s autograd function on the plain
+``ref.ssd_bwd``) is held to ``jax.vjp`` of ``ssd_chunked``, the function
+the reference trains through, at S a multiple of the chunk and not, with
+B and C shared by the heads as the model passes them (both sides
+broadcast one head's B and C, so their gradients sum over the heads), in
+float32 at 2e-5; a ``compute_dtype`` other than float32 is refused. The CUDA kernels are held to the plain versions on the
+card by the tests that skip here, ``tests/test_torch_ssd_cuda.py`` and
+``chip_smoke.py``.
 """
 
 import jax
@@ -405,3 +411,84 @@ def test_emulated_tc_route_at_model_decay_against_float64():
           f"{ratios[True]:.4f}, one TF32 product {ratios[False]:.2f}")
     assert ratios[True] < 0.1, ratios
     assert ratios[False] > 1.0, ratios
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_head", "shared"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 64, 4, 16, 16, 16),
+                                             (2, 37, 3, 16, 8, 16),
+                                             (1, 70, 2, 8, 4, 32)])
+def test_backward_matches_jax_vjp_of_ssd_chunked(b, s, h, p, n, chunk,
+                                                 shared):
+    """Gradients of x, dA, B and C for cotangents of y and the final state,
+    against ``jax.vjp`` of ``ssd_chunked`` on the same inputs (S 37 and 70
+    leave a ragged last chunk); with ``shared`` B and C are one head's,
+    broadcast over the heads on both sides, and their gradients are the
+    sums over the heads. float32, 2e-5."""
+    x, dA, B, C = _inputs(b, s, h, p, n, seed=19)
+    if shared:
+        B, C = B[:, :, 0], C[:, :, 0]
+    rng = np.random.default_rng(23)
+    dy = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dst = rng.normal(size=(b, h, p, n)).astype(np.float32)
+
+    def bcast(t, xp):
+        return xp.broadcast_to(t[:, :, None], (b, s, h, n)) if shared else t
+
+    def jfn(x, dA, B, C):
+        return jm.ssd_chunked(x, dA, bcast(B, jnp), bcast(C, jnp),
+                              chunk=chunk)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in (x, dA, B, C)))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dst)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, dA, B, C)]
+    tx, tdA, tB, tC = leaves
+    if shared:
+        tB, tC = (t[:, :, None].expand(b, s, h, n) for t in (tB, tC))
+    y, st = ops.ssd(tx, tdA, tB, tC, chunk=chunk)
+    got = torch.autograd.grad((y, st), leaves, (torch.from_numpy(dy),
+                                                torch.from_numpy(dst)))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_plain_backward_in_float64_matches_the_oracle():
+    """``ref.ssd_bwd`` in float64 against autograd of the sequential oracle
+    in float64, and its dB and dC per head for expanded B and C."""
+    x, dA, B, C = (torch.from_numpy(a).double()
+                   for a in _inputs(2, 45, 3, 8, 6, seed=29))
+    Bh = B[:, :, :1].expand(-1, -1, 3, -1)
+    rng = np.random.default_rng(31)
+    dy = torch.from_numpy(rng.normal(size=tuple(x.shape)))
+    dst = torch.from_numpy(rng.normal(size=(2, 3, 8, 6)))
+    got = ref.ssd_bwd(x, dA, Bh, C, dy, dst, chunk=16)
+    assert all(g.dtype == torch.float64 for g in got)
+    assert got[2].shape == (2, 45, 3, 6)
+    leaves = [t.clone().requires_grad_() for t in (x, dA, Bh.contiguous(), C)]
+    y, st = ref.ssd_ref(*leaves)
+    want = torch.autograd.grad((y, st), leaves, (dy, dst))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-10,
+                                   rtol=1e-10)
+
+
+def test_compute_dtype_other_than_float32_is_refused():
+    """``compute_dtype`` float32 is the only one the scan takes (the
+    reference's default, which every config uses); bfloat16, which the
+    reference's training forward could pass (``mamba2.py:253-254``), and
+    anything else raise on the CPU as on the card."""
+    x, dA, B, C = _torch(_inputs(1, 16, 2, 8, 4, seed=37))
+    y, _ = ops.ssd(x, dA, B, C, chunk=8, compute_dtype=torch.float32)
+    assert y.shape == x.shape
+    for dtype in (torch.bfloat16, torch.float16):
+        with pytest.raises(ValueError, match="float32 only"):
+            ops.ssd(x, dA, B, C, chunk=8, compute_dtype=dtype)
+
+
+def test_backward_wrapper_refuses_cpu_tensors():
+    x, dA, B, C = _torch(_inputs(1, 16, 2, 8, 4))
+    before = kernel.launches_bwd
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kernel.ssd_bwd_cuda(x, dA, B, C, x, torch.zeros(1, 2, 8, 4))
+    assert kernel.launches_bwd == before

@@ -4,14 +4,18 @@ of the tensor-core route (bf16 B and C: S 1, ragged last chunks, chunks of
 expanded over the heads with stride 0, in float32 and bf16 x; the CUDA-core
 route (float32 B and C) on the reference's cases; the route each call
 takes, its launch counts and a second call's bits; and the model's decay
-against float64. Every test skips without a card.
+against float64. The backward kernels on the same cases and edges against
+the plain backward (``ref.ssd_bwd``), at the model's decay against
+float64, and through ``ops.ssd``'s autograd with B and C shared by the
+heads. Every test skips without a card.
 
 This file imports no JAX, so that it also runs on the card's machine:
 ``python -m pytest -q tests/test_torch_ssd_cuda.py``. The cases
 (``SSD_EDGES``, ``SSD_CASES``, ``SSD_RAGGED``), the bounds (float32 1e-4,
-bfloat16 x 5e-2, under ``close_scaled``) and the check of one call
+bfloat16 x 5e-2, under ``close_scaled``) and the checks of one call
 (``ssd_case``: the plain version, the C entry's route against ``plan``'s,
-a second call's bits) come from ``chip_smoke.py``.
+a second call's bits; ``ssd_bwd_case`` for the backward) come from
+``chip_smoke.py``.
 """
 
 import importlib.util
@@ -107,3 +111,61 @@ def test_cuda_ssd_model_decay_against_float64(gen):
         f64=True))
     assert route == "tc"
     assert ey[0] <= 1e-3 and es[0] <= 1e-3, (ey, es)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", CASES)
+def test_cuda_ssd_backward_float32_bc(gen, b, s, h, p, n, chunk, dtype):
+    """float32 B and C: dx, ddA, dB, dC within the forward's tolerance of
+    the plain backward, two calls bit for bit."""
+    cs.ssd_bwd_case(torch, gen, kernel, ref, b, s, h, p, n, chunk,
+                    getattr(torch, dtype), torch.float32)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_head", "shared"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", EDGES)
+def test_cuda_ssd_backward_edges(gen, b, s, h, p, n, chunk, dtype, shared):
+    """bf16 B and C, per head or expanded over the heads with stride 0 (dB
+    and dC come back per head): the backward's chunks of 64 cut S 1,
+    ragged ends and P, N of every size the forward takes."""
+    cs.ssd_bwd_case(torch, gen, kernel, ref, b, s, h, p, n, chunk,
+                    getattr(torch, dtype), torch.bfloat16, shared)
+
+
+def test_cuda_ssd_backward_model_decay_against_float64(gen):
+    """The model's decay and dtypes (float32 x, bf16 B and C shared by the
+    heads), s 1024: within 1e-4 of the plain backward in float64 under
+    ``close_scaled``."""
+    errs = cs.ssd_bwd_case(torch, gen, kernel, ref, 2, 1024, 4, 64, 128, 256,
+                           torch.float32, torch.bfloat16, True, decay=True,
+                           f64=True)
+    assert set(errs) == {"dx", "ddA", "dB", "dC"}
+
+
+def test_cuda_ssd_autograd_sums_shared_b_and_c_over_heads(gen):
+    """``ops.ssd`` on the card with B and C expanded over the heads: one
+    forward and one backward launch, and the gradients of x, dA and the
+    unexpanded B and C equal the CPU's plain path's within the forward's
+    tolerance for their dtype (B's and C's are bf16: autograd rounds each
+    head's float32 gradient to bf16 before the expand sums them)."""
+    from repro_torch.kernels.ssd import ops
+    x, dA, B, C = cs.ssd_inputs(torch, gen, 2, 70, 4, 16, 32,
+                                bc_dtype=torch.bfloat16, heads_share_bc=True)
+    Braw, Craw = B[:, :, 0].contiguous(), C[:, :, 0].contiguous()
+    dy = torch.randn(x.shape, generator=gen, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in (x, dA, Braw, Craw)]
+        xs, das, bs, cs_ = leaves
+        n0, b0 = kernel.launches, kernel.launches_bwd
+        y, st = ops.ssd(xs, das, bs[:, :, None].expand(2, 70, 4, 32),
+                        cs_[:, :, None].expand(2, 70, 4, 32), chunk=32)
+        grads[dev] = torch.autograd.grad((y * dy.to(dev)).sum() + st.sum(),
+                                         leaves)
+        launched = (kernel.launches - n0, kernel.launches_bwd - b0)
+        assert launched == ((1, 1) if dev == "cuda" else (0, 0)), launched
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert g.dtype == w.dtype
+        tol = cs.SSD_TOL[str(w.dtype).split(".")[1]]
+        cs.close_scaled(g.cpu(), w, tol, tol)

@@ -218,10 +218,12 @@ def test_remat_full_gives_the_same_logits_and_grads():
 
 
 def test_unported_paths_raise():
+    """Embeds inputs, the audio family and MoE training still raise (remat
+    "dots" is ported: tests/test_torch_train_recurrent.py holds it)."""
     _, cfg, _, params = _models("granite_3_2b", "float32")
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="dots"):
-        registry.forward(params, dataclasses.replace(cfg, remat="dots"), tokens)
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        registry.forward(params, configs.smoke("grok_1_314b"), tokens)
     with pytest.raises(NotImplementedError, match="embeds"):
         registry.forward(params, cfg, tokens, embeds=torch.zeros(1, 4, 64))
     with pytest.raises(NotImplementedError, match="not yet ported"):
