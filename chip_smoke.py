@@ -2241,6 +2241,12 @@ SSD_EDGES = [(1, 1, 2, 8, 4, 8), (2, 37, 3, 16, 16, 16), (1, 300, 2, 8, 4, 100),
              (1, 2100, 2, 16, 16, 1024), (1, 1100, 2, 64, 128, 1024),
              (2, 130, 3, 33, 5, 64), (1, 200, 4, 64, 16, 100)]
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}      # tests/test_kernels.py:83
+# the edges of the backward's tensor-core route (chunks of 64, 16-row warp
+# tiles): S 1, a ragged end, exactly one chunk, one step past it, two chunks
+# and a ragged third; P 8 to 64 and N 4 to 128, odd P and N (narrow copies)
+SSD_BWD_EDGES = [(1, 1, 2, 8, 4), (2, 37, 3, 16, 16), (1, 64, 2, 64, 128),
+                 (1, 65, 2, 64, 128), (2, 150, 3, 33, 5), (1, 128, 2, 7, 77),
+                 (1, 200, 4, 64, 16), (2, 96, 2, 40, 128)]
 M2_PREFILL = (8, 4096, 32, 64, 128, 256)   # b, s, h, p, n, chunk: mamba2-370m
 M2_SERVE = {"batch": 8, "prompt_len": 4096, "steps": 64}
 TF32_OPS_PER_S = 495e12                    # H100 SXM dense TF32 tensor cores
@@ -2747,26 +2753,37 @@ def rglru_bwd_case(torch, gen, rkernel, rref, b, s, w):
 def ssd_bwd_case(torch, gen, skernel, sref, b, s, h, p, n, chunk, x_dtype,
                  bc_dtype, shared=False, decay=False, f64=False) -> dict:
     """The backward kernels against the plain backward (``ref.ssd_bwd``,
-    autograd of the chunked version; in float64 with ``f64``) on the same
-    inputs and output gradients, each gradient at :func:`close_scaled`'s
-    bound with the forward's tolerance for x's dtype; a second call gives
-    the same bits. ``decay``: the model's dA (:func:`model_decay`).
-    Returns ``{name: (max abs err, scale)}`` for dx, ddA, dB, dC."""
+    autograd of the chunked version, in chunks of ``chunk``: the function
+    does not depend on it; in float64 with ``f64``) on the same inputs and
+    output gradients, each gradient at :func:`close_scaled`'s bound with
+    the forward's tolerance for x's dtype; the route the C entry reports
+    (``launches_bwd_tc``) against :func:`kernel.plan_bwd`'s (bf16 B and C:
+    the tensor cores); a second call gives the same bits and leaves the tc
+    route's row counters at zero. ``decay``: the model's dA
+    (:func:`model_decay`). Returns ``{name: (max abs err, scale)}`` for dx,
+    ddA, dB, dC."""
     x, dA, B, C = ssd_inputs(torch, gen, b, s, h, p, n, x_dtype=x_dtype,
                              bc_dtype=bc_dtype, heads_share_bc=shared)
     if decay:
         dA = model_decay(torch, gen, b, s, h)
     dy = (torch.randn(x.shape, generator=gen, device="cuda") * 0.5).to(x.dtype)
     dst = torch.randn((b, h, p, n), generator=gen, device="cuda") * 0.1
-    got = skernel.ssd_bwd_cuda(x, dA, B, C, dy, dst)
+    counters = torch.zeros(b * h, dtype=torch.int32, device="cuda")
+    tc0 = skernel.launches_bwd_tc
+    got = skernel.ssd_bwd_cuda(x, dA, B, C, dy, dst, counters=counters)
+    ran = "tc" if skernel.launches_bwd_tc > tc0 else "fma"
+    route = skernel.plan_bwd(b, s, h, p, n, B.dtype).route
+    assert ran == route == ("tc" if bc_dtype == torch.bfloat16 else "fma"), \
+        ((b, s, h, p, n), x_dtype, bc_dtype, ran)
     want = sref.ssd_bwd(x.double() if f64 else x, dA, B, C, dy, dst,
                         chunk=chunk)
     tol = SSD_TOL[str(x.dtype).split(".")[1]]
     errs = {name: close_scaled(g, w, tol, tol)
             for name, g, w in zip(("dx", "ddA", "dB", "dC"), got, want)}
-    again = skernel.ssd_bwd_cuda(x, dA, B, C, dy, dst)
+    again = skernel.ssd_bwd_cuda(x, dA, B, C, dy, dst, counters=counters)
     assert all(torch.equal(u, v) for u, v in zip(got, again)), \
         (b, s, h, p, n, chunk)
+    assert not bool(counters.any()), counters
     return errs
 
 
@@ -3000,10 +3017,14 @@ def backward_phase(torch, rkernel, rref, fkernel, fref, skernel,
             + [(case, dt, torch.bfloat16, shared) for case in SSD_EDGES
                for dt in (torch.float32, torch.bfloat16)
                for shared in (False, True)])
+    runs += [((*case, skernel.BWD_CHUNK), dt, torch.bfloat16, shared)
+             for case in SSD_BWD_EDGES for dt in (torch.float32, torch.bfloat16)
+             for shared in (False, True)]
     for case, dt, bc_dt, shared in runs:
         se = ssd_bwd_case(torch, gen, skernel, sref, *case, dt, bc_dt, shared)
         print(f"ssd backward case b,s,h,p,n,chunk={case} x {str(dt)[6:]} B/C "
-              f"{str(bc_dt)[6:]}{' shared' if shared else ''}: max abs err "
+              f"{str(bc_dt)[6:]}{' shared' if shared else ''} "
+              f"({skernel.plan_bwd(*case[:5], bc_dt).route} route): max abs err "
               + ", ".join(f"{k} {e:.3e}" for k, (e, _) in se.items()))
     for decay in (False, True):
         se = ssd_bwd_case(torch, gen, skernel, sref, 2, 300, 4, 32, 64, 64,
@@ -3019,7 +3040,9 @@ def backward_phase(torch, rkernel, rref, fkernel, fref, skernel,
     dA = model_decay(torch, gen, b, s, h)
     dy = torch.randn(x.shape, generator=gen, device="cuda") * 0.5
     dst = torch.randn((b, h, p, n), generator=gen, device="cuda") * 0.1
+    tc0 = skernel.launches_bwd_tc
     got = skernel.ssd_bwd_cuda(x, dA, B, C, dy, dst)
+    assert skernel.launches_bwd_tc == tc0 + 1     # the tensor-core route
     want = sref.ssd_bwd(x.double(), dA, B, C, dy, dst, chunk=chunk)
     tol = SSD_TOL["float32"]
     se = {name: close_scaled(g, w, tol, tol)
@@ -3045,11 +3068,18 @@ def backward_phase(torch, rkernel, rref, fkernel, fref, skernel,
              for ev in prof.key_averages() if "ssd_bwd" in ev.key}
     bd = ssd_bwd_bound_ms(b, s, h, p, n, 4, 2 * b * s * n * B.element_size())
     (bound, by), (core_bound, core_by) = bd["tc"], bd["cuda_core"]
-    regs = ptxas_report(skernel.build(), r"ssd_bwd_[a-z]+_kernel")
+    regs = ptxas_report(skernel.build(), r"ssd_bwd_(?:tc_)?[a-z]+_kernel")
+    pl = skernel.plan_bwd(b, s, h, p, n, B.dtype)
+    assert pl.route == "tc", pl
+    smem = {k: skernel.smem_bytes(k, x.dtype, pl.chunk)
+            for k in ("bwd_state", "bwd_grad")}
     print(f"ssd backward at mamba2-370m's training microbatch b={b} s={s} "
           f"h={h} p={p} n={n} (x float32, B and C bf16 shared by the heads, "
-          f"the model's decay), 3 launches a call in chunks of "
-          f"{skernel.BWD_CHUNK}: against the plain version in float64, max "
+          f"the model's decay), route {pl.route}: 2 launches a call "
+          f"(ssd_bwd_tc_state_kernel with the row pass, ssd_bwd_tc_grad_kernel) "
+          f"in chunks of {pl.chunk}, shared memory a block state "
+          f"{smem['bwd_state']} B, grad {smem['bwd_grad']} B, workspace "
+          f"{pl.workspace_bytes} B: against the plain version in float64, max "
           f"abs err " + ", ".join(f"{k} {e:.3e} (scale {sc:.3e})"
                                   for k, (e, sc) in se.items())
           + "; the float32 plain version's: "
@@ -3087,13 +3117,15 @@ def recurrent_counts(rkernel, fkernel, skernel) -> dict:
             "flash_bwd": fkernel.launches_bwd,
             "flash_fwd_mma": fkernel.launches_fwd_mma,
             "ssd": skernel.launches, "ssd_tc": skernel.launches_tc,
-            "ssd_bwd": skernel.launches_bwd}
+            "ssd_bwd": skernel.launches_bwd,
+            "ssd_bwd_tc": skernel.launches_bwd_tc}
 
 
 def zero_counts(rkernel, fkernel, skernel) -> None:
     rkernel.launches = rkernel.launches_bwd = 0
     fkernel.launches_fwd = fkernel.launches_bwd = fkernel.launches_fwd_mma = 0
     skernel.launches = skernel.launches_tc = skernel.launches_bwd = 0
+    skernel.launches_bwd_tc = 0
 
 
 def checked_kernels(torch, rkernel, rref, fkernel, fref, skernel, sref,
@@ -3232,6 +3264,7 @@ def recurrent_train_phase(torch, np, spec: dict, kernels: tuple,
     assert {k: got[k] for k in want} == want, (got, want)
     assert got["flash_fwd_mma"] == got["flash_fwd"], got
     assert got["ssd_tc"] == got["ssd"], got
+    assert got["ssd_bwd_tc"] == got["ssd_bwd"], got
     losses, times = run.losses, run.seconds
     assert len(losses) == steps and all(np.isfinite(losses)), losses
     assert all(np.isfinite(run.grad_norms)), run.grad_norms
@@ -3246,7 +3279,9 @@ def recurrent_train_phase(torch, np, spec: dict, kernels: tuple,
           f"= {step_flops:.4e} FLOPs a step at 989 TFLOP/s), peak memory "
           f"{peak_gb:.2f} GB; launches "
           + ", ".join(f"{k} {got[k]}" for k in want)
-          + f" (as worked out); losses {' '.join(f'{x:.4f}' for x in losses)}; "
+          + (f" (as worked out; all {got['ssd_bwd_tc']} SSD backwards on the "
+             f"tensor-core route)" if cfg.family == "ssm" else " (as worked out)")
+          + f"; losses {' '.join(f'{x:.4f}' for x in losses)}; "
           f"grad norms {' '.join(f'{x:.4f}' for x in run.grad_norms)}",
           flush=True)
 
@@ -3296,13 +3331,18 @@ def recurrent_train_phase(torch, np, spec: dict, kernels: tuple,
             seen += e.count
     # device kernels a step launches: a call of the scan, its backward or
     # the flash forward is one; a D 256 flash backward four (delta, the
-    # dK/dV kernel's two passes, dQ); an SSD call or its backward three
+    # dK/dV kernel's two passes, dQ); an SSD call three; its backward two
+    # (the tensor-core route, which every call of the run took)
     one = train_launches(cfg, accum, 1)
     weights = {"scan": 1, "scan_bwd": 1, "flash_fwd": 1, "flash_bwd": 4,
-               "ssd": 3, "ssd_bwd": 3}
+               "ssd": 3, "ssd_bwd": 2}
     expected = sum(weights[k] * v for k, v in one.items())
     top = "; ".join(f"{kernel_name(e.key)[:40]} {dev_us(e) / 1e3:.1f} ms "
                     f"x{e.count}" for e in kern[:6])
+    bwd_ms = sum(v for k, v in shares.items() if k.startswith("ssd_bwd"))
+    if cfg.family == "ssm":
+        top = (f"the SSD backward {bwd_ms:.1f} ms "
+               f"({100 * bwd_ms / busy_ms:.1f}% of device time); " + top)
     print(f"{spec['arch']} train profile on {card}, one step: wall "
           f"{wall_ms:.1f} ms (under the profiler), device busy {busy_ms:.1f} "
           f"ms ({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} kernel "

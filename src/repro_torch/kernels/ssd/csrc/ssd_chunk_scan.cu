@@ -85,6 +85,39 @@
 // tile accumulates the state update. Only b * h blocks run, and every
 // product is a CUDA-core FMA fed from shared memory: 5.2 ms at the prefill
 // shape with bf16 B and C, before the tc route served them.
+//
+// The backward (no TPU kernel computes it: the reference differentiates
+// ssd_chunked with jax.grad) takes chunks of kBQ = 64 of its own, on two
+// routes chosen by the wrapper's `plan_bwd` from B's dtype alone:
+//
+// "tc", bf16 B and C: two launches, no float atomics, every sum in a fixed
+// order. (1) ssd_bwd_tc_state_kernel, 8 warps per (b, h, chunk): the chunk's
+// state U = (x e)^T B and state gradient D = (dy f)^T C as TF32 `mma.sync`
+// (x e and dy f split, two products each), into float32 workspaces; the last
+// block of a (b, h) row passes U forward into the entering states H_in and D
+// backward into the leaving states' gradients G, the two chains interleaved
+// so that a thread keeps 16 loads in flight: one block walks a row, so the
+// pass is bound by the loads it has in flight, and more than 8 a chain
+// spill (tools/ssd_bwd_variants.py times it with 4 and 16 a chain and
+// without it). (2) ssd_bwd_tc_grad_kernel, 4 warps
+// per (b, h, chunk), each owning 16 rows: first as s, the inter-chunk
+// products B G^T and x G into dx and dB, then its rows against the chunk's
+// rows on or below the diagonal 16 at a time, x.dy (TF32, both split) and
+// B.C (bf16 m16n8k16) into registers, decayed and masked there into M and
+// LX, which go on as A fragments into dx += M^T dy and dB += LX^T C; then as
+// l, dy H_in and the same with C.B and dy.x into dC += LX B. The two row
+// sums d(dA) needs besides T's (F and w) come from the accumulators of the
+// inter-chunk products before they are scaled. x, dy, B, C and a G / H_in
+// tile take 106,512 B of shared memory, 2 blocks an SM; x.dy and C.B are
+// formed once for the rows as s and once as l, which keeps M and LX in
+// registers and every Q x Q tile out of shared memory.
+// "fma", float32 B and C: the first backward's three kernels below, float32
+// FMAs on the CUDA cores with both operands from shared memory.
+// What bounds the backward: operations, the function's six (p, n)
+// multiply-adds a step and head as TF32 triples (2.58e10 at mamba2-370m's
+// training microbatch, 0.156 ms at 495 TFLOP/s). The chunks' quadratic
+// terms and the workspace (268 MB of chunk states at that shape, written,
+// passed along the rows and read) add work the bound does not count.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1099,9 +1132,10 @@ int launch_tc(const void* x, const void* dA, const void* B, const void* C,
 }
 
 // ---------------------------------------------------------------------------
-// Backward of the chunk scan (see the header): three launches a call, the
-// backward's own chunks of kBQ steps, float32 FMAs on the CUDA cores, the
-// cumsums in float64, every sum in a fixed order
+// Backward of the chunk scan, the "fma" route (float32 B and C; see the
+// header): three launches a call, the backward's own chunks of kBQ steps,
+// float32 FMAs on the CUDA cores, the cumsums in float64, every sum in a
+// fixed order
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;            // the backward's chunk (any chunk gives the
@@ -1215,15 +1249,18 @@ ssd_bwd_pass_kernel(float* __restrict__ ws_u, float* __restrict__ ws_d,
   }
 }
 
-// deterministic sum over the block (a fixed tree); every thread gets it
-__device__ __forceinline__ float bwd_block_sum(float v, float* red) {
+// deterministic sum over a block of kWarps warps (a fixed tree, then the
+// warps in order); every thread gets it
+template <int kWarps>
+__device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   __syncthreads();
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float t = 0.f;
-  for (int w = 0; w < kBThreads / 32; ++w) t += red[w];
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t += red[w];
   return t;
 }
 
@@ -1347,7 +1384,7 @@ ssd_bwd_grad_kernel(const TX* __restrict__ x, const float* __restrict__ dA,
     hd = fmaf(*at, hin, hd);
     *at = hin;
   }
-  const float hdot = bwd_block_sum(hd, red);  // its barriers also end F's reads
+  const float hdot = block_sum<kBThreads / 32>(hd, red);  // its barriers also end F's reads
 
   // dC, with dy_l . (H_in C_l) into the scratch
   for (int e = threadIdx.x; e < kBQ * N; e += kBThreads) {
@@ -1434,6 +1471,761 @@ int launch_bwd(const void* x, const void* dA, const void* B, const void* C,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward of the chunk scan on the tensor cores (bf16 B and C; x float32 or
+// bf16): two launches a call in chunks of kBQ, the same function as the
+// CUDA-core kernels above with every product an `mma.sync`
+// ---------------------------------------------------------------------------
+
+constexpr int kLdF = kMaxP + 4;     // float x and dy tile rows: the fragment
+                                    // reads (row g, column t) and (row 2t,
+                                    // column g) fall on 32 distinct banks
+constexpr int kLdGH = kMaxN + 8;    // G / H_in rows (float): (row g, columns
+                                    // 2t, 2t + 1) and (row t, column g) too
+constexpr int kTbStateThreads = 256;   // (1): 8 warps, 16 p x 64 n each
+constexpr int kTbGradThreads = 128;    // (2): 4 warps, 16 rows of the chunk each
+constexpr int kTbPassGroup = 8;        // (1): chunk states loaded at once
+constexpr int kTbTileF = kBQ * kLdF * 4;       // 17,408 B
+constexpr int kTbTileBC = kBQ * kTcLdB * 2;    // 17,408 B
+constexpr int kTbTileGH = kMaxP * kLdGH * 4;   // 34,816 B
+
+// x and dy tiles, B and C tiles, the cumsum (float64), e and f
+constexpr size_t tb_state_smem() {
+  return 2 * kTbTileF + 2 * kTbTileBC + kBQ * (sizeof(double) + 2 * sizeof(float));
+}
+// x, dy, B, C, the G / H_in tile, the cumsum, e, f and four row vectors
+// (column and row sums of T, F, w), and a block sum's warp partials
+constexpr size_t tb_grad_smem() {
+  return 2 * kTbTileF + 2 * kTbTileBC + kTbTileGH +
+         kBQ * (sizeof(double) + 6 * sizeof(float)) +
+         (kTbGradThreads / 32) * sizeof(float);
+}
+
+// rows [0, kBQ) of a (b, s, h, width) input as float32 into a tile of kLdF
+// columns, zeros at rows >= rows_in and columns >= width up to kMaxP: copies
+// of vec bytes in flight for float (committed by the caller), plain loads
+// converted for bf16
+template <typename TX>
+__device__ __forceinline__ void stage_f32(float* dst, const TX* src,
+                                          long long rs, int rows_in,
+                                          int width, int vec) {
+  if constexpr (sizeof(TX) == 4) {
+    stage_tile(dst, kLdF, src, rs, rows_in, width, kMaxP, vec);
+  } else {
+    for (int e = threadIdx.x; e < kBQ * kMaxP; e += blockDim.x) {
+      const int r = e / kMaxP, c = e % kMaxP;
+      dst[r * kLdF + c] =
+          r < rows_in && c < width ? to_f(src[(long long)r * rs + c]) : 0.f;
+    }
+  }
+}
+
+// the chunk's inclusive cumsum of dA in float64 by one warp, 32 steps a
+// pass; steps at or past len add 0, so they hold a_last
+__device__ __forceinline__ void chunk_cumsum(double* acs, const float* d,
+                                             long long ds, int len) {
+  const int lane = threadIdx.x & 31;
+  double carry = 0.0;
+  for (int base = 0; base < kBQ; base += 32) {
+    const int k = base + lane;
+    double v = k < len ? static_cast<double>(d[(long long)k * ds]) : 0.0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double u = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += u;
+    }
+    v += carry;
+    acs[k] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+// the sum over a warp's 4 lanes of one row (lanes g * 4 + [0, 4)), the
+// same bits on each
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// A fragment (16 x 8, k = t and t + 4) of rows r, r + 8 of a float tile, split
+__device__ __forceinline__ void a_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                        const float* tile, int ld, int r,
+                                        int k) {
+  split_tf32(tile[r * ld + k], hi[0], lo[0]);
+  split_tf32(tile[(r + 8) * ld + k], hi[1], lo[1]);
+  split_tf32(tile[r * ld + k + 4], hi[2], lo[2]);
+  split_tf32(tile[(r + 8) * ld + k + 4], hi[3], lo[3]);
+}
+
+// the A fragment of an accumulator tile (rows g, g + 8; columns 2t, 2t + 1)
+// with the k index permuted, k = t <-> column 2t, k = t + 4 <-> 2t + 1; split
+__device__ __forceinline__ void acc_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                          const float (&v)[4]) {
+  split_tf32(v[0], hi[0], lo[0]);
+  split_tf32(v[2], hi[1], lo[1]);
+  split_tf32(v[1], hi[2], lo[2]);
+  split_tf32(v[3], hi[3], lo[3]);
+}
+
+// d += a b with a split (two products; b exact in TF32)
+__device__ __forceinline__ void mma2(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t b0,
+                                     uint32_t b1) {
+  mma_tf32(d, al, b0, b1);
+  mma_tf32(d, ah, b0, b1);
+}
+
+// d += a b with both split: lo.hi + hi.lo + hi.hi
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// The states passed along one (b, h) row by a whole block: the chunk states
+// U (ws_u) replaced by the states entering each chunk, H_in[c] = H_in[c-1]
+// exp(a_end[c-1]) + U[c-1] (H_in[0] = 0), and the state gradients D (ws_d)
+// by the gradients of the states leaving each chunk, G[c] = G[c+1]
+// exp(a_end[c+1]) + D[c+1] (G[last] = dstate). The two chains run in the
+// same loop, kTbPassGroup chunks of each a step, so that a thread keeps 2
+// kTbPassGroup loads in flight. V = 4 (T float4) where the rows allow, else
+// 1. Other blocks wrote ws_u, ws_d and ws_a (exp(a_end) a chunk), so all
+// three are read from L2.
+template <typename T>
+__device__ __forceinline__ void pass_row_bwd(float* __restrict__ ws_u,
+                                             float* __restrict__ ws_d,
+                                             const float* __restrict__ ws_a,
+                                             const float* __restrict__ dstate,
+                                             int PN, int nc) {
+  constexpr int kV = sizeof(T) / sizeof(float);
+  const int cols = PN / kV;
+  T* u = reinterpret_cast<T*>(ws_u);
+  T* d = reinterpret_cast<T*>(ws_d);
+  for (int e = threadIdx.x; e < cols; e += blockDim.x) {
+    T vu[kTbPassGroup], vd[kTbPassGroup];
+    float fu[kTbPassGroup], fd[kTbPassGroup];
+    T carry{};
+    T grad = reinterpret_cast<const T*>(dstate)[e];
+    for (int k0 = 0; k0 < nc; k0 += kTbPassGroup) {   // a step's loads in flight
+#pragma unroll
+      for (int k = 0; k < kTbPassGroup; ++k)
+        if (k0 + k < nc) {
+          const int cu = k0 + k, cd = nc - 1 - k0 - k;
+          vu[k] = __ldcg(u + (long long)cu * cols + e);
+          vd[k] = __ldcg(d + (long long)cd * cols + e);
+          fu[k] = __ldcg(ws_a + cu);
+          fd[k] = __ldcg(ws_a + cd);
+        }
+#pragma unroll
+      for (int k = 0; k < kTbPassGroup; ++k)
+        if (k0 + k < nc) {
+          const int cu = k0 + k, cd = nc - 1 - k0 - k;
+          u[(long long)cu * cols + e] = carry;
+          carry = decay_add(carry, fu[k], vu[k]);
+          d[(long long)cd * cols + e] = grad;
+          grad = decay_add(grad, fd[k], vd[k]);
+        }
+    }
+  }
+}
+
+// (1) grid: b * H * nc blocks, one (b, h, chunk) each. block: 8 warps; warp
+// w owns rows p in [16 (w & 3), +16) and columns n in [64 (w >> 2), +64) of
+// the chunk's own state U = sum_s e_s x_s B_s^T and its state gradient D =
+// sum_l f_l dy_l C_l^T (e_s = exp(a_end - a_s), f_l = exp(a_l)): TF32 with x
+// e and dy f split, two products each (B and C are exact in TF32), the k
+// index permuted as in ssd_tc_state_kernel so that B's and C's fragments are
+// transposed ldmatrix reads of bf16 pairs. Writes exp(a_end) to ws_a. The
+// last of a (b, h) row's blocks to finish (an integer counter a row, zero
+// when the call starts, left at zero) passes U and D along the row.
+template <typename TX>
+__global__ void __launch_bounds__(kTbStateThreads, 2)
+ssd_bwd_tc_state_kernel(const TX* __restrict__ x, const float* __restrict__ dA,
+                        const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
+                        const TX* __restrict__ dy,
+                        const float* __restrict__ dstate,
+                        float* __restrict__ ws_u, float* __restrict__ ws_d,
+                        float* __restrict__ ws_a, int* __restrict__ counters,
+                        int H, int S, int P, int N, int nc, Strides st,
+                        int vec_x, int vec_b, int vec_c, int vec_dy) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);
+  float* ys = xs + kBQ * kLdF;
+  bf16* bs = reinterpret_cast<bf16*>(ys + kBQ * kLdF);
+  bf16* cs = bs + kBQ * kTcLdB;
+  double* acs = reinterpret_cast<double*>(cs + kBQ * kTcLdB);
+  float* ev = reinterpret_cast<float*>(acs + kBQ);
+  float* fv = ev + kBQ;
+
+  const long long bhi = blockIdx.x / nc;
+  const int c = blockIdx.x % nc;
+  const int bi = (int)(bhi / H), hi = (int)(bhi % H);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int t0 = c * kBQ, len = min(kBQ, S - t0);
+
+  stage_f32(xs, x + bi * st.xb + hi * st.xh + (long long)t0 * st.xs, st.xs,
+            len, P, vec_x);
+  stage_f32(ys, dy + ((long long)bi * S + t0) * H * P + (long long)hi * P,
+            (long long)H * P, len, P, vec_dy);
+  stage_tile(bs, kTcLdB, Bm + bi * st.bb + hi * st.bh + (long long)t0 * st.bs,
+             st.bs, len, N, kMaxN, vec_b);
+  stage_tile(cs, kTcLdB, Cm + bi * st.cb + hi * st.ch + (long long)t0 * st.cs,
+             st.cs, len, N, kMaxN, vec_c);
+  copy_commit();
+  if (warp == 0)
+    chunk_cumsum(acs, dA + bi * st.db + hi * st.dh + (long long)t0 * st.ds,
+                 st.ds, len);
+  __syncthreads();
+  const double a_last = acs[kBQ - 1];
+  for (int k = tid; k < kBQ; k += kTbStateThreads) {
+    ev[k] = k < len ? expf(static_cast<float>(a_last - acs[k])) : 0.f;
+    fv[k] = k < len ? expf(static_cast<float>(acs[k])) : 0.f;
+  }
+  if (tid == 0) ws_a[bhi * nc + c] = expf(static_cast<float>(a_last));
+  copy_wait<0>();
+  __syncthreads();
+
+  const int pw = warp & 3, nw = warp >> 2;
+  float au[8][4] = {}, ad[8][4] = {};
+#pragma unroll 2
+  for (int ks = 0; ks < kBQ / 8; ++ks) {
+    const int j = 8 * ks + 2 * t;
+    const float e0 = ev[j], e1 = ev[j + 1], f0 = fv[j], f1 = fv[j + 1];
+    const float* xr = xs + j * kLdF + 16 * pw + g;
+    const float* yr = ys + j * kLdF + 16 * pw + g;
+    uint32_t xh[4], xl[4], yh[4], yl[4];
+    split_tf32(xr[0] * e0, xh[0], xl[0]);           // (p g, j 2t)
+    split_tf32(xr[8] * e0, xh[1], xl[1]);           // (p g + 8, j 2t)
+    split_tf32(xr[kLdF] * e1, xh[2], xl[2]);        // (p g, j 2t + 1)
+    split_tf32(xr[kLdF + 8] * e1, xh[3], xl[3]);    // (p g + 8, j 2t + 1)
+    split_tf32(yr[0] * f0, yh[0], yl[0]);
+    split_tf32(yr[8] * f0, yh[1], yl[1]);
+    split_tf32(yr[kLdF] * f1, yh[2], yl[2]);
+    split_tf32(yr[kLdF + 8] * f1, yh[3], yl[3]);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int o = (8 * ks + (lane & 7)) * kTcLdB + 64 * nw + 32 * q + 8 * (lane >> 3);
+      uint32_t rb[4], rc[4];
+      ldsm_x4_t(rb, bs + o);
+      ldsm_x4_t(rc, cs + o);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        mma2(au[4 * q + m], xh, xl, bf_lo(rb[m]), bf_hi(rb[m]));
+        mma2(ad[4 * q + m], yh, yl, bf_lo(rc[m]), bf_hi(rc[m]));
+      }
+    }
+  }
+
+  const long long base = (bhi * nc + c) * P * N;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int n = 64 * nw + 8 * nt + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int p = 16 * pw + g + 8 * half;
+      if (p >= P) continue;
+      if ((N & 1) == 0 && n < N) {   // even N: one 8-byte store each
+        *reinterpret_cast<float2*>(ws_u + base + p * N + n) =
+            make_float2(au[nt][2 * half], au[nt][2 * half + 1]);
+        *reinterpret_cast<float2*>(ws_d + base + p * N + n) =
+            make_float2(ad[nt][2 * half], ad[nt][2 * half + 1]);
+        continue;
+      }
+      if (n < N) {
+        ws_u[base + p * N + n] = au[nt][2 * half];
+        ws_d[base + p * N + n] = ad[nt][2 * half];
+      }
+      if (n + 1 < N) {
+        ws_u[base + p * N + n + 1] = au[nt][2 * half + 1];
+        ws_d[base + p * N + n + 1] = ad[nt][2 * half + 1];
+      }
+    }
+  }
+
+  // the last of the row's nc blocks to finish passes the states along it,
+  // and leaves the row's counter at 0
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(counters + bhi, 1) == nc - 1;
+    if (last) counters[bhi] = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int PN = P * N;
+  float* row_u = ws_u + bhi * nc * PN;
+  float* row_d = ws_d + bhi * nc * PN;
+  const float* row_a = ws_a + bhi * nc;
+  const float* ds = dstate + bhi * PN;
+  if (PN % 4 == 0 && (reinterpret_cast<uintptr_t>(dstate) & 15) == 0)
+    pass_row_bwd<float4>(row_u, row_d, row_a, ds, PN, nc);
+  else
+    pass_row_bwd<float>(row_u, row_d, row_a, ds, PN, nc);
+}
+
+// (2) grid: b * H * nc blocks, one (b, h, chunk) each, after (1). block: 4
+// warps; warp w owns rows [16 w, +16) of the chunk, first as s (dx and dB),
+// then as l (dC). With L[l, s] = exp(a_l - a_s) for s <= l (else 0), e_s,
+// f_l as in (1), H_in the state entering the chunk and G the gradient of the
+// state leaving it (ws_u and ws_d after (1)):
+//   dx_s = e_s G B_s + sum_{l >= s} M[l,s] dy_l,  M = L (C_l . B_s)
+//   dB_s = e_s G^T x_s + sum_{l >= s} LX[l,s] C_l,  LX = L (dy_l . x_s)
+//   dC_l = f_l H_in^T dy_l + sum_{s <= l} LX[l,s] B_s
+//   da_l = sum_s T[l,s] - sum_s T[s,l] + f_l w_l - F_l
+//          (+ f_end <G, H_in> + sum_s F_s at l = end),  T = M (dy_l . x_s),
+//   F_s = e_s x_s . (G B_s), the row sum of x (.) the first term of dx before
+//   it is scaled, w_l = dy_l . (H_in C_l), the row sum of C (.) the first
+//   term of dC before it is scaled; d(dA)_t = sum_{l >= t} da_l in the chunk.
+// Each warp takes the inter-chunk products first (B G^T, x G; then dy H_in),
+// then its 16 rows against the chunk's other rows 16 at a time on or below
+// the diagonal: x.dy (three TF32 products) and C.B (bf16 m16n8k16, exact
+// products) into registers, decayed and masked there, T's sums taken, and
+// M, LX (split) multiplied into dx, dB or dC as A fragments in place. G is
+// read from shared memory for the rows s, then replaced by H_in for the rows
+// l. dB and dC are written per head, float32; summing them over heads that
+// share B and C is left to the caller (autograd's expand).
+template <typename TX>
+__global__ void __launch_bounds__(kTbGradThreads, 2)
+ssd_bwd_tc_grad_kernel(const TX* __restrict__ x, const float* __restrict__ dA,
+                       const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
+                       const TX* __restrict__ dy,
+                       const float* __restrict__ ws_h,
+                       const float* __restrict__ ws_g, TX* __restrict__ dx,
+                       float* __restrict__ ddA, float* __restrict__ dB,
+                       float* __restrict__ dC, int H, int S, int P, int N,
+                       int nc, Strides st, int vec_x, int vec_b, int vec_c,
+                       int vec_dy) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);
+  float* ys = xs + kBQ * kLdF;
+  bf16* bs = reinterpret_cast<bf16*>(ys + kBQ * kLdF);
+  bf16* cs = bs + kBQ * kTcLdB;
+  float* gh = reinterpret_cast<float*>(cs + kBQ * kTcLdB);   // G, then H_in
+  double* acs = reinterpret_cast<double*>(gh + kMaxP * kLdGH);  // a log2(e)
+  float* ev = reinterpret_cast<float*>(acs + kBQ);
+  float* fv = ev + kBQ;
+  float* colT = fv + kBQ;
+  float* Fv = colT + kBQ;
+  float* rowT = Fv + kBQ;
+  float* wv = rowT + kBQ;
+  float* red = wv + kBQ;
+
+  const long long bhi = blockIdx.x / nc;
+  const int c = blockIdx.x % nc;
+  const int bi = (int)(bhi / H), hi = (int)(bhi % H);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int t0 = c * kBQ, len = min(kBQ, S - t0);
+  const long long wbase = (bhi * nc + c) * P * N;
+  const int vec_s = N % 4 == 0 ? 16 : 4;
+
+  stage_f32(xs, x + bi * st.xb + hi * st.xh + (long long)t0 * st.xs, st.xs,
+            len, P, vec_x);
+  stage_f32(ys, dy + ((long long)bi * S + t0) * H * P + (long long)hi * P,
+            (long long)H * P, len, P, vec_dy);
+  stage_tile(bs, kTcLdB, Bm + bi * st.bb + hi * st.bh + (long long)t0 * st.bs,
+             st.bs, len, N, kMaxN, vec_b);
+  stage_tile(cs, kTcLdB, Cm + bi * st.cb + hi * st.ch + (long long)t0 * st.cs,
+             st.cs, len, N, kMaxN, vec_c);
+  stage_tile(gh, kLdGH, ws_g + wbase, N, P, N, kMaxN, vec_s, kMaxP);
+  copy_commit();
+  if (warp == 0)
+    chunk_cumsum(acs, dA + bi * st.db + hi * st.dh + (long long)t0 * st.ds,
+                 st.ds, len);
+  __syncthreads();
+  const double a_last = acs[kBQ - 1];
+  const double a_own = tid < kBQ ? acs[tid] : 0.0;
+  const float f_last = expf(static_cast<float>(a_last));
+  __syncthreads();   // every thread has read a_last
+  if (tid < kBQ) {
+    ev[tid] = tid < len ? expf(static_cast<float>(a_last - a_own)) : 0.f;
+    fv[tid] = tid < len ? expf(static_cast<float>(a_own)) : 0.f;
+    acs[tid] = a_own * kLog2e;
+  }
+  copy_wait<0>();
+  __syncthreads();
+
+  const int R = 16 * warp;                  // the warp's rows
+  const int r_lo = R + g, r_hi = R + g + 8;
+  const double A_lo = acs[r_lo], A_hi = acs[r_hi];
+  // B's (then C's) rows R.. as bf16 A fragments, 16 n a step
+  const int a_row = R + (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  // the other operand's rows of a 16-row step: bf16 B fragments, 16 n a step
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+
+  // ---- the rows as s: dx (16 x P) and dB (16 x N)
+  float ax[8][4] = {}, ab[16][4] = {};
+  // B_s G^T: B exact, G split (two products); k = n permuted as C.S_in^T in
+  // ssd_tc_out_kernel, so that the A fragment is the halves of B's pairs
+#pragma unroll 1
+  for (int ks = 0; ks < kMaxN / 16; ++ks) {
+    uint32_t bf[4];
+    ldsm_x4(bf, bs + a_row * kTcLdB + 16 * ks + a_col);
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
+      const uint32_t a[4] = {bf_lo(bf[2 * h8]), bf_lo(bf[2 * h8 + 1]),
+                             bf_hi(bf[2 * h8]), bf_hi(bf[2 * h8 + 1])};
+      const int n0 = 16 * ks + 8 * h8;
+#pragma unroll
+      for (int pt = 0; pt < 8; ++pt) {
+        const float2 gv = *reinterpret_cast<const float2*>(gh + (8 * pt + g) * kLdGH + n0 + 2 * t);
+        uint32_t h0, l0, h1, l1;
+        split_tf32(gv.x, h0, l0);
+        split_tf32(gv.y, h1, l1);
+        mma_tf32(ax[pt], a, l0, l1);
+        mma_tf32(ax[pt], a, h0, h1);
+      }
+    }
+  }
+  // x_s G: both split (three products), k = p
+#pragma unroll 1
+  for (int ks = 0; ks < kMaxP / 8; ++ks) {
+    uint32_t ah[4], al[4];
+    a_split(ah, al, xs, kLdF, r_lo, 8 * ks + t);
+    const float* gr = gh + (8 * ks + t) * kLdGH + g;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+      mma3(ab[nt], ah, al, gr[8 * nt], gr[4 * kLdGH + 8 * nt]);
+  }
+  {
+    // F_s from dx's first term, then both terms scaled by e_s
+    float fl = 0.f, fh = 0.f;
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt) {
+      const int p = 8 * pt + 2 * t;
+      fl += xs[r_lo * kLdF + p] * ax[pt][0] + xs[r_lo * kLdF + p + 1] * ax[pt][1];
+      fh += xs[r_hi * kLdF + p] * ax[pt][2] + xs[r_hi * kLdF + p + 1] * ax[pt][3];
+    }
+    fl = quad_sum(fl);
+    fh = quad_sum(fh);
+    const float e_lo = ev[r_lo], e_hi = ev[r_hi];
+    if (t == 0) {
+      Fv[r_lo] = e_lo * fl;
+      Fv[r_hi] = e_hi * fh;
+    }
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt) {
+      ax[pt][0] *= e_lo; ax[pt][1] *= e_lo; ax[pt][2] *= e_hi; ax[pt][3] *= e_hi;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      ab[nt][0] *= e_lo; ab[nt][1] *= e_lo; ab[nt][2] *= e_hi; ab[nt][3] *= e_hi;
+    }
+  }
+  float t_lo = 0.f, t_hi = 0.f;   // column sums of T
+#pragma unroll 1
+  for (int l0 = R; l0 < kBQ; l0 += 16) {
+    float xd[2][4] = {}, cb[2][4] = {};
+    // x_s . dy_l: both split; k = p
+#pragma unroll 2
+    for (int ks = 0; ks < kMaxP / 8; ++ks) {
+      uint32_t ah[4], al[4];
+      a_split(ah, al, xs, kLdF, r_lo, 8 * ks + t);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float* yr = ys + (l0 + 8 * nt + g) * kLdF + 8 * ks + t;
+        mma3(xd[nt], ah, al, yr[0], yr[4]);
+      }
+    }
+    // B_s . C_l: bf16, exact products
+#pragma unroll
+    for (int ks = 0; ks < kMaxN / 16; ++ks) {
+      uint32_t a[4], r[4];
+      ldsm_x4(a, bs + a_row * kTcLdB + 16 * ks + a_col);
+      ldsm_x4(r, cs + (l0 + b_row) * kTcLdB + 16 * ks + b_col);
+      mma_bf16(cb[0], a, r[0], r[1]);
+      mma_bf16(cb[1], a, r[2], r[3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int l = l0 + 8 * nt + 2 * t;   // columns l, l + 1
+      const double Al0 = acs[l], Al1 = acs[l + 1];
+      // the decay 2^(log2(e) (a_l - a_s)) where l >= s (never a positive power)
+      const float d[4] = {
+          l >= r_lo ? ex2(static_cast<float>(Al0 - A_lo)) : 0.f,
+          l + 1 >= r_lo ? ex2(static_cast<float>(Al1 - A_lo)) : 0.f,
+          l >= r_hi ? ex2(static_cast<float>(Al0 - A_hi)) : 0.f,
+          l + 1 >= r_hi ? ex2(static_cast<float>(Al1 - A_hi)) : 0.f};
+      float m[4], lx[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        m[k] = cb[nt][k] * d[k];
+        lx[k] = xd[nt][k] * d[k];
+      }
+      t_lo += m[0] * xd[nt][0] + m[1] * xd[nt][1];
+      t_hi += m[2] * xd[nt][2] + m[3] * xd[nt][3];
+      uint32_t mh[4], ml[4], lh[4], ll[4];
+      acc_split(mh, ml, m);
+      acc_split(lh, ll, lx);
+      // dx += M^T dy: dy's rows l, l + 1 (split; three products)
+      const float* yr = ys + l * kLdF + g;
+#pragma unroll
+      for (int pt = 0; pt < 8; ++pt)
+        mma3(ax[pt], mh, ml, yr[8 * pt], yr[kLdF + 8 * pt]);
+      // dB += LX^T C: C's pairs of rows l, l + 1 by transposed ldmatrix
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t r[4];
+        ldsm_x4_t(r, cs + (l0 + 8 * nt + (lane & 7)) * kTcLdB + 32 * q + 8 * (lane >> 3));
+#pragma unroll
+        for (int mm = 0; mm < 4; ++mm)
+          mma2(ab[4 * q + mm], lh, ll, bf_lo(r[mm]), bf_hi(r[mm]));
+      }
+    }
+  }
+  t_lo = quad_sum(t_lo);
+  t_hi = quad_sum(t_hi);
+  if (t == 0) {
+    colT[r_lo] = t_lo;
+    colT[r_hi] = t_hi;
+  }
+  const long long xrs = (long long)H * P, grs = (long long)H * N;
+  TX* dxb = dx + ((long long)bi * S + t0) * xrs + (long long)hi * P;
+  float* dBb = dB + ((long long)bi * S + t0) * grs + (long long)hi * N;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r_hi : r_lo;
+    if (r >= len) continue;
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt) {
+      const int p = 8 * pt + 2 * t;
+      if (p < P) from_f(ax[pt][2 * half], dxb + r * xrs + p);
+      if (p + 1 < P) from_f(ax[pt][2 * half + 1], dxb + r * xrs + p + 1);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const int n = 8 * nt + 2 * t;
+      if ((N & 1) == 0 && n < N) {   // even N: one 8-byte store
+        *reinterpret_cast<float2*>(dBb + r * grs + n) =
+            make_float2(ab[nt][2 * half], ab[nt][2 * half + 1]);
+        continue;
+      }
+      if (n < N) dBb[r * grs + n] = ab[nt][2 * half];
+      if (n + 1 < N) dBb[r * grs + n + 1] = ab[nt][2 * half + 1];
+    }
+  }
+
+  // G -> H_in in place, with <G, H_in>: a thread's 16 rows of 4 loaded at
+  // once where N % 4 == 0 (H_in's rows, and each chunk's, are then 16-byte
+  // aligned), else one float at a time
+  __syncthreads();   // every warp is done with G
+  float hd = 0.f;
+  const float* hsrc = ws_h + wbase;
+  if (N % 4 == 0) {
+    constexpr int kQuads = kMaxN / 4, kPer = kMaxP * kQuads / kTbGradThreads;
+    float4 hv[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int e = tid + k * kTbGradThreads, p = e / kQuads, n = 4 * (e % kQuads);
+      hv[k] = p < P && n < N ? *reinterpret_cast<const float4*>(hsrc + p * N + n)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int e = tid + k * kTbGradThreads;
+      float4* at = reinterpret_cast<float4*>(gh + (e / kQuads) * kLdGH + 4 * (e % kQuads));
+      const float4 gv = *at;
+      hd = fmaf(gv.x, hv[k].x, hd);
+      hd = fmaf(gv.y, hv[k].y, hd);
+      hd = fmaf(gv.z, hv[k].z, hd);
+      hd = fmaf(gv.w, hv[k].w, hd);
+      *at = hv[k];
+    }
+  } else {
+#pragma unroll 8
+    for (int e = tid; e < kMaxP * kMaxN; e += kTbGradThreads) {
+      const int p = e / kMaxN, n = e % kMaxN;
+      const float v = p < P && n < N ? hsrc[p * N + n] : 0.f;
+      float* at = gh + p * kLdGH + n;
+      hd = fmaf(*at, v, hd);
+      *at = v;
+    }
+  }
+  const float hdot = block_sum<kTbGradThreads / 32>(hd, red);  // its barriers
+                                                               // end the swap
+
+  // ---- the rows as l: dC (16 x N)
+  float ac[16][4] = {};
+  // dy_l H_in: both split (three products), k = p
+#pragma unroll 1
+  for (int ks = 0; ks < kMaxP / 8; ++ks) {
+    uint32_t ah[4], al[4];
+    a_split(ah, al, ys, kLdF, r_lo, 8 * ks + t);
+    const float* hr = gh + (8 * ks + t) * kLdGH + g;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+      mma3(ac[nt], ah, al, hr[8 * nt], hr[4 * kLdGH + 8 * nt]);
+  }
+  {
+    // w_l from dC's first term, then that term scaled by f_l
+    float wl = 0.f, wh = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const int n = 8 * nt + 2 * t;
+      const uint32_t c_lo = *reinterpret_cast<const uint32_t*>(cs + r_lo * kTcLdB + n);
+      const uint32_t c_hi = *reinterpret_cast<const uint32_t*>(cs + r_hi * kTcLdB + n);
+      wl += ac[nt][0] * __uint_as_float(bf_lo(c_lo)) + ac[nt][1] * __uint_as_float(bf_hi(c_lo));
+      wh += ac[nt][2] * __uint_as_float(bf_lo(c_hi)) + ac[nt][3] * __uint_as_float(bf_hi(c_hi));
+    }
+    wl = quad_sum(wl);
+    wh = quad_sum(wh);
+    if (t == 0) {
+      wv[r_lo] = wl;
+      wv[r_hi] = wh;
+    }
+    const float f_lo = fv[r_lo], f_hi = fv[r_hi];
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      ac[nt][0] *= f_lo; ac[nt][1] *= f_lo; ac[nt][2] *= f_hi; ac[nt][3] *= f_hi;
+    }
+  }
+  t_lo = t_hi = 0.f;   // row sums of T
+#pragma unroll 1
+  for (int s0 = 0; s0 <= R; s0 += 16) {
+    float xd[2][4] = {}, cb[2][4] = {};
+    // dy_l . x_s: both split; k = p
+#pragma unroll 2
+    for (int ks = 0; ks < kMaxP / 8; ++ks) {
+      uint32_t ah[4], al[4];
+      a_split(ah, al, ys, kLdF, r_lo, 8 * ks + t);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float* xr = xs + (s0 + 8 * nt + g) * kLdF + 8 * ks + t;
+        mma3(xd[nt], ah, al, xr[0], xr[4]);
+      }
+    }
+    // C_l . B_s: bf16, exact products
+#pragma unroll
+    for (int ks = 0; ks < kMaxN / 16; ++ks) {
+      uint32_t a[4], r[4];
+      ldsm_x4(a, cs + a_row * kTcLdB + 16 * ks + a_col);
+      ldsm_x4(r, bs + (s0 + b_row) * kTcLdB + 16 * ks + b_col);
+      mma_bf16(cb[0], a, r[0], r[1]);
+      mma_bf16(cb[1], a, r[2], r[3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int s = s0 + 8 * nt + 2 * t;   // columns s, s + 1
+      const double As0 = acs[s], As1 = acs[s + 1];
+      const float d[4] = {
+          s <= r_lo ? ex2(static_cast<float>(A_lo - As0)) : 0.f,
+          s + 1 <= r_lo ? ex2(static_cast<float>(A_lo - As1)) : 0.f,
+          s <= r_hi ? ex2(static_cast<float>(A_hi - As0)) : 0.f,
+          s + 1 <= r_hi ? ex2(static_cast<float>(A_hi - As1)) : 0.f};
+      float lx[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) lx[k] = xd[nt][k] * d[k];
+      t_lo += cb[nt][0] * d[0] * xd[nt][0] + cb[nt][1] * d[1] * xd[nt][1];
+      t_hi += cb[nt][2] * d[2] * xd[nt][2] + cb[nt][3] * d[3] * xd[nt][3];
+      uint32_t lh[4], ll[4];
+      acc_split(lh, ll, lx);
+      // dC += LX B: B's pairs of rows s, s + 1 by transposed ldmatrix
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t r[4];
+        ldsm_x4_t(r, bs + (s0 + 8 * nt + (lane & 7)) * kTcLdB + 32 * q + 8 * (lane >> 3));
+#pragma unroll
+        for (int mm = 0; mm < 4; ++mm)
+          mma2(ac[4 * q + mm], lh, ll, bf_lo(r[mm]), bf_hi(r[mm]));
+      }
+    }
+  }
+  t_lo = quad_sum(t_lo);
+  t_hi = quad_sum(t_hi);
+  if (t == 0) {
+    rowT[r_lo] = t_lo;
+    rowT[r_hi] = t_hi;
+  }
+  float* dCb = dC + ((long long)bi * S + t0) * grs + (long long)hi * N;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r_hi : r_lo;
+    if (r >= len) continue;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const int n = 8 * nt + 2 * t;
+      if ((N & 1) == 0 && n < N) {
+        *reinterpret_cast<float2*>(dCb + r * grs + n) =
+            make_float2(ac[nt][2 * half], ac[nt][2 * half + 1]);
+        continue;
+      }
+      if (n < N) dCb[r * grs + n] = ac[nt][2 * half];
+      if (n + 1 < N) dCb[r * grs + n + 1] = ac[nt][2 * half + 1];
+    }
+  }
+
+  // d(dA): da_l, then its reverse cumsum over the chunk by warp 0 (a suffix
+  // scan of each half, the upper half's total added to the lower)
+  __syncthreads();
+  if (warp != 0) return;
+  float d_lo = rowT[lane] - colT[lane] + fv[lane] * wv[lane] - Fv[lane];
+  float d_hi = rowT[lane + 32] - colT[lane + 32] + fv[lane + 32] * wv[lane + 32] -
+               Fv[lane + 32];
+  float fs = Fv[lane] + Fv[lane + 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) fs += __shfl_xor_sync(0xffffffffu, fs, o);
+  if (lane == 31) d_hi += f_last * hdot + fs;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u_hi = __shfl_down_sync(0xffffffffu, d_hi, off);
+    const float u_lo = __shfl_down_sync(0xffffffffu, d_lo, off);
+    if (lane + off < 32) {
+      d_hi += u_hi;
+      d_lo += u_lo;
+    }
+  }
+  d_lo += __shfl_sync(0xffffffffu, d_hi, 0);
+  float* ddAb = ddA + ((long long)bi * S + t0) * H + hi;
+  if (lane < len) ddAb[(long long)lane * H] = d_lo;
+  if (lane + 32 < len) ddAb[(long long)(lane + 32) * H] = d_hi;
+}
+
+// (1) then (2) on one stream
+template <typename TX>
+int launch_bwd_tc(const void* x, const void* dA, const void* B, const void* C,
+                  const void* dy, const void* dstate, void* dx, void* ddA,
+                  void* dB, void* dC, void* ws_u, void* ws_d, void* ws_a,
+                  int* counters, int b, int S, int H, int P, int N,
+                  const Strides& st, int vec_x, int vec_b, int vec_c,
+                  int vec_dy, cudaStream_t stream) {
+  const int nc = (S + kBQ - 1) / kBQ;
+  const unsigned blocks = (unsigned)((long long)b * H * nc);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_tc_state_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)tb_state_smem());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_tc_grad_kernel<TX>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)tb_grad_smem());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_tc_state_kernel<TX><<<blocks, kTbStateThreads, tb_state_smem(), stream>>>(
+      static_cast<const TX*>(x), static_cast<const float*>(dA),
+      static_cast<const bf16*>(B), static_cast<const bf16*>(C),
+      static_cast<const TX*>(dy), static_cast<const float*>(dstate),
+      static_cast<float*>(ws_u), static_cast<float*>(ws_d),
+      static_cast<float*>(ws_a), counters, H, S, P, N, nc, st, vec_x, vec_b,
+      vec_c, vec_dy);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_tc_grad_kernel<TX><<<blocks, kTbGradThreads, tb_grad_smem(), stream>>>(
+      static_cast<const TX*>(x), static_cast<const float*>(dA),
+      static_cast<const bf16*>(B), static_cast<const bf16*>(C),
+      static_cast<const TX*>(dy), static_cast<const float*>(ws_u),
+      static_cast<const float*>(ws_d), static_cast<TX*>(dx),
+      static_cast<float*>(ddA), static_cast<float*>(dB), static_cast<float*>(dC),
+      H, S, P, N, nc, st, vec_x, vec_b, vec_c, vec_dy);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x (b, S, H, P), dA (b, S, H), B/C (b, S, H, N), each through its element
@@ -1497,31 +2289,57 @@ extern "C" int ssd_chunk_scan_smem(int kernel, int x_bf16, int Q) {
 }
 
 // The backward: x, dA, B, C as for ssd_chunk_scan (the same strides); dy
-// (b, S, H, P) contiguous in x's dtype, dstate (b, H, P, N) float32; out dx
-// (b, S, H, P) contiguous in x's dtype, ddA (b, S, H) float32,
-// dB and dC (b, S, H, N) float32, per head; workspaces ws_u and ws_d
-// (float32, b H nc P N) and ws_a (float32, b H nc), nc = ceil(S / 64).
+// (b, S, H, P) contiguous in x's dtype, dstate (b, H, P, N) contiguous
+// float32; out dx (b, S, H, P) contiguous in x's dtype, ddA (b, S, H)
+// float32, dB and dC (b, S, H, N) float32, per head; workspaces ws_u and
+// ws_d (float32, b H nc P N) and ws_a (float32, b H nc), nc = ceil(S / 64).
+// route: 0 "fma" (float32 B and C: the CUDA-core kernels), 1 "tc" (bf16 B
+// and C: the tensor-core kernels), which also takes counters (int32, b H,
+// zero) and the copy widths vec_x, vec_b, vec_c, vec_dy (as for
+// ssd_chunk_scan). Sets *ran to the route it launched. Returns 0, a
+// cudaError_t, or -1 for arguments the kernels do not take.
 extern "C" int ssd_chunk_scan_bwd(const void* x, const void* dA,
                                   const void* B, const void* C,
                                   const void* dy, const void* dstate,
                                   void* dx, void* ddA, void* dB, void* dC,
                                   void* ws_u, void* ws_d, void* ws_a,
-                                  int x_bf16, int bc_bf16, int b, int S, int H,
-                                  int P, int N, long long sxb, long long sxs,
+                                  int* counters, int route, int x_bf16,
+                                  int bc_bf16, int b, int S, int H, int P,
+                                  int N, int vec_x, int vec_b, int vec_c,
+                                  int vec_dy, long long sxb, long long sxs,
                                   long long sxh, long long sdb, long long sds,
                                   long long sdh, long long sbb, long long sbs,
                                   long long sbh, long long scb, long long scs,
-                                  long long sch, void* stream) {
+                                  long long sch, void* stream, int* ran) {
   if (b < 1 || S < 1 || H < 1 || P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
       (long long)b * H > 65535)
     return -1;
   const Strides st{sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs, sbh, scb, scs, sch};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    return bc_bf16 ? launch_bwd<bf16, bf16>(x, dA, B, C, dy, dstate, dx, ddA, dB, dC, ws_u, ws_d, ws_a, b, S, H, P, N, st, s)
-                   : launch_bwd<bf16, float>(x, dA, B, C, dy, dstate, dx, ddA, dB, dC, ws_u, ws_d, ws_a, b, S, H, P, N, st, s);
-  return bc_bf16 ? launch_bwd<float, bf16>(x, dA, B, C, dy, dstate, dx, ddA, dB, dC, ws_u, ws_d, ws_a, b, S, H, P, N, st, s)
+  int err = -1;
+  if (route == 1) {
+    const bool vec_ok = copy_width_ok(vec_b, 1) && copy_width_ok(vec_c, 1) &&
+                        copy_width_ok(vec_x, x_bf16) &&
+                        copy_width_ok(vec_dy, x_bf16);
+    if (!bc_bf16 || !vec_ok || counters == nullptr) return -1;
+    err = x_bf16 ? launch_bwd_tc<bf16>(x, dA, B, C, dy, dstate, dx, ddA, dB, dC,
+                                       ws_u, ws_d, ws_a, counters, b, S, H, P,
+                                       N, st, vec_x, vec_b, vec_c, vec_dy, s)
+                 : launch_bwd_tc<float>(x, dA, B, C, dy, dstate, dx, ddA, dB,
+                                        dC, ws_u, ws_d, ws_a, counters, b, S, H,
+                                        P, N, st, vec_x, vec_b, vec_c, vec_dy, s);
+  } else if (route == 0 && !bc_bf16) {
+    err = x_bf16 ? launch_bwd<bf16, float>(x, dA, B, C, dy, dstate, dx, ddA, dB, dC, ws_u, ws_d, ws_a, b, S, H, P, N, st, s)
                  : launch_bwd<float, float>(x, dA, B, C, dy, dstate, dx, ddA, dB, dC, ws_u, ws_d, ws_a, b, S, H, P, N, st, s);
+  }
+  if (err == 0) *ran = route;
+  return err;
+}
+
+// dynamic shared memory a block of the backward's tc route: kernel 0 (1),
+// the state kernel, or 1 (2), the grad kernel
+extern "C" int ssd_chunk_scan_bwd_smem(int kernel) {
+  return (int)(kernel == 0 ? tb_state_smem() : tb_grad_smem());
 }
 
 extern "C" const char* ssd_chunk_scan_error_string(int code) {

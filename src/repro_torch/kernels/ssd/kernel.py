@@ -36,9 +36,15 @@ with stride 0) and any ``S >= 1``.
 
 :func:`ssd_bwd_cuda` launches the backward of the scan (no TPU kernel
 computes it: the reference differentiates ``ssd_chunked`` with
-``jax.grad``), three more kernels of the same source on the CUDA cores in
-chunks of their own (:data:`BWD_CHUNK`), and counts its calls in
-:data:`launches_bwd`.
+``jax.grad``), in chunks of its own (:data:`BWD_CHUNK`), on a route of its
+own picked by :func:`plan_bwd` from B's dtype alone: ``"tc"`` (bf16 B and
+C) two launches on the tensor cores, each chunk's state and state
+gradient with the pass along each (b, h) row fused in
+(``ssd_bwd_tc_state_kernel``), then each chunk's gradients
+(``ssd_bwd_tc_grad_kernel``); ``"fma"`` (float32 B and C) the first
+backward's three kernels on the CUDA cores. It counts its calls in
+:data:`launches_bwd`, and of those the ones the C entry reports on the tc
+route in :data:`launches_bwd_tc`.
 """
 
 from __future__ import annotations
@@ -58,10 +64,12 @@ _BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024      # the kernel's tile limits
 
 # calls of the CUDA kernels since the count was last set to 0, and of those
-# the ones the C entry reports it ran on the tc route; calls of the backward
+# the ones the C entry reports it ran on the tc route; calls of the
+# backward, and of those the ones on its tc route
 launches = 0
 launches_tc = 0
 launches_bwd = 0
+launches_bwd_tc = 0
 BWD_CHUNK = 64               # the backward kernels' own chunk
 
 # the C entry's route codes
@@ -87,9 +95,12 @@ def _load():
                                            + [i64] * 12
                                            + [ptr, ctypes.POINTER(i32)])
             lib.ssd_chunk_scan.restype = i32
-            lib.ssd_chunk_scan_bwd.argtypes = ([ptr] * 13 + [i32] * 7
-                                               + [i64] * 12 + [ptr])
+            lib.ssd_chunk_scan_bwd.argtypes = ([ptr] * 14 + [i32] * 12
+                                               + [i64] * 12
+                                               + [ptr, ctypes.POINTER(i32)])
             lib.ssd_chunk_scan_bwd.restype = i32
+            lib.ssd_chunk_scan_bwd_smem.argtypes = [i32]
+            lib.ssd_chunk_scan_bwd_smem.restype = i32
             lib.ssd_chunk_scan_smem.argtypes = [i32] * 3
             lib.ssd_chunk_scan_smem.restype = i32
             lib.ssd_chunk_scan_error_string.argtypes = [i32]
@@ -131,9 +142,26 @@ def plan(b: int, s: int, h: int, p: int, n: int, chunk: int, x_dtype,
     return Plan("fma", q, nc, heads, 0)
 
 
+def plan_bwd(b: int, s: int, h: int, p: int, n: int, bc_dtype) -> Plan:
+    """The backward's route for the same shapes, by B's and C's dtype alone
+    (bf16: ``"tc"``, float32: ``"fma"``), in chunks of :data:`BWD_CHUNK`;
+    needs no card. The workspace: float32 chunk states and state gradients
+    (b h nc p n each), each chunk's decay exp(a_end) (b h nc float32), and
+    on the tc route the rows' int32 counters (b h)."""
+    nc = -(-s // BWD_CHUNK)
+    route = "tc" if bc_dtype == torch.bfloat16 else "fma"
+    ws = 2 * b * h * nc * p * n * 4 + b * h * nc * 4
+    return Plan(route, BWD_CHUNK, nc, h, ws + (b * h * 4 if route == "tc" else 0))
+
+
 def smem_bytes(kernel: str, x_dtype, chunk: int) -> int:
     """Dynamic shared memory a block of the tc route's ``"state"`` or
-    ``"out"`` kernel takes at chunk length ``chunk`` (builds the library)."""
+    ``"out"`` kernel takes at chunk length ``chunk``, or of the backward's
+    ``"bwd_state"`` or ``"bwd_grad"`` kernel (which take any x dtype and
+    chunk alike) (builds the library)."""
+    if kernel.startswith("bwd_"):
+        return _load().ssd_chunk_scan_bwd_smem(("bwd_state", "bwd_grad")
+                                               .index(kernel))
     return _load().ssd_chunk_scan_smem(("state", "out").index(kernel),
                                        int(x_dtype == torch.bfloat16), chunk)
 
@@ -250,22 +278,26 @@ def ssd_cuda(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
 
 
 def ssd_bwd_cuda(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
-                 C: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor
+                 C: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor, *,
+                 counters: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, ...]:
     """Launch the backward: ``(dx, ddA, dB, dC)``, the gradients of
     :func:`ssd_cuda`'s ``(y, state)`` (the state starting at 0) for the
     output gradients ``dy`` (b, s, h, p) of y and ``dstate`` (b, h, p, n)
     float32 of the final state. The function does not depend on the
-    forward's chunk: the kernels take chunks of :data:`BWD_CHUNK`.
+    forward's chunk: the kernels take chunks of :data:`BWD_CHUNK`, on the
+    route :func:`plan_bwd` names (no fallback from one to the other).
 
     x, dA, B and C as :func:`ssd_cuda` takes them (B and C may be expanded
     over h with stride 0); dy in x's dtype. dx comes back in x's dtype,
     ddA float32 (b, s, h), dB and dC float32 per head (b, s, h, n): a caller
     whose B and C are shared by the heads sums them over h (autograd's
-    expand does). Raises on anything the kernels do not take and when a
+    expand does). ``counters``: the tc route's int32 row counters (b h,
+    all zero; the kernel leaves them at zero), allocated zeroed for the
+    call when None. Raises on anything the kernels do not take and when a
     launch fails.
     """
-    global launches_bwd
+    global launches_bwd, launches_bwd_tc
     _check(x, dA, B, C, BWD_CHUNK)
     b, s, h, p = x.shape
     n = B.shape[3]
@@ -279,9 +311,10 @@ def ssd_bwd_cuda(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
             or dstate.device != dev:
         raise ValueError(f"dstate must be ({b}, {h}, {p}, {n}) float32 on "
                          f"{dev} (got {tuple(dstate.shape)} {dstate.dtype})")
+    pl = plan_bwd(b, s, h, p, n, B.dtype)
     lib = _load()
     dy, dstate = dy.contiguous(), dstate.contiguous()
-    nc = -(-s // BWD_CHUNK)
+    nc = pl.n_chunks
     dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
     ddA = torch.empty((b, s, h), dtype=torch.float32, device=dev)
     dB = torch.empty((b, s, h, n), dtype=torch.float32, device=dev)
@@ -289,17 +322,31 @@ def ssd_bwd_cuda(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     ws_u = torch.empty(b * h * nc * p * n, dtype=torch.float32, device=dev)
     ws_d = torch.empty_like(ws_u)
     ws_a = torch.empty(b * h * nc, dtype=torch.float32, device=dev)
+    if pl.route != "tc":
+        counters = None
+    elif counters is None:     # the chunks done of each (b, h) row
+        counters = torch.zeros(b * h, dtype=torch.int32, device=dev)
+    elif (counters.dtype != torch.int32 or counters.device != dev
+          or counters.numel() != b * h or not counters.is_contiguous()):
+        raise ValueError(f"counters must be {b * h} contiguous int32 on "
+                         f"{dev}")
     strides = [*x.stride()[:3], *dA.stride(), *B.stride()[:3], *C.stride()[:3]]
+    ran = ctypes.c_int(-1)        # set by the C entry to the route it ran
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ssd_chunk_scan_bwd(
             x.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(),
             dy.data_ptr(), dstate.data_ptr(), dx.data_ptr(), ddA.data_ptr(),
             dB.data_ptr(), dC.data_ptr(), ws_u.data_ptr(), ws_d.data_ptr(),
-            ws_a.data_ptr(), int(x.dtype == torch.bfloat16),
-            int(B.dtype == torch.bfloat16), b, s, h, p, n, *strides, stream)
+            ws_a.data_ptr(), None if counters is None else counters.data_ptr(),
+            ROUTES[pl.route], int(x.dtype == torch.bfloat16),
+            int(B.dtype == torch.bfloat16), b, s, h, p, n, _copy_width(x),
+            _copy_width(B), _copy_width(C), _copy_width(dy), *strides, stream,
+            ctypes.byref(ran))
     if err != 0:
         msg = lib.ssd_chunk_scan_error_string(err).decode()
-        raise RuntimeError(f"SSD chunk-scan backward launch failed: {msg}")
+        raise RuntimeError(f"SSD chunk-scan backward launch failed on the "
+                           f"{pl.route} route: {msg}")
     launches_bwd += 1
+    launches_bwd_tc += int(ran.value == ROUTES["tc"])
     return dx, ddA, dB, dC

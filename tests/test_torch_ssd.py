@@ -21,6 +21,8 @@ card by the tests that skip here, ``tests/test_torch_ssd_cuda.py`` and
 ``chip_smoke.py``.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -492,3 +494,211 @@ def test_backward_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         kernel.ssd_bwd_cuda(x, dA, B, C, x, torch.zeros(1, 2, 8, 4))
     assert kernel.launches_bwd == before
+
+
+# the float32 operands of the backward's tensor-core route, each split in
+# hi + lo TF32 halves: x, dy, the state kernel's x e and dy f, the chunk
+# states' gradients G and the entering states H_in, the decayed scores M
+# and the decayed dy.x products LX
+BWD_OPERANDS = ("x", "dy", "xe_dyf", "G", "H_in", "M", "LX")
+
+
+def _tc_products(eq, u, v, split_u, split_v):
+    """``einsum(eq, u, v)`` as the route takes it on TF32 ``mma.sync``: an
+    operand with ``split_*`` None is exact in TF32 (bf16), True is split in
+    hi + lo (the lo products first, then hi.hi; lo.lo is dropped), False
+    takes one TF32 rounding."""
+    ein = torch.einsum
+    uh, ul = (u, None) if split_u is None else _split(u, split_u)
+    vh, vl = (v, None) if split_v is None else _split(v, split_v)
+    lo = None
+    if ul is not None:
+        lo = ein(eq, ul, vh)
+    if vl is not None:
+        lo = ein(eq, uh, vl) if lo is None else lo + ein(eq, uh, vl)
+    hi = ein(eq, uh, vh)
+    return hi if lo is None else lo + hi
+
+
+def _emulate_tc_bwd(x, dA, B, C, dy, dstate, unsplit=()):
+    """The backward's tensor-core route (bf16 B and C) on the CPU in
+    float32, in its order: chunks of ``kernel.BWD_CHUNK``, the cumsum of dA
+    float64 within a chunk; the state kernel's chunk states U = (x e)^T B
+    and gradients D = (dy f)^T C (e = exp(a_end - a), f = exp(a); two
+    products against bf16), passed forward (H_in) and backward (G) along
+    the row; then each chunk's dx, dB (rows s) and dC (rows l): the
+    inter-chunk terms B G^T, x G and dy H_in first (F and w from their
+    accumulators), C B^T exact in float32, x.dy (three products), the
+    decay 2^(log2(e) (a_l - a_s)) where s <= l, and the decayed M and LX
+    times dy, C and B; d(dA) from the row and column sums of T = M (x.dy),
+    reverse-summed. Every float32 operand is split in hi + lo, but those
+    named in ``unsplit`` (of :data:`BWD_OPERANDS`), which take one TF32
+    product. Returns ``(dx in x's dtype, ddA, dB, dC)``, dB and dC per
+    head."""
+    f32, F = torch.float32, torch.nn.functional
+    sp = {name: name not in unsplit for name in BWD_OPERANDS}
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = kernel.BWD_CHUNK
+    nc = -(-s // q)
+    pad = nc * q - s
+
+    def chunks(t):               # (b, s, h, k) -> (b, h, nc, q, k) float32
+        t = F.pad(t.to(f32), (0, 0, 0, 0, 0, pad))
+        return t.reshape(b, nc, q, h, -1).permute(0, 3, 1, 2, 4)
+
+    xq, yq, Bq, Cq = (chunks(t) for t in (x, dy, B, C))
+    dAq = F.pad(dA.to(f32), (0, 0, 0, pad)).reshape(b, nc, q, h)
+    a = torch.cumsum(dAq.permute(0, 3, 1, 2).double(), dim=-1)  # (b, h, nc, q)
+    a_last = a[..., -1:]
+    valid = (torch.arange(nc * q) < s).reshape(nc, q)
+    ev = torch.where(valid, torch.exp((a_last - a).to(f32)), 0.0)
+    fv = torch.where(valid, torch.exp(a.to(f32)), 0.0)
+    ein = torch.einsum
+    # the state kernel and the pass along the row
+    U = _tc_products("bhcjp,bhcjn->bhcpn", xq * ev[..., None], Bq,
+                     sp["xe_dyf"], None)
+    D = _tc_products("bhcjp,bhcjn->bhcpn", yq * fv[..., None], Cq,
+                     sp["xe_dyf"], None)
+    dec = torch.exp(a_last[..., 0].to(f32))                  # (b, h, nc)
+    h_in, carry = [], torch.zeros((b, h, p, n), dtype=f32)
+    for c in range(nc):
+        h_in.append(carry)
+        carry = carry * dec[:, :, c, None, None] + U[:, :, c]
+    grads, g = [], dstate.to(f32)
+    for c in range(nc - 1, -1, -1):
+        grads.append(g)
+        g = g * dec[:, :, c, None, None] + D[:, :, c]
+    H = torch.stack(h_in, dim=2)                             # (b, h, nc, p, n)
+    G = torch.stack(grads[::-1], dim=2)
+    # the grad kernel: rows s (dx, dB) ...
+    dxG = _tc_products("bhcsn,bhcpn->bhcsp", Bq, G, None, sp["G"])
+    dBG = _tc_products("bhcsp,bhcpn->bhcsn", xq, G, sp["x"], sp["G"])
+    Fs = ev * (xq * dxG).sum(-1)
+    xd = _tc_products("bhclp,bhcsp->bhcls", yq, xq, sp["dy"], sp["x"])
+    cb = ein("bhcln,bhcsn->bhcls", Cq, Bq)
+    a2 = a * (1 / np.log(2.0))
+    diff = (a2[..., :, None] - a2[..., None, :]).to(f32)     # [l, s]
+    lower = torch.ones((q, q), dtype=torch.bool).tril()
+    L = torch.where(lower, torch.exp2(diff.clamp(max=0)), 0.0)
+    M, LX = cb * L, xd * L
+    T = M * xd
+    dx = ev[..., None] * dxG + _tc_products("bhcls,bhclp->bhcsp", M, yq,
+                                            sp["M"], sp["dy"])
+    dB = ev[..., None] * dBG + _tc_products("bhcls,bhcln->bhcsn", LX, Cq,
+                                            sp["LX"], None)
+    # ... and rows l (dC)
+    dCH = _tc_products("bhclp,bhcpn->bhcln", yq, H, sp["dy"], sp["H_in"])
+    w = (dCH * Cq).sum(-1)
+    dC = fv[..., None] * dCH + _tc_products("bhcls,bhcsn->bhcln", LX, Bq,
+                                            sp["LX"], None)
+    da = T.sum(-1) - T.sum(-2) + fv * w - Fs
+    da[..., -1] += dec * (G * H).sum((-1, -2)) + Fs.sum(-1)
+    ddA = da.flip(-1).cumsum(-1).flip(-1)
+
+    def rows(t):                 # (b, h, nc, q, k) -> (b, s, h, k)
+        return t.permute(0, 2, 3, 1, 4).reshape(b, nc * q, h, -1)[:, :s]
+
+    return (rows(dx).to(x.dtype), rows(ddA[..., None])[..., 0], rows(dB),
+            rows(dC))
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_head", "shared"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 64, 4, 16, 16, 16),
+                                             (2, 37, 3, 16, 8, 16),
+                                             (1, 70, 2, 8, 4, 32),
+                                             (1, 130, 2, 16, 8, 64)])
+def test_emulated_tc_backward_matches_jax_vjp(b, s, h, p, n, chunk, shared):
+    """The backward's tensor-core arithmetic (bf16 B and C, chunks of 64,
+    TF32 splits, the fused pass, the kernel's order) against ``jax.vjp``
+    of ``ssd_chunked`` on the cases of
+    ``test_backward_matches_jax_vjp_of_ssd_chunked`` (and S 130: three
+    chunks of 64, the last ragged), B and C rounded to bf16, per head and
+    shared by the heads (their gradients summed over the heads), float32 at
+    2e-5."""
+    x, dA, B, C = _inputs(b, s, h, p, n, seed=19)
+    B, C = _bf16_values(B), _bf16_values(C)
+    if shared:
+        B, C = B[:, :, :1], C[:, :, :1]
+    rng = np.random.default_rng(23)
+    dy = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dst = rng.normal(size=(b, h, p, n)).astype(np.float32)
+    Bx, Cx = (np.broadcast_to(t, (b, s, h, n)) for t in (B, C))
+    _, vjp = jax.vjp(lambda *a: jm.ssd_chunked(*a, chunk=chunk),
+                     *(jnp.asarray(a) for a in (x, dA, Bx, Cx)))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dst)))
+    tB, tC = (torch.from_numpy(np.ascontiguousarray(t)).to(torch.bfloat16)
+              .expand(b, s, h, n) for t in (B, C))
+    got = _emulate_tc_bwd(torch.from_numpy(x), torch.from_numpy(dA), tB, tC,
+                          torch.from_numpy(dy), torch.from_numpy(dst))
+    if shared:
+        got = (*got[:2], *(g.sum(2, keepdim=True) for g in got[2:]))
+        want = (*want[:2], *(np.asarray(w).sum(2, keepdims=True)
+                             for w in want[2:]))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=2e-5)
+
+
+@functools.lru_cache(maxsize=1)
+def _model_scale_backward():
+    """mamba2-370m's scale on the CPU (:data:`M2_SCALE` without its
+    chunk): float32 x and dy, dA = -softplus(N(0, 1)) (the cumsum near
+    -50 at the end of a chunk of 64), bf16 B and C shared by the heads, the
+    final state's gradient N(0, 0.1^2); and the plain backward in float64
+    on them, computed once for the tests that share them (which do not
+    modify them)."""
+    b, s, h, p, n, chunk = M2_SCALE
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.normal(size=(b, s, h, p)) * 0.5).float()
+    dA = -torch.nn.functional.softplus(torch.from_numpy(
+        rng.normal(size=(b, s, h))).float())
+    B, C = (torch.from_numpy(rng.normal(size=(b, s, 1, n)) * 0.3).float()
+            .to(torch.bfloat16).expand(b, s, h, n) for _ in range(2))
+    dy = torch.from_numpy(rng.normal(size=(b, s, h, p)) * 0.5).float()
+    dst = torch.from_numpy(rng.normal(size=(b, h, p, n)) * 0.1).float()
+    want = ref.ssd_bwd(x.double(), dA, B, C, dy, dst, chunk=chunk)
+    return (x, dA, B, C, dy, dst), want
+
+
+def _bwd_ratio(got, want):
+    return max(_scaled_ratio(g, w, 1e-4) for g, w in zip(got, want))
+
+
+def test_emulated_tc_backward_at_model_decay_against_float64():
+    """At the model's scale and decay the backward route's arithmetic is
+    within a tenth of the card's float64 check (1e-4 under
+    ``close_scaled``) for dx, d(dA), dB and dC."""
+    args, want = _model_scale_backward()
+    ratio = _bwd_ratio(_emulate_tc_bwd(*args), want)
+    print(f"backward, error over the float64 check's allowance: split TF32 "
+          f"{ratio:.4f}")
+    assert ratio < 0.1, ratio
+
+
+@pytest.mark.parametrize("operand", BWD_OPERANDS)
+def test_emulated_tc_backward_needs_every_split(operand):
+    """One TF32 product for a single float32 operand of the backward route
+    (the others split) misses the float32 check at the model's decay: why
+    the kernel splits each of them."""
+    args, want = _model_scale_backward()
+    ratio = _bwd_ratio(_emulate_tc_bwd(*args, unsplit=(operand,)), want)
+    print(f"backward, one TF32 product for {operand}: {ratio:.2f} of the "
+          f"float64 check's allowance")
+    assert ratio > 1.0, (operand, ratio)
+
+
+@pytest.mark.parametrize("bc_dtype,route", [("bfloat16", "tc"),
+                                            ("float32", "fma")])
+def test_backward_plan_routes_by_b_dtype(bc_dtype, route):
+    """The backward's route by B's dtype alone, in chunks of 64, and its
+    workspace at mamba2-370m's training microbatch: chunk states and state
+    gradients, each chunk's decay, and the tc route's row counters."""
+    b, s, h, p, n = 2, 4096, 32, 64, 128
+    pl = kernel.plan_bwd(b, s, h, p, n, getattr(torch, bc_dtype))
+    assert (pl.route, pl.chunk, pl.n_chunks) == (route, kernel.BWD_CHUNK, 64)
+    assert kernel.BWD_CHUNK == 64
+    assert pl.workspace_bytes == (2 * b * h * 64 * p * n * 4 + b * h * 64 * 4
+                                  + (b * h * 4 if route == "tc" else 0))
+    assert kernel.plan_bwd(1, 65, 2, 8, 4, torch.bfloat16).n_chunks == 2

@@ -7,7 +7,9 @@ takes, its launch counts and a second call's bits; and the model's decay
 against float64. The backward kernels on the same cases and edges against
 the plain backward (``ref.ssd_bwd``), at the model's decay against
 float64, and through ``ops.ssd``'s autograd with B and C shared by the
-heads. Every test skips without a card.
+heads; the backward's tensor-core route (bf16 B and C) at the edges of its
+chunks (``SSD_BWD_EDGES``), its route and launch counts. Every test skips
+without a card.
 
 This file imports no JAX, so that it also runs on the card's machine:
 ``python -m pytest -q tests/test_torch_ssd_cuda.py``. The cases
@@ -169,3 +171,36 @@ def test_cuda_ssd_autograd_sums_shared_b_and_c_over_heads(gen):
         assert g.dtype == w.dtype
         tol = cs.SSD_TOL[str(w.dtype).split(".")[1]]
         cs.close_scaled(g.cpu(), w, tol, tol)
+
+
+BWD_EDGES = [pytest.param(*case, id="b{}_s{}_h{}_p{}_n{}".format(*case))
+             for case in cs.SSD_BWD_EDGES]
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_head", "shared"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n", BWD_EDGES)
+def test_cuda_ssd_backward_tc_route_edges(gen, b, s, h, p, n, dtype, shared):
+    """bf16 B and C on the backward's tensor-core route, at the edges of its
+    chunks of 64 and 16-row warp tiles (``SSD_BWD_EDGES``: S 1, a ragged
+    end, exactly one chunk, one step past it, a ragged third chunk; P and N
+    from 4 to the forward's 64 and 128, odd ones), per head and shared by
+    the heads, float32 and bf16 x: within the forward's tolerance of the
+    plain backward, the route by the C entry's report, a second call bit
+    for bit and the row counters left at zero."""
+    cs.ssd_bwd_case(torch, gen, kernel, ref, b, s, h, p, n, kernel.BWD_CHUNK,
+                    getattr(torch, dtype), torch.bfloat16, shared)
+
+
+def test_cuda_ssd_backward_counts_calls_and_tc_calls(gen):
+    """Each backward call adds one to ``launches_bwd``, and those the C entry
+    reports on the tensor-core route (bf16 B and C) to
+    ``launches_bwd_tc``; float32 B and C keep the CUDA-core kernels."""
+    x, dA, B, C = cs.ssd_inputs(torch, gen, 1, 70, 2, 16, 16,
+                                bc_dtype=torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device="cuda")
+    dst = torch.zeros((1, 2, 16, 16), device="cuda")
+    n0, t0 = kernel.launches_bwd, kernel.launches_bwd_tc
+    kernel.ssd_bwd_cuda(x, dA, B, C, dy, dst)
+    kernel.ssd_bwd_cuda(x, dA, B.float(), C.float(), dy, dst)
+    assert (kernel.launches_bwd - n0, kernel.launches_bwd_tc - t0) == (2, 1)
