@@ -132,8 +132,10 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     reference's cases, ragged S and W and one step, bit for bit, and
     against float64; the flash backward at head dim 256 on the edges of its
     tiles (``FLASH256_EDGES``) in float32 (the CUDA cores, one staging
-    tile) and bfloat16 (the tensor cores: a dV pass and a dK pass of the
-    dK/dV kernel, 32-key dQ steps), against float64; the SSD chunk scan's
+    tile) and bfloat16 (the tensor cores: dK and dV in one launch over
+    query heads and key tiles, the heads' float32 shares summed in head
+    order, 16-key dQ steps; two calls bit for bit), against float64; the
+    SSD chunk scan's
     on the forward's cases and edges, B and C per head and shared by the
     heads, against float64 at the test's and the model's decay. Then each
     at the shape the train phases give it (scan (1, 4096, 2560); attention
@@ -1896,7 +1898,9 @@ def sdpa_windowed(torch, q, k, v, window):
 
 
 # B, Sq, Sk, H, K, D, window, causal: the edges of the bf16 forward's D 256
-# tile (64 queries a block, 16 a warp, 32 keys a step)
+# tile (64 queries a block, 16 a warp, 32 keys a step) and of the
+# backward's (64 keys and one query head a dK/dV block, 64 queries a step,
+# 16 keys a dQ step; G = H / K heads' shares summed, none at G 1)
 FLASH256_EDGES = [
     (2, 80, 80, 4, 1, 136, 24, True),        # D 136: above 128, padded to 256
     (1, 96, 96, 4, 2, 200, None, True),      # D 200
@@ -1905,6 +1909,8 @@ FLASH256_EDGES = [
     (1, 130, 130, 10, 1, 256, 64, True),     # MQA, G 10 (recurrentgemma's)
     (1, 72, 136, 4, 2, 256, None, False),    # non-causal, Sq < Sk
     (1, 150, 70, 4, 1, 256, None, False),    # non-causal, Sq > Sk
+    (1, 100, 100, 2, 2, 256, 48, True),      # G 1: no shares to sum
+    (2, 140, 140, 8, 2, 256, None, True),    # G 4 in each of two KV heads
 ]
 
 
@@ -2923,16 +2929,25 @@ def backward_phase(torch, rkernel, rref, fkernel, fref, skernel,
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "library_ms": None})
 
-    # flash backward at head dim 256
+    # flash backward at head dim 256: bf16 on the D 256 route (the C
+    # entry's count), float32 not; two calls give the same bits
     for b, sq, sk, h, kh, d, win, causal in FLASH256_EDGES:
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).split(".")[1]
             q, k, v, do = flash_inputs(torch, gen, b, sq, h, kh, d, dt, sk=sk)
+            d0 = fkernel.launches_bwd_d256
             fe = flash_check(torch, fkernel, fref, q, k, v, do, causal, win,
                              name)
+            assert fkernel.launches_bwd_d256 - d0 == (dt == torch.bfloat16)
+            o, lse = fkernel.flash_attention_fwd_cuda(q, k, v, causal=causal,
+                                                      window=win)
+            first, second = (fkernel.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, causal=causal, window=win)
+                for _ in range(2))
+            assert all(torch.equal(x, z) for x, z in zip(first, second))
             print(f"flash D 256 backward edge B,Sq,Sk,H,K,D,window,causal="
                   f"{(b, sq, sk, h, kh, d, win, causal)} {name}: max abs err "
-                  f"{fmt_errs(fe)}")
+                  f"{fmt_errs(fe)}; two calls bit for bit")
     q, k, v, do = flash_inputs(torch, gen, 1, 96, 4, 1, 256, torch.float32)
     o, lse = fkernel.flash_attention_fwd_cuda(q, k, v, causal=True, window=40)
     got = fkernel.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True,
@@ -2969,17 +2984,18 @@ def backward_phase(torch, rkernel, rref, fkernel, fref, skernel,
         kernels = device_profile(
             torch, lambda: fkernel.flash_attention_bwd_cuda(
                 q, k, v, o, lse, do, causal=True, window=win), n=3)[3]
-        # the tensor-core route: the dK/dV kernel twice a call (its dV and dK
-        # passes, two instantiations), the dQ kernel and delta's once. Names
-        # only: after the earlier phases' profiles the profiler may drop
-        # events (a full run saw 6 of the 12 launches), so counts are printed
+        # the D 256 route: delta's kernel, the dK/dV kernel, the sum of its
+        # shares (G > 1) and the dQ kernel, once each a call. Names only:
+        # after the earlier phases' profiles the profiler may drop events
+        # (a full run saw 6 of 12 launches), so counts are printed
+        per_call = 3 + (h > kh)
         names = {}
         for e in kernels:
             base = kernel_name(e.key).split("<")[0]
             names[base] = names.get(base, 0) + e.count
-        assert "flash_bwd_dkdv_mma_kernel" in names and set(names) <= {
-            "flash_bwd_delta_kernel", "flash_bwd_dkdv_mma_kernel",
-            "flash_bwd_dq_mma_kernel"}, names
+        assert "flash_bwd_dkdv_d256_kernel" in names and set(names) <= {
+            "flash_bwd_delta_kernel", "flash_bwd_dkdv_d256_kernel",
+            "flash_bwd_d256_sum_kernel", "flash_bwd_dq_mma_kernel"}, names
         sdpa_bwd, backend = sdpa_windowed_bwd(torch, q, k, v, do, win)
         lib_ms = time_ms(torch, lambda i: sdpa_bwd(), 1, inner=3, reps=5)
         del sdpa_bwd
@@ -2990,7 +3006,7 @@ def backward_phase(torch, rkernel, rref, fkernel, fref, skernel,
               f"max abs err {fmt_errs(fe)}; two calls bit for bit; kernel "
               f"{ms:.3f} ms ({10 * b * h * d * pairs / ms / 1e9:.1f} "
               f"TFLOP/s), 3 calls under the profiler, "
-              f"{sum(names.values())} of 12 launches seen: "
+              f"{sum(names.values())} of {3 * per_call} launches seen: "
               + "; ".join(f"{kernel_name(e.key)} "
                           f"{dev_us(e) / e.count / 1e3:.3f} ms x{e.count}"
                           for e in kernels)
@@ -3110,12 +3126,14 @@ def backward_phase(torch, rkernel, rref, fkernel, fref, skernel,
 
 def recurrent_counts(rkernel, fkernel, skernel) -> dict:
     """The launch counters of the recurrent families' kernels, by the keys
-    of :func:`train_launches`, and the flash forwards the C entry ran on
-    the tensor-core kernel."""
+    of :func:`train_launches`, and the calls the C entries ran on the
+    flash forward's tensor-core kernel, the flash backward's D 256 route
+    and the SSD's tensor-core routes."""
     return {"scan": rkernel.launches, "scan_bwd": rkernel.launches_bwd,
             "flash_fwd": fkernel.launches_fwd,
             "flash_bwd": fkernel.launches_bwd,
             "flash_fwd_mma": fkernel.launches_fwd_mma,
+            "flash_bwd_d256": fkernel.launches_bwd_d256,
             "ssd": skernel.launches, "ssd_tc": skernel.launches_tc,
             "ssd_bwd": skernel.launches_bwd,
             "ssd_bwd_tc": skernel.launches_bwd_tc}
@@ -3124,6 +3142,7 @@ def recurrent_counts(rkernel, fkernel, skernel) -> dict:
 def zero_counts(rkernel, fkernel, skernel) -> None:
     rkernel.launches = rkernel.launches_bwd = 0
     fkernel.launches_fwd = fkernel.launches_bwd = fkernel.launches_fwd_mma = 0
+    fkernel.launches_bwd_d256 = 0
     skernel.launches = skernel.launches_tc = skernel.launches_bwd = 0
     skernel.launches_bwd_tc = 0
 
@@ -3219,7 +3238,7 @@ def recurrent_train_phase(torch, np, spec: dict, kernels: tuple,
     backward, to its plain version (:func:`checked_kernels`), checks that
     every parameter leaf's gradient is finite and not all zero, and
     compares the microbatch's loss before and after the steps; profiles one
-    step. Returns the run's launches by counter."""
+    step. Returns the run's launches by counter (:func:`recurrent_counts`)."""
     import contextlib
 
     from repro_torch import configs
@@ -3263,6 +3282,7 @@ def recurrent_train_phase(torch, np, spec: dict, kernels: tuple,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert {k: got[k] for k in want} == want, (got, want)
     assert got["flash_fwd_mma"] == got["flash_fwd"], got
+    assert got["flash_bwd_d256"] == got["flash_bwd"], got
     assert got["ssd_tc"] == got["ssd"], got
     assert got["ssd_bwd_tc"] == got["ssd_bwd"], got
     losses, times = run.losses, run.seconds
@@ -3280,7 +3300,9 @@ def recurrent_train_phase(torch, np, spec: dict, kernels: tuple,
           f"{peak_gb:.2f} GB; launches "
           + ", ".join(f"{k} {got[k]}" for k in want)
           + (f" (as worked out; all {got['ssd_bwd_tc']} SSD backwards on the "
-             f"tensor-core route)" if cfg.family == "ssm" else " (as worked out)")
+             f"tensor-core route)" if cfg.family == "ssm" else
+             f" (as worked out; all {got['flash_bwd_d256']} flash backwards "
+             f"on the D 256 route)")
           + f"; losses {' '.join(f'{x:.4f}' for x in losses)}; "
           f"grad norms {' '.join(f'{x:.4f}' for x in run.grad_norms)}",
           flush=True)
@@ -3330,19 +3352,22 @@ def recurrent_train_phase(torch, np, spec: dict, kernels: tuple,
             shares[name] = shares.get(name, 0.0) + dev_us(e) / 1e3
             seen += e.count
     # device kernels a step launches: a call of the scan, its backward or
-    # the flash forward is one; a D 256 flash backward four (delta, the
-    # dK/dV kernel's two passes, dQ); an SSD call three; its backward two
-    # (the tensor-core route, which every call of the run took)
+    # the flash forward is one; a D 256 flash backward four (delta, dK/dV,
+    # the sum of its shares over recurrentgemma's G 10, dQ); an SSD call
+    # three; its backward two (the tensor-core route, which every call of
+    # the run took)
     one = train_launches(cfg, accum, 1)
     weights = {"scan": 1, "scan_bwd": 1, "flash_fwd": 1, "flash_bwd": 4,
                "ssd": 3, "ssd_bwd": 2}
     expected = sum(weights[k] * v for k, v in one.items())
     top = "; ".join(f"{kernel_name(e.key)[:40]} {dev_us(e) / 1e3:.1f} ms "
                     f"x{e.count}" for e in kern[:6])
-    bwd_ms = sum(v for k, v in shares.items() if k.startswith("ssd_bwd"))
-    if cfg.family == "ssm":
-        top = (f"the SSD backward {bwd_ms:.1f} ms "
-               f"({100 * bwd_ms / busy_ms:.1f}% of device time); " + top)
+    what, prefixes = (("the SSD backward", ("ssd_bwd",))
+                      if cfg.family == "ssm" else
+                      ("the flash backward", ("flash_bwd",)))
+    bwd_ms = sum(v for k, v in shares.items() if k.startswith(prefixes))
+    top = (f"{what} {bwd_ms:.1f} ms ({100 * bwd_ms / busy_ms:.1f}% of device "
+           f"time); " + top)
     print(f"{spec['arch']} train profile on {card}, one step: wall "
           f"{wall_ms:.1f} ms (under the profiler), device busy {busy_ms:.1f} "
           f"ms ({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} kernel "
@@ -3353,7 +3378,7 @@ def recurrent_train_phase(torch, np, spec: dict, kernels: tuple,
                       for k, v in sorted(shares.items()))
           + f"; top device time: {top}", flush=True)
     del run, batch
-    return {k: got[k] for k in want}
+    return got
 
 
 def small_recurrent_train_reference_phase(torch, np) -> None:
@@ -5222,7 +5247,7 @@ def main() -> int:
                                      "train": train}
         entry["launches"] += train
     scan_bwd["launches"] = rg["scan_bwd"]
-    bwd256["launches"] = rg["flash_bwd"]
+    bwd256["launches"] = rg["flash_bwd_d256"]
     ssd_bwd["launches"] = m2["ssd_bwd"]
     conv = conv1d_phase(torch, ckernel, cref)
     conv["launches"] = healthcare_phase(torch, np, ckernel, cref, card)

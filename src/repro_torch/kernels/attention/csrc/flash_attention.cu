@@ -30,9 +30,11 @@
 // Which kernel runs, by dtype and D (no flag or fallback chooses):
 //   forward   bfloat16, any D      tensor cores   flash_fwd_mma_kernel
 //             float32, any D       CUDA cores     flash_fwd_kernel
-//   backward  bfloat16, any D      tensor cores   flash_bwd_dkdv_mma_kernel
-//                                                 (twice at D 256: dV, then
-//                                                 dK), flash_bwd_dq_mma_kernel
+//   backward  bfloat16, D <= 128   tensor cores   flash_bwd_dkdv_mma_kernel,
+//                                                 flash_bwd_dq_mma_kernel
+//             bfloat16, D 256      tensor cores   flash_bwd_dkdv_d256_kernel,
+//                                                 flash_bwd_d256_sum_kernel
+//                                                 (G > 1), flash_bwd_dq_mma_kernel
 //             float32, D <= 128    CUDA cores     flash_bwd_dkdv_kernel,
 //                                                 flash_bwd_dq_kernel
 //             float32, D 256       CUDA cores     flash_bwd_dkdv_seq_kernel,
@@ -111,20 +113,39 @@
 // RecurrentGemma's prefill shape (B 8, S 4096, bf16) the forward does
 // 5.15e11 FLOPs: 0.52 ms on the tensor cores.
 //
-// The backward at head dim 256 (RecurrentGemma-2B's training: B 2, S 4096,
-// H 10, K 1, window 2048). bf16: a warp's dK and dV accumulators together
-// would be 2 x 16 x 256 float32, 256 registers a thread before anything
-// else. So the dK/dV kernel runs twice, as two template passes over the
-// same tiles: the first forms P^T and adds P^T dO to dV only, the second
-// forms P^T again, then dP^T and dS^T, and adds dS^T Q to dK only; each
-// holds one 128-register accumulator (QT 16 query rows a step, as at D
-// 128). P^T is recomputed once more, so the backward does 12 products'
-// worth of mma where D <= 128 does 10. The dQ kernel takes 32-key steps, as
-// the forward does, for the same reason. Shared memory: 101,632 B a dK/dV
-// block, 135,168 B a dQ block. Masks, hi + lo splits of P and dS, delta and
-// the window's skipped tiles are those of D <= 128. At the training shape
-// the backward does 3.22e11 FLOPs (2.5 x the forward's 1.29e11): 0.326 ms
-// on the tensor cores.
+// The backward at head dim 256 (RecurrentGemma-2B's training: B 1 or 2, S
+// 4096, H 10, K 1, window 2048). bf16: a warp's dK and dV accumulators
+// together would be 2 x 16 x 256 float32, 256 registers a thread before
+// anything else, and at MQA a grid over (key tile, KV head) is 64 blocks
+// for 132 SMs at B 1. So flash_bwd_dkdv_d256_kernel takes one block per
+// (query head, 64-key tile), B * H x Sk / 64 (640 at B 1), x fastest so
+// that the heaviest causal key tiles start first. A block is two
+// warpgroups on the same 64 keys, 16 a warp: warps 0-3 hold dV, warps 4-7
+// dK, one 128-register accumulator each. A step's 64 query rows of Q and dO
+// (with lse and delta) land in shared memory once, through the double
+// buffer, for both. The dV warps form S^T = K Q^T and P^T and hand P^T to
+// the dK warps as bf16 hi + lo A fragments in shared memory while the dK
+// warps form dP^T = V dO^T; after a barrier the dV warps add P^T dO, and the
+// dK warps form dS^T from that hi + lo P^T and add dS^T Q. So a visible pair
+// costs 6 products' worth of mma (S^T, dP^T, and two hi + lo products),
+// 3 in each warpgroup, in one launch.
+// With G = H / K > 1 a block writes its head's float32 share of dK and dV
+// to a workspace ((B, Sk, H, D) each, 84 MB at B 1), and
+// flash_bwd_d256_sum_kernel adds the G shares of each KV head in head
+// order, in float32, and rounds once to bf16: no atomics, the same bits on
+// every run; with G 1 the share is the gradient and is stored as bf16. The
+// dQ kernel takes 16-key steps: its accumulator holds 128 float32 a thread,
+// and the smaller K and V ring (101,376 B a block) lets two blocks (8
+// warps) share an SM. Whatever the step, each product adds its 16-query
+// or 16-key sums to its accumulator in the same order, so the step sizes
+// leave the bits alone. -Xptxas -v: 249 registers a dK/dV
+// thread, 208 a dQ thread, no spill; 220,160 B shared a dK/dV block, one
+// block (8 warps) an SM. Masks, hi + lo splits of P and dS, delta and the
+// window's skipped tiles are those of D <= 128. At the training shape the
+// backward does 1.61e11 FLOPs at B 1 (5 products a pair): 0.163 ms on the
+// tensor cores. What bounds it now: mma.sync's issue and the chains
+// between products (the dK/dV kernel runs its 6 products at about 190
+// TFLOP/s, the dQ kernel its 4 at about 100), not bytes.
 //
 // The CUDA-core design (float32) is simple and exact, not fast. Every
 // product runs in float32 on the CUDA cores, so
@@ -1176,15 +1197,9 @@ __device__ __forceinline__ void load_q_step(
   load_rows_async<QT>(dl_s + buf * QT, delta + row, q0, Sq);
 }
 
-// Which of dK and dV a dK/dV launch forms: both (D <= 128), or one of them
-// (D 256, where the two accumulators would hold 256 float32 a thread: see
-// the header), each pass recomputing P^T.
-enum BwdPass { kPassDV = 1, kPassDK = 2, kPassBoth = 3 };
-
-// dK, dV. grid: x = 64-key tiles, y = B * K. block: kMmaThreads; warp w owns
-// keys k0 + 16 w .. + 16. QT query rows a step; PASS says which of dK and
-// dV it forms and stores.
-template <int DMAX, int QT, int PASS = kPassBoth>
+// dK, dV at D <= 128. grid: x = 64-key tiles, y = B * K. block:
+// kMmaThreads; warp w owns keys k0 + 16 w .. + 16. QT query rows a step.
+template <int DMAX, int QT>
 __global__ void __launch_bounds__(kMmaThreads, DMAX == 64 ? 3 : 1)  // 168 registers
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v,
@@ -1269,26 +1284,220 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       }
     }
     to_a_frags(hi, lo, x);                    // P^T as hi + lo
-    if constexpr ((PASS & kPassDV) != 0)
-      mma_ab<NK, DMAX>(dva, hi, lo, dOb, n16);  // dV += P^T dO
-    if constexpr ((PASS & kPassDK) != 0) {
-      zero(x);
-      mma_abt<NT, DMAX>(x, Vs + warp * 16 * LD, dOb, n16);  // dP^T = V dO^T
-      ds_from_p(x, hi, lo, dl_b, scale);      // dS^T = P^T (dP^T - delta) scale
-      to_a_frags(hi, lo, x);
-      mma_ab<NK, DMAX>(dka, hi, lo, Qb, n16);  // dK += dS^T Q
-    }
+    mma_ab<NK, DMAX>(dva, hi, lo, dOb, n16);  // dV += P^T dO
+    zero(x);
+    mma_abt<NT, DMAX>(x, Vs + warp * 16 * LD, dOb, n16);  // dP^T = V dO^T
+    ds_from_p(x, hi, lo, dl_b, scale);        // dS^T = P^T (dP^T - delta) scale
+    to_a_frags(hi, lo, x);
+    mma_ab<NK, DMAX>(dka, hi, lo, Qb, n16);   // dK += dS^T Q
   }
   cp_async_wait<0>();
 
-  if constexpr ((PASS & kPassDK) != 0) store_rows(dk + kv_base, dka, kw, Sk, kv_stride, D);
-  if constexpr ((PASS & kPassDV) != 0) store_rows(dv + kv_base, dva, kw, Sk, kv_stride, D);
+  store_rows(dk + kv_base, dka, kw, Sk, kv_stride, D);
+  store_rows(dv + kv_base, dva, kw, Sk, kv_stride, D);
 }
 
-// Keys a dQ step takes: 64, and 32 at D 256, where the warp's dQ
-// accumulator alone holds 128 float32 a thread (see the header).
+// ---------------------------------------------------------------------------
+// bfloat16 dK and dV at head dim 256 (see the header): one block per (query
+// head, 64-key tile), two warpgroups on the same keys
+// ---------------------------------------------------------------------------
+
+constexpr int kD256Threads = 256;  // warps 0-3 form dV, warps 4-7 dK
+constexpr int kD256QT = 64;        // query rows a step
+
+// A (16 x D) float32 accumulator as float32 rows row0 + r (r < 16, rows
+// past S skipped) of a view with row stride `stride`: a query head's share.
+template <int DT>
+__device__ __forceinline__ void store_rows_f32(float* dst,
+                                               const float (&acc)[DT][4],
+                                               int row0, int S, size_t stride,
+                                               int D) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < DT; ++nt) {
+    if (nt < D / 8) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = row0 + g + hf * 8;
+        if (row < S)
+          *reinterpret_cast<float2*>(dst + (size_t)row * stride + nt * 8 + 2 * t) =
+              make_float2(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// dK and dV of query head h's share of a 64-key tile. grid: x = B * H
+// (query heads, fastest, so the heaviest causal key tiles start first), y =
+// 64-key tiles. block: kD256Threads; warp w owns keys k0 + 16 (w % 4) .. +
+// 16, as its dV (w < 4) or its dK (w >= 4). A step's Q and dO rows land in
+// shared memory once for both. The dV warps form S^T = K Q^T and P^T, and
+// pass P^T as bf16 hi + lo A fragments through shared memory while the dK
+// warps form dP^T = V dO^T; after a barrier the dV warps add P^T dO and the
+// dK warps form dS^T from the same hi + lo P^T and add dS^T Q. With G = H /
+// K > 1 each block writes its head's float32 share to ws_dk / ws_dv ((B,
+// Sk, H, D)), which flash_bwd_d256_sum_kernel sums over the group in head
+// order; with G 1 the share is the gradient, stored as bf16.
+template <int QT>
+__global__ void __launch_bounds__(kD256Threads, 1)
+flash_bwd_dkdv_d256_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           float* __restrict__ ws_dk, float* __restrict__ ws_dv,
+                           int Sq, int Sk, int H, int K, int D, int causal,
+                           int window, float scale) {
+  constexpr int DMAX = 256, LD = DMAX + 8, NT = QT / 8, NK = QT / 16,
+                DT = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kMmaTile * LD;
+  bf16* Qs = Vs + kMmaTile * LD;       // [kStages][QT][LD]
+  bf16* dOs = Qs + kStages * QT * LD;  // [kStages][QT][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + kStages * QT * LD);  // [kStages][QT]
+  float* dl_s = lse_s + kStages * QT;  // [kStages][QT]
+  // P^T of the dV warps: [warp][hi, lo][NK][4][lane]
+  uint32_t* Ps = reinterpret_cast<uint32_t*>(dl_s + kStages * QT);
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H, kh = h / (H / K);
+  const int k0 = blockIdx.y * kMmaTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = lane & 3, g = lane >> 2;
+  const bool dv_warp = warp < 4;
+  const int kw = k0 + (warp & 3) * 16;  // this warp's first key
+  const size_t kv_stride = (size_t)K * D, kv_base = ((size_t)b * Sk * K + kh) * D;
+  const int n16 = (D + 15) / 16;
+  // the loads are issued by the dV warps (the helpers stride kMmaThreads)
+  const bool loader = threadIdx.x < kMmaThreads;
+
+  if (loader) {
+    load_tile_async<kMmaTile, DMAX>(Ks, k + kv_base, k0, Sk, kv_stride, D);
+    load_tile_async<kMmaTile, DMAX>(Vs, v + kv_base, k0, Sk, kv_stride, D);
+  }
+  // the queries that can see a key of this tile: [q_lo, q_hi), in steps of
+  // QT rows from q_first
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(Sq, k0 + kMmaTile - 1 + window) : Sq;
+  const int q_first = (q_lo / QT) * QT;
+  const int n_it = q_hi > q_first ? (q_hi - q_first + QT - 1) / QT : 0;
+  // the ring's first kStages - 1 steps (the first group also holds K and V)
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (loader && st < n_it)
+      load_q_step<DMAX, QT>(Qs, dOs, lse_s, dl_s, st, q, dout, lse, delta, b,
+                            h, q_first + st * QT, Sq, H, D);
+    cp_async_commit();
+  }
+
+  float acc[DT][4];  // dV (warps 0-3) or dK (warps 4-7)
+  zero(acc);
+  const float scale_l2 = scale * kLog2e;
+  uint32_t* Pw = Ps + (warp & 3) * 2 * NK * 4 * 32 + lane;
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<kStages - 2>();  // step it has landed
+    __syncthreads();              // ... for every thread; the stage refilled
+                                  // next and Ps were read last step
+    const int nx = it + kStages - 1;
+    if (loader && nx < n_it)
+      load_q_step<DMAX, QT>(Qs, dOs, lse_s, dl_s, nx % kStages, q, dout, lse,
+                            delta, b, h, q_first + nx * QT, Sq, H, D);
+    cp_async_commit();
+    const int buf = it % kStages, q0 = q_first + it * QT;
+    const bf16* Qb = Qs + buf * QT * LD;
+    const bf16* dOb = dOs + buf * QT * LD;
+
+    // dV warps: S^T = K Q^T; dK warps: dP^T = V dO^T (rows the warp's keys
+    // g, g + 8, columns queries)
+    float x[NT][4];
+    uint32_t hi[NK][4], lo[NK][4];
+    zero(x);
+    mma_abt<NT, DMAX>(x, (dv_warp ? Ks : Vs) + (warp & 3) * 16 * LD,
+                      dv_warp ? Qb : dOb, n16);
+    if (dv_warp) {
+      const float* lse_b = lse_s + buf * QT;
+      const bool all = tile_visible(q0, QT, k0, kMmaTile, Sq, Sk, causal, window);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = j * 8 + 2 * t + (e & 1);
+          x[j][e] = all || visible(q0 + qc, kw + g + (e >> 1) * 8, Sq, Sk,
+                                   causal, window)
+                        ? exp2f(fmaf(x[j][e], scale_l2, -lse_b[qc] * kLog2e))
+                        : 0.f;
+        }
+      }
+      to_a_frags(hi, lo, x);  // P^T as hi + lo
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          Pw[((0 * NK + kk) * 4 + r) * 32] = hi[kk][r];
+          Pw[((1 * NK + kk) * 4 + r) * 32] = lo[kk][r];
+        }
+    }
+    __syncthreads();  // P^T is in Ps
+    if (!dv_warp) {
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          hi[kk][r] = Pw[((0 * NK + kk) * 4 + r) * 32];
+          lo[kk][r] = Pw[((1 * NK + kk) * 4 + r) * 32];
+        }
+      ds_from_p(x, hi, lo, dl_s + buf * QT, scale);  // dS^T = P^T (dP^T - delta) scale
+      to_a_frags(hi, lo, x);
+    }
+    mma_ab<NK, DMAX>(acc, hi, lo, dv_warp ? dOb : Qb, n16);  // dV += P^T dO, dK += dS^T Q
+  }
+  cp_async_wait<0>();
+
+  if (ws_dk != nullptr) {  // a share of the group's sum
+    const size_t ws_stride = (size_t)H * D, ws_base = ((size_t)b * Sk * H + h) * D;
+    store_rows_f32(dv_warp ? ws_dv + ws_base : ws_dk + ws_base, acc, kw, Sk,
+                   ws_stride, D);
+  } else {  // G 1: the share is the gradient
+    store_rows(dv_warp ? dv + kv_base : dk + kv_base, acc, kw, Sk, kv_stride, D);
+  }
+}
+
+// dk, dv (B, Sk, K, D) bf16 = the sum of the G query heads' float32 shares
+// in ws_dk, ws_dv ((B, Sk, H, D)), head kh * G first, in head order, each
+// gradient rounded to bf16 once. One thread takes 4 columns of a row of
+// both; n4 = B * Sk * K * D / 4.
+__global__ void __launch_bounds__(256)
+flash_bwd_d256_sum_kernel(const float* __restrict__ ws_dk,
+                          const float* __restrict__ ws_dv,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          long long n4, int K, int G, int D) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const int d4 = D / 4;
+  const long long row = i / d4;  // (b, s, kh)
+  const int c = static_cast<int>(i % d4) * 4;
+  const long long bs = row / K;
+  const int kh = static_cast<int>(row % K);
+  const size_t src = ((size_t)bs * K * G + (size_t)kh * G) * D + c;
+  float4 sk = *reinterpret_cast<const float4*>(ws_dk + src);
+  float4 sv = *reinterpret_cast<const float4*>(ws_dv + src);
+  for (int j = 1; j < G; ++j) {
+    const float4 a = *reinterpret_cast<const float4*>(ws_dk + src + (size_t)j * D);
+    const float4 e = *reinterpret_cast<const float4*>(ws_dv + src + (size_t)j * D);
+    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+    sv.x += e.x; sv.y += e.y; sv.z += e.z; sv.w += e.w;
+  }
+  const size_t dst = (size_t)row * D + c;
+  *reinterpret_cast<uint2*>(dk + dst) = make_uint2(pack_bf16(sk.x, sk.y), pack_bf16(sk.z, sk.w));
+  *reinterpret_cast<uint2*>(dv + dst) = make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+}
+
+// Keys a dQ step takes: 64, and 16 at D 256, where the warp's dQ
+// accumulator alone holds 128 float32 a thread and 16-key steps let two
+// blocks share an SM (see the header).
 __host__ __device__ constexpr int bwd_kt(int dmax) {
-  return dmax > 128 ? 32 : kMmaTile;
+  return dmax > 128 ? 16 : kMmaTile;
 }
 
 // dQ. grid: x = 64-query tiles (heaviest causal first), y = B * H. block:
@@ -1669,12 +1878,30 @@ cudaError_t bwd_typed(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int DMAX>
+cudaError_t dq_mma(const bf16* q, const bf16* k, const bf16* v,
+                   const bf16* dout, const float* lse, const float* delta,
+                   void* dq, int B, int Sq, int Sk, int H, int K, int D,
+                   int causal, int window, float scale, cudaStream_t stream) {
+  // Q, dO; K and V in each stage
+  constexpr size_t smem =
+      sizeof(bf16) * (2 * kMmaTile + 2 * kStages * bwd_kt(DMAX)) * (DMAX + 8);
+  cudaError_t err = set_smem(flash_bwd_dq_mma_kernel<DMAX>, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_mma_kernel<DMAX>
+      <<<dim3((Sq + kMmaTile - 1) / kMmaTile, B * H), kMmaThreads, smem, stream>>>(
+          q, k, v, dout, lse, delta, static_cast<bf16*>(dq), Sq, Sk, H, K, D,
+          causal, window, scale);
+  return cudaGetLastError();
+}
+
 template <int DMAX, int QT>
 cudaError_t bwd_mma(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
                     int K, int D, int causal, int window, float scale,
                     cudaStream_t stream) {
+  static_assert(DMAX <= 128, "D 256 runs bwd_d256");
   const bf16* tq = static_cast<const bf16*>(q);
   const bf16* tk = static_cast<const bf16*>(k);
   const bf16* tv = static_cast<const bf16*>(v);
@@ -1684,42 +1911,57 @@ cudaError_t bwd_mma(const void* q, const void* k, const void* v,
   constexpr size_t smem_kv = sizeof(bf16) * (2 * kMmaTile + 2 * kStages * QT) * LD +
                              sizeof(float) * 2 * kStages * QT;
   const dim3 grid_kv((Sk + kMmaTile - 1) / kMmaTile, B * K);
-  cudaError_t err;
-  if constexpr (DMAX > 128) {  // dV, then dK: one accumulator a pass
-    err = set_smem(flash_bwd_dkdv_mma_kernel<DMAX, QT, kPassDV>, smem_kv);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkdv_mma_kernel<DMAX, QT, kPassDV>
-        <<<grid_kv, kMmaThreads, smem_kv, stream>>>(
-            tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
-            static_cast<bf16*>(dv), Sq, Sk, H, K, D, causal, window, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    err = set_smem(flash_bwd_dkdv_mma_kernel<DMAX, QT, kPassDK>, smem_kv);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkdv_mma_kernel<DMAX, QT, kPassDK>
-        <<<grid_kv, kMmaThreads, smem_kv, stream>>>(
-            tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
-            static_cast<bf16*>(dv), Sq, Sk, H, K, D, causal, window, scale);
-  } else {
-    err = set_smem(flash_bwd_dkdv_mma_kernel<DMAX, QT>, smem_kv);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkdv_mma_kernel<DMAX, QT>
-        <<<grid_kv, kMmaThreads, smem_kv, stream>>>(
-            tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
-            static_cast<bf16*>(dv), Sq, Sk, H, K, D, causal, window, scale);
-  }
+  cudaError_t err = set_smem(flash_bwd_dkdv_mma_kernel<DMAX, QT>, smem_kv);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_mma_kernel<DMAX, QT>
+      <<<grid_kv, kMmaThreads, smem_kv, stream>>>(
+          tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), Sq, Sk, H, K, D, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // Q, dO; K and V in each stage
-  constexpr size_t smem_q =
-      sizeof(bf16) * (2 * kMmaTile + 2 * kStages * bwd_kt(DMAX)) * LD;
-  err = set_smem(flash_bwd_dq_mma_kernel<DMAX>, smem_q);
+  return dq_mma<DMAX>(tq, tk, tv, tdo, lse, delta, dq, B, Sq, Sk, H, K, D,
+                      causal, window, scale, stream);
+}
+
+// The bf16 backward at D 256: the dK/dV kernel over (query head, key tile),
+// with G > 1 the head-order sum of its float32 shares (ws: 2 B Sk H D
+// floats, dK's then dV's), then the dQ kernel.
+cudaError_t bwd_d256(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dq, void* dk, void* dv, float* ws, int B, int Sq,
+                     int Sk, int H, int K, int D, int causal, int window,
+                     float scale, cudaStream_t stream) {
+  const bf16* tq = static_cast<const bf16*>(q);
+  const bf16* tk = static_cast<const bf16*>(k);
+  const bf16* tv = static_cast<const bf16*>(v);
+  const bf16* tdo = static_cast<const bf16*>(dout);
+  constexpr int QT = kD256QT, LD = 256 + 8;
+  // K, V; Q and dO, lse and delta in each stage; the dV warps' P^T
+  constexpr size_t smem = sizeof(bf16) * (2 * kMmaTile + 2 * kStages * QT) * LD +
+                          sizeof(float) * 2 * kStages * QT +
+                          sizeof(uint32_t) * 4 * 2 * (QT / 16) * 4 * 32;
+  const int G = H / K;
+  float* ws_dk = G > 1 ? ws : nullptr;
+  float* ws_dv = G > 1 ? ws + (size_t)B * Sk * H * D : nullptr;
+  cudaError_t err = set_smem(flash_bwd_dkdv_d256_kernel<QT>, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_mma_kernel<DMAX>
-      <<<dim3((Sq + kMmaTile - 1) / kMmaTile, B * H), kMmaThreads, smem_q, stream>>>(
-          tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), Sq, Sk, H, K, D,
-          causal, window, scale);
-  return cudaGetLastError();
+  flash_bwd_dkdv_d256_kernel<QT>
+      <<<dim3(B * H, (Sk + kMmaTile - 1) / kMmaTile), kD256Threads, smem, stream>>>(
+          tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), ws_dk, ws_dv, Sq, Sk, H, K, D, causal,
+          window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (G > 1) {
+    const long long n4 = (long long)B * Sk * K * D / 4;
+    flash_bwd_d256_sum_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+        ws_dk, ws_dv, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n4, K,
+        G, D);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return dq_mma<256>(tq, tk, tv, tdo, lse, delta, dq, B, Sq, Sk, H, K, D,
+                     causal, window, scale, stream);
 }
 
 template <typename T>
@@ -1783,16 +2025,25 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 
 // delta (B, H, Sq) float32 is written here (rowsum(dO * O)), then read by
 // the dK/dV and dQ kernels. q, k, v, o and dout must be 16-byte aligned.
+// ws is the bf16 D 256 route's float32 workspace of per-head dK and dV
+// shares, 2 * B * Sk * H * D floats, 16-byte aligned; it is read only there
+// and only when H > K (may be null otherwise). *route is set to the route
+// launched: 2 for bf16 at D 256 (flash_bwd_dkdv_d256_kernel), 1 for bf16
+// at D <= 128 (flash_bwd_dkdv_mma_kernel), 0 for float32.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout,
                                    const void* lse, void* delta, void* dq,
-                                   void* dk, void* dv, int B, int Sq, int Sk,
-                                   int H, int K, int D, int causal, int window,
-                                   float scale, int dtype, void* stream) {
+                                   void* dk, void* dv, void* ws, int B, int Sq,
+                                   int Sk, int H, int K, int D, int causal,
+                                   int window, float scale, int dtype,
+                                   void* stream, int* route) {
   if (bad_args(B, Sq, Sk, H, K, D, dtype, 256)) return -1;
   const void* tensors[] = {q, k, v, o, dout};
   for (const void* p : tensors)
     if (!aligned16(p)) return -1;
+  const bool d256_route = dtype == 1 && D > 128;
+  if (d256_route && H > K && (ws == nullptr || !aligned16(ws))) return -1;
+  if (d256_route && Sk > 65535 * kMmaTile) return -1;  // the grid's y
   const auto s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
@@ -1800,6 +2051,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   cudaError_t err = dtype == 0 ? delta_typed<float>(o, dout, dl, B, Sq, H, D, s)
                                : delta_typed<bf16>(o, dout, dl, B, Sq, H, D, s);
   if (err != cudaSuccess) return static_cast<int>(err);
+  *route = dtype == 0 ? 0 : d256_route ? 2 : 1;
   if (dtype == 0)  // float32: the CUDA-core kernels
     err = D <= 64    ? bwd_typed<float, 64>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
           : D <= 128 ? bwd_typed<float, 128>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
@@ -1807,7 +2059,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   else  // bfloat16: the tensor cores
     err = D <= 64    ? bwd_mma<64, 64>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
           : D <= 128 ? bwd_mma<128, 16>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s)
-                     : bwd_mma<256, 16>(q, k, v, dout, l, dl, dq, dk, dv, B, Sq, Sk, H, K, D, causal, w, scale, s);
+                     : bwd_d256(q, k, v, dout, l, dl, dq, dk, dv, static_cast<float*>(ws), B, Sq, Sk, H, K, D, causal, w, scale, s);
   return static_cast<int>(err);
 }
 

@@ -10,8 +10,12 @@ kernel. The route is by dtype and head dim D, nothing else:
 - bfloat16 runs on the tensor cores (bf16 ``mma.sync`` with float32
   accumulators): the forward ``flash_fwd_mma_kernel`` at any D (a 64-key
   step at D <= 128, a 32-key step at D 256), the backward
-  ``flash_bwd_dkdv_mma_kernel`` (at D 256 twice: a dV pass, then a dK
-  pass) and ``flash_bwd_dq_mma_kernel`` (32-key steps at D 256);
+  ``flash_bwd_dkdv_mma_kernel`` at D <= 128, at D 256
+  ``flash_bwd_dkdv_d256_kernel`` (one block per query head and 64-key
+  tile, dK and dV in one launch; with H > K each head's float32 share
+  goes to a workspace that ``flash_bwd_d256_sum_kernel`` sums over the
+  group in head order), and ``flash_bwd_dq_mma_kernel`` (16-key steps at
+  D 256);
 - float32 runs on the CUDA cores: ``flash_fwd_kernel``,
   ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``, at D 256
   ``flash_bwd_dkdv_seq_kernel`` and ``flash_bwd_dq_seq_kernel``.
@@ -28,8 +32,10 @@ view that is not 16-byte aligned, allocate outputs with ``torch.empty``,
 launch on PyTorch's current stream, raise if a launch fails, and count their
 calls in the module-level integers :data:`launches_fwd` and
 :data:`launches_bwd` (one backward call launches the delta pre-pass, the
-dK/dV kernel and the dQ kernel); :data:`launches_fwd_mma` counts the forward
-calls that the C entry reports it ran on the tensor-core kernel.
+dK/dV kernel, at D 256 with H > K the sum of its shares, and the dQ
+kernel); :data:`launches_fwd_mma` counts the forward calls that the C entry
+reports it ran on the tensor-core kernel, :data:`launches_bwd_d256` the
+backward calls it reports it ran on the bf16 D 256 kernels.
 """
 
 from __future__ import annotations
@@ -46,12 +52,13 @@ from repro_torch.kernels import build as _build
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 
-# calls of the CUDA forward / backward since the count was last set to 0,
-# and of those forward calls the ones the C entry reports it ran on the
-# tensor-core kernel
+# calls of the CUDA forward / backward since the count was last set to 0;
+# of those forward calls the ones the C entry reports it ran on the
+# tensor-core kernel, of the backward calls those on the bf16 D 256 route
 launches_fwd = 0
 launches_bwd = 0
 launches_fwd_mma = 0
+launches_bwd_d256 = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -74,7 +81,8 @@ def _load():
                 [ptr] * 5 + [i32] * 8 + [ctypes.c_float, i32, ptr,
                                          ctypes.POINTER(i32)])
             lib.flash_attention_bwd.argtypes = (
-                [ptr] * 10 + [i32] * 8 + [ctypes.c_float, i32, ptr])
+                [ptr] * 11 + [i32] * 8 + [ctypes.c_float, i32, ptr,
+                                          ctypes.POINTER(i32)])
             lib.flash_attention_fwd.restype = i32
             lib.flash_attention_bwd.restype = i32
             lib.flash_attention_error_string.argtypes = [i32]
@@ -180,15 +188,16 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
 
     ``o`` and ``lse`` are the forward's outputs and ``do`` the gradient of
     ``o``; all as in :func:`flash_attention_fwd_cuda` (``D <= 256``; at D
-    256 bf16 runs the dK/dV kernel twice, dV then dK, and float32 its own
-    two kernels with one staging tile).
+    256 float32 runs its own two kernels with one staging tile).
     ``delta = rowsum(do * o)`` (float32, ``(B, H, Sq)``) is the kernels'
     scratch: a pre-pass kernel writes it before the dK/dV and dQ kernels
-    read it (``_flash_bwd`` computes it outside its tile loops too). The
-    dK/dV kernel sums each KV head's gradient over its query heads in
-    float32.
+    read it (``_flash_bwd`` computes it outside its tile loops too). Each
+    KV head's gradient is summed over its query heads in float32: inside
+    the dK/dV kernel, or at bf16 D 256 with H > K from a float32 workspace
+    of per-head shares (``(2, B, Sk, H, D)``, dK's then dV's), in head
+    order, by a second kernel.
     """
-    global launches_bwd
+    global launches_bwd, launches_bwd_d256
     _check({"q": q, "k": k, "v": v, "o": o, "lse": lse, "do": do}, q, k)
     _check_like("v", v, k)
     _check_like("o", o, q)
@@ -203,13 +212,20 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ws = None
+    if q.dtype == torch.bfloat16 and d > 128 and h > kh:
+        ws = torch.empty((2, b, sk, h, d), dtype=torch.float32,
+                         device=q.device)
+    route = ctypes.c_int(-1)      # set by the C entry to the route it ran
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kh, d, int(causal), w,
-            1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
+            dk.data_ptr(), dv.data_ptr(), None if ws is None else ws.data_ptr(),
+            b, sq, sk, h, kh, d, int(causal), w, 1.0 / math.sqrt(d),
+            _DTYPES[q.dtype], stream, ctypes.byref(route))
     _raise_on(lib, err, "backward")
     launches_bwd += 1
+    launches_bwd_d256 += int(route.value == 2)
     return dq, dk, dv

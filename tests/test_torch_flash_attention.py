@@ -646,3 +646,100 @@ def test_emulated_d256_forward_keeps_the_card_bound():
     print(f"emulated D 256 forward (32-key steps, hi + lo P) at B {b}, S {s}, "
           f"H {h}, K {k}, window {win}: worst err / bound o "
           f"{worst_o.item():.3f}, lse {worst_lse.item():.3f}")
+
+
+def _emulated_bwd_d256(q, kk, vv, o, lse, do, window, qt=64, kt=16):
+    """The bf16 backward at D 256 as its kernels compute it, causal with
+    ``window``, any B, H and K: for each query head, float32 shares of dK
+    and dV added up over steps of ``qt`` query rows (the dK/dV kernel's
+    step), P^T and dS^T carried as bf16 hi + lo with dS formed from P's hi
+    + lo; dQ over steps of ``kt`` keys (the dQ kernel's), dS from float32
+    P, carried as hi + lo. Then each KV head's dK and dV: its G query
+    heads' shares summed in head order in float32 and rounded to bf16 once
+    (the sum kernel's order), as dQ is rounded once."""
+    b, s, h, d = q.shape
+    kh = kk.shape[2]
+    g = h // kh
+    qf, kf, vf, dof, of = (x.float() for x in (q, kk, vv, do, o))
+    qpos, kpos = torch.arange(s)[:, None], torch.arange(s)[None]
+    keep = (qpos >= kpos) & (qpos - kpos < window)
+    dq = torch.zeros(b, s, h, d)
+    dk, dv = torch.zeros(b, s, kh, d), torch.zeros(b, s, kh, d)
+    for i in range(b):
+        for j in range(h):
+            kj, vj = kf[i, :, j // g], vf[i, :, j // g]
+            qj, doj = qf[i, :, j], dof[i, :, j]
+            p = torch.where(keep, torch.exp(qj @ kj.T / d ** 0.5
+                                            - lse[i, j][:, None]), 0.0)
+            delta = (doj * of[i, :, j]).sum(-1)[:, None]
+            dp = doj @ vj.T
+            pa = _split_bf16(p)
+            dsa = _split_bf16(pa * (dp - delta) / d ** 0.5)
+            share_k, share_v = torch.zeros(s, d), torch.zeros(s, d)
+            for r in range(0, s, qt):
+                share_v += pa[r:r + qt].T @ doj[r:r + qt]
+                share_k += dsa[r:r + qt].T @ qj[r:r + qt]
+            dk[i, :, j // g] += share_k         # head order: j ascending
+            dv[i, :, j // g] += share_v
+            dsq = _split_bf16(p * (dp - delta) / d ** 0.5)
+            for c in range(0, s, kt):
+                dq[i, :, j] += dsq[:, c:c + kt] @ kj[c:c + kt]
+    return [x.to(torch.bfloat16) for x in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("b,s,h,k,d,win", D256_GRAD)
+def test_emulated_d256_backward_matches_jax_vjp(b, s, h, k, d, win):
+    """The D 256 backward's arithmetic (:func:`_emulated_bwd_d256`: per-head
+    float32 shares, hi + lo P and dS, the head-order sum, one bf16
+    rounding) on bf16 inputs against ``jax.vjp`` of the reference's
+    ``attention_banded`` on the same values in float32, each gradient at
+    chip_smoke's bf16 bound (``close_scaled`` at ``GRAD_TOL["bfloat16"]``),
+    at G 4 and G 10. o and lse come from the plain forward in float32, as
+    the reference's VJP forms them: o rounded to bf16 moves delta =
+    rowsum(dO o) by the forward's rounding, and on it the float32 plain
+    backward misses this bound too (dq by 1.2x at G 4)."""
+    q, kk, vv, do = (_torch(a, "bfloat16") for a in _inputs(b, s, h, k, d,
+                                                            seed=5))
+    o, lse = ref.flash_attention_ref(q.float(), kk.float(), vv.float(),
+                                     causal=True, window=win)
+    got = _emulated_bwd_d256(q, kk, vv, o, lse, do, win)
+    rep = lambda t: jnp.repeat(t, h // k, axis=2)
+    _, vjp = jax.vjp(lambda q_, k_, v_: JL.attention_banded(
+        q_, rep(k_), rep(v_), window=win, q_block=16),
+        *(jnp.asarray(x.float().numpy()) for x in (q, kk, vv)))
+    want = vjp(jnp.asarray(do.float().numpy()))
+    cs = _chip_smoke()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = torch.from_numpy(np.array(w))
+        assert g.shape == w.shape, (name, g.shape, w.shape)
+        cs.close_scaled(g, w, *cs.GRAD_TOL["bfloat16"])
+
+
+def test_emulated_d256_backward_keeps_the_card_bound():
+    """The same arithmetic at a longer MQA shape (recurrentgemma's geometry:
+    H 10, K 1, a window) against the float64 plain backward on the same
+    bf16 inputs and forward outputs, as chip_smoke holds the card's every
+    call of a training microbatch: each gradient within ``close_scaled``
+    at ``GRAD_TOL["bfloat16"]``. Prints the worst err / bound of dq, dk, dv
+    under ``pytest -s``."""
+    b, s, h, k, d, win = 1, 1024, 10, 1, 256, 512
+    q, kk, vv, do = (_torch(a, "bfloat16") for a in _inputs(b, s, h, k, d,
+                                                            seed=5))
+    o, lse = ref.flash_attention_ref(q, kk, vv, causal=True, window=win)
+    got = _emulated_bwd_d256(q, kk, vv, o, lse, do, win)
+    want = ref.flash_attention_bwd_ref(
+        *(t.double() for t in (q, kk, vv, o, lse, do)), causal=True,
+        window=win)
+    cs = _chip_smoke()
+    atol, rtol = cs.GRAD_TOL["bfloat16"]
+    worst = []
+    for g, w in zip(got, want):
+        _, scale = cs.close_scaled(g, w, atol, rtol)
+        g, w = g.double(), w.double()
+        worst.append(((g - w).abs() / (atol * scale + rtol * w.abs()))
+                     .max().item())
+    print(f"emulated D 256 backward (per-head float32 shares over 64-row "
+          f"query steps, hi + lo P and dS, head-order sum) at B {b}, S {s}, "
+          f"H {h}, K {k}, window {win}: worst err / bound of dq, dk, dv "
+          f"{[round(x, 4) for x in worst]}")
+    assert max(worst) < 0.5, worst

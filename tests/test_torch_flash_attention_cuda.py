@@ -1,7 +1,8 @@
 """The CUDA flash forward and backward at head dims above 128 against their
 plain versions on the card: the edges of the bf16 tensor-core kernels' D
-256 tiles (64 queries a block, 16 a warp, 32 keys a forward or dQ step, 16
-queries a dK/dV step in its two passes) and of the float32 backward's
+256 tiles (64 queries a block, 16 a warp, 32 keys a forward step, 16 a dQ
+step; 64 keys and one query head a dK/dV block, 64 queries a step, the G
+heads' float32 shares summed in head order) and of the float32 backward's
 staged tiles, and the routes. Every test skips without a card.
 
 This file imports no JAX, so that it also runs on the card's machine:
@@ -94,8 +95,9 @@ def test_cuda_forward_d256_route(card):
 @pytest.mark.parametrize("b,sq,sk,h,k,d,win,causal", D256_EDGES)
 def test_cuda_backward_d256_edges_match_plain(card, b, sq, sk, h, k, d, win,
                                               causal, dtype):
-    """The backward above D 128: bf16 on the tensor cores (the dK/dV kernel
-    in a dV pass and a dK pass, 32-key dQ steps), float32 on the CUDA cores
+    """The backward above D 128: bf16 on the tensor cores (dK and dV in one
+    launch over query heads and key tiles, their shares summed over G in
+    head order with no atomics; 16-key dQ steps), float32 on the CUDA cores
     (one staging tile), against the plain backward; two calls give the
     same bits."""
     q, kk, vv = _qkv(b, sq, sk, h, k, d, dtype)
@@ -106,6 +108,24 @@ def test_cuda_backward_d256_edges_match_plain(card, b, sq, sk, h, k, d, win,
     first, second = (kernel.flash_attention_bwd_cuda(
         q, kk, vv, o, lse, do, causal=causal, window=win) for _ in range(2))
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_cuda_backward_d256_route(card):
+    """A bf16 backward at D 256 runs the D 256 kernels (the C entry's route
+    raises ``launches_bwd_d256`` by one), with shares to sum (G 4) or
+    without (G 1); float32 at D 256 and bf16 at D 128 do not."""
+    calls = [(1, 4, 1, 256, "bfloat16", 1), (1, 2, 2, 256, "bfloat16", 1),
+             (1, 4, 1, 256, "float32", 0), (1, 4, 1, 128, "bfloat16", 0)]
+    for b, h, k, d, dtype, on_route in calls:
+        q, kk, vv = _qkv(b, 80, 80, h, k, d, dtype)
+        do = _qkv(b, 80, 80, h, h, d, dtype, seed=12)[0]
+        o, lse = kernel.flash_attention_fwd_cuda(q, kk, vv, causal=True,
+                                                 window=24)
+        r0, b0 = kernel.launches_bwd_d256, kernel.launches_bwd
+        kernel.flash_attention_bwd_cuda(q, kk, vv, o, lse, do, causal=True,
+                                        window=24)
+        launched = (kernel.launches_bwd_d256 - r0, kernel.launches_bwd - b0)
+        assert launched == (on_route, 1), (h, k, d, dtype, launched)
 
 
 def test_cuda_backward_d256_through_autograd(card):
