@@ -1784,6 +1784,17 @@ def small_train_reference_phase(torch, np) -> None:
 
 # B, S, W (tests/test_kernels.py:110), then a ragged S and W and one step
 RGLRU_CASES = [(2, 64, 32), (1, 128, 128), (3, 32, 64), (2, 200, 48), (1, 1, 3)]
+# the kernels' tile of time steps (rglru_scan.cu's kTile, in blocks of 32
+# lanes) and shapes that cross it: S under half a tile, at half a tile and
+# past it, at T - 1, T, T + 1 and 2T + 3; W 3, 5, 17 and 2561 (4-byte
+# copies, a ragged last group of lanes) and 36 (16-byte copies, a last
+# group of 4 lanes); B 1 at recurrentgemma's width
+RGLRU_TILE = 128
+RGLRU_EDGES = ([(2, s, 48) for s in (63, 64, 65, 131, RGLRU_TILE - 1,
+                                     RGLRU_TILE, RGLRU_TILE + 1,
+                                     2 * RGLRU_TILE + 3)]
+               + [(2, 131, 3), (3, 65, 5), (2, 70, 17), (1, 131, 2561),
+                  (2, 67, 36), (1, 131, 2560)])
 RG_PREFILL = (8, 4096, 2560)              # B, S, W: recurrentgemma's prefill scans
 RG_ATTN = (8, 4096, 10, 1, 256, 2048)     # B, S, H, K, D, window: its attention
 RG_SERVE = {"batch": 8, "prompt_len": 4096, "steps": 64}
@@ -1796,22 +1807,55 @@ def rglru_inputs(torch, gen, b, s, w):
     return a, bb
 
 
+def misaligned(torch, x):
+    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte
+    boundary (the RG-LRU kernels then take 4-byte copies)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def rglru_case(torch, gen, rkernel, rref, b, s, w, offset=False):
+    """The forward kernel against its plain version: ``(errors of y and
+    h_final, bitwise equal to it and a second call bit for bit)``; with
+    ``offset`` the inputs start off 16-byte alignment."""
+    a, bb = rglru_inputs(torch, gen, b, s, w)
+    if offset:
+        a, bb = misaligned(torch, a), misaligned(torch, bb)
+    y, h = rkernel.rglru_scan_cuda(a, bb)
+    wy, wh = rref.rglru(a, bb)
+    errs = (close_scaled(y, wy, RGLRU_TOL, RGLRU_TOL),
+            close_scaled(h, wh, RGLRU_TOL, RGLRU_TOL))
+    y2, h2 = rkernel.rglru_scan_cuda(a, bb)
+    return errs, all(torch.equal(*p) for p in ((y, wy), (h, wh), (y, y2),
+                                                (h, h2)))
+
+
 def rglru_phase(torch, rkernel, rref) -> dict:
     """The CUDA scan against its plain version on the reference's cases, a
-    ragged S and W, one step, against float64, and at recurrentgemma-2b's
-    prefill shape, each tensor at :func:`close_scaled`'s bound with the
-    reference's atol 1e-5; then times kernel and plain version there.
-    Returns the kernel's JSON entry (no launches)."""
+    ragged S and W, one step, the edges of its tiles (``RGLRU_EDGES``) and
+    inputs off 16-byte alignment, each bit for bit and two calls bit for
+    bit; against float64; and at recurrentgemma-2b's training microbatch
+    (:data:`RG_TRAIN_SCAN`, B 1) and prefill shape (B 8), each tensor at
+    :func:`close_scaled`'s bound with the reference's atol 1e-5; times
+    kernel and plain version at both. Returns the kernel's JSON entry (the
+    prefill shape's numbers, the training microbatch's under ``train_*``;
+    no launches)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     tol = 1e-5                              # tests/test_kernels.py:118
     for case in RGLRU_CASES:
-        a, bb = rglru_inputs(torch, gen, *case)
-        y, h = rkernel.rglru_scan_cuda(a, bb)
-        wy, wh = rref.rglru(a, bb)
-        ey, eh = close_scaled(y, wy, tol, tol), close_scaled(h, wh, tol, tol)
+        (ey, eh), exact = rglru_case(torch, gen, rkernel, rref, *case)
+        assert exact, case
         print(f"rglru case B,S,W={case}: max abs err y {ey[0]:.3e}, h_final "
-              f"{eh[0]:.3e}; bitwise equal {torch.equal(y, wy)}")
+              f"{eh[0]:.3e}; bitwise equal {exact}")
+    for case in RGLRU_EDGES:
+        assert rglru_case(torch, gen, rkernel, rref, *case)[1], case
+    assert rglru_case(torch, gen, rkernel, rref, 2, 131, 48, offset=True)[1]
+    print(f"rglru tile edges (T {RGLRU_TILE}) B,S,W in {RGLRU_EDGES} and "
+          f"(2, 131, 48) off 16-byte alignment: bitwise equal to the plain "
+          f"version, two calls bit for bit")
     a, bb = rglru_inputs(torch, gen, 2, 512, 256)
     y, h = rkernel.rglru_scan_cuda(a, bb)
     py, ph = rref.rglru(a, bb)
@@ -1824,31 +1868,54 @@ def rglru_phase(torch, rkernel, rref) -> dict:
     print(f"rglru against float64 (B 2, S 512, W 256): max abs err kernel "
           f"{e_kernel:.3e}, plain {e_plain:.3e}")
 
-    b, s, w = RG_PREFILL
-    a, bb = rglru_inputs(torch, gen, b, s, w)
-    y, h = rkernel.rglru_scan_cuda(a, bb)
-    wy, wh = rref.rglru(a, bb)
-    ey, eh = close_scaled(y, wy, tol, tol), close_scaled(h, wh, tol, tol)
-    exact = torch.equal(y, wy) and torch.equal(h, wh)
-    del wy, wh
-    ms = time_ms(torch, lambda i: rkernel.rglru_scan_cuda(a, bb), 1, inner=10,
-                 reps=11)
-    plain_ms = time_ms(torch, lambda i: rref.rglru(a, bb), 1, inner=1, reps=3)
-    moved = 3 * b * s * w * 4 + b * w * 4      # a, b in; y, h_final out
-    ops = 2 * b * s * w                        # a multiply and an add a step
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    print(f"rglru at recurrentgemma's prefill shape B={b} S={s} W={w}: max "
-          f"abs err y {ey[0]:.3e} (scale {ey[1]:.3e}), h_final {eh[0]:.3e}; "
-          f"bitwise equal {exact}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {max(t_bytes, t_ops):.4f} ms ({moved} bytes); no single "
-          f"PyTorch call computes a linear recurrence")
+    out = []
+    for (b, s, w), label in ((RG_TRAIN_SCAN, "training microbatch"),
+                             (RG_PREFILL, "prefill shape")):
+        a, bb = rglru_inputs(torch, gen, b, s, w)
+        y, h = rkernel.rglru_scan_cuda(a, bb)
+        wy, wh = rref.rglru(a, bb)
+        ey, eh = close_scaled(y, wy, tol, tol), close_scaled(h, wh, tol, tol)
+        exact = torch.equal(y, wy) and torch.equal(h, wh)
+        assert exact, (b, s, w)
+        again = rkernel.rglru_scan_cuda(a, bb)
+        assert torch.equal(y, again[0]) and torch.equal(h, again[1])
+        del wy, wh, again
+        ms = time_ms(torch, lambda i: rkernel.rglru_scan_cuda(a, bb), 1,
+                     inner=10, reps=11)
+        plain_ms = time_ms(torch, lambda i: rref.rglru(a, bb), 1, inner=1,
+                           reps=3)
+        moved, t_bytes, t_ops = rglru_bound(b, s, w)
+        print(f"rglru at recurrentgemma-2b's {label} B={b} S={s} W={w} "
+              f"({-(-w // 32) * b} blocks of 32 lanes): max abs err y {ey[0]:.3e} (scale {ey[1]:.3e}), h_final "
+              f"{eh[0]:.3e}; bitwise equal {exact}, two calls bit for bit; "
+              f"kernel {ms:.4f} ms ({moved / ms / 1e6:.1f} GB/s), plain "
+              f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+              f"({moved} bytes); no single PyTorch call computes a linear "
+              f"recurrence")
+        del a, bb, y, h
+        out.append({"max_abs_err": max(ey[0], eh[0]), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    train, prefill = out
     return {"name": "rglru_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
-            "replaces": "src/repro/kernels/rglru/kernel.py:46",
-            "max_abs_err": max(ey[0], eh[0]), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "replaces": "src/repro/kernels/rglru/kernel.py:46", **prefill,
+            "library_ms": None, "train_ms": train["ms"],
+            "train_plain_ms": train["plain_ms"],
+            "train_bound_ms": train["bound_ms"]}
+
+
+def rglru_bound(b: int, s: int, w: int, backward: bool = False):
+    """Bytes the scan (or its backward) must move, each input read once
+    and each output written once, and its bounds in ms from those bytes
+    and from its float operations: ``(bytes, ms by bytes, ms by
+    operations)``."""
+    if backward:   # dy, a, y, dh in; da, db out; a multiply-add and da
+        moved, ops = 5 * b * s * w * 4 + b * w * 4, 3 * b * s * w
+    else:          # a, b in; y, h_final out; a multiply and an add a step
+        moved, ops = 3 * b * s * w * 4 + b * w * 4, 2 * b * s * w
+    return (moved, moved / HBM_BYTES_PER_S * 1e3,
+            ops / FP32_OPS_PER_S * 1e3)
 
 
 def window_pairs(s: int, window: int) -> int:
@@ -2742,18 +2809,24 @@ def train_launches(cfg, accum: int, steps: int) -> dict:
     return {k: v * accum * steps for k, v in per.items()}
 
 
-def rglru_bwd_case(torch, gen, rkernel, rref, b, s, w):
+def rglru_bwd_case(torch, gen, rkernel, rref, b, s, w, offset=False):
     """The backward kernel against its plain version on the forward
-    kernel's own y: ``(errors of da and db, bitwise equal)``."""
+    kernel's own y: ``(errors of da and db, bitwise equal to it and a
+    second call bit for bit)``; with ``offset`` a, y and dy start off
+    16-byte alignment."""
     a, bb = rglru_inputs(torch, gen, b, s, w)
     y, _ = rkernel.rglru_scan_cuda(a, bb)
     dy = torch.randn((b, s, w), generator=gen, device="cuda")
     dh = torch.randn((b, w), generator=gen, device="cuda")
+    if offset:
+        a, y, dy = (misaligned(torch, x) for x in (a, y, dy))
     da, db = rkernel.rglru_scan_bwd_cuda(a, y, dy, dh)
     wa, wb = rref.rglru_bwd(a, y, dy, dh)
     errs = (close_scaled(da, wa, RGLRU_TOL, RGLRU_TOL),
             close_scaled(db, wb, RGLRU_TOL, RGLRU_TOL))
-    return errs, torch.equal(da, wa) and torch.equal(db, wb)
+    da2, db2 = rkernel.rglru_scan_bwd_cuda(a, y, dy, dh)
+    return errs, all(torch.equal(*p) for p in ((da, wa), (db, wb),
+                                                (da, da2), (db, db2)))
 
 
 def ssd_bwd_case(torch, gen, skernel, sref, b, s, h, p, n, chunk, x_dtype,
@@ -2877,6 +2950,13 @@ def backward_phase(torch, rkernel, rref, fkernel, fref, skernel,
         assert exact, case
         print(f"rglru backward case B,S,W={case}: max abs err da {ea[0]:.3e}, "
               f"db {eb[0]:.3e}; bitwise equal {exact}")
+    for case in RGLRU_EDGES:
+        assert rglru_bwd_case(torch, gen, rkernel, rref, *case)[1], case
+    assert rglru_bwd_case(torch, gen, rkernel, rref, 2, 131, 48,
+                          offset=True)[1]
+    print(f"rglru backward tile edges (T {RGLRU_TILE}) B,S,W in "
+          f"{RGLRU_EDGES} and (2, 131, 48) off 16-byte alignment: bitwise "
+          f"equal to the plain version, two calls bit for bit")
     a, bb = rglru_inputs(torch, gen, 2, 512, 256)
     y, _ = rkernel.rglru_scan_cuda(a, bb)
     dy = torch.randn(a.shape, generator=gen, device="cuda")
@@ -2905,10 +2985,9 @@ def backward_phase(torch, rkernel, rref, fkernel, fref, skernel,
             a, y, dy, dh), 1, inner=10, reps=11)
         plain_ms = time_ms(torch, lambda i: rref.rglru_bwd(a, y, dy, dh), 1,
                            inner=1, reps=3)
-        moved = 5 * b * s * w * 4 + b * w * 4   # dy, a, y, dh in; da, db out
-        t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        t_ops = 3 * b * s * w / FP32_OPS_PER_S * 1e3
-        print(f"rglru backward at {label} B={b} S={s} W={w}: max abs err "
+        moved, t_bytes, t_ops = rglru_bound(b, s, w, backward=True)
+        print(f"rglru backward at {label} B={b} S={s} W={w} "
+              f"({-(-w // 32) * b} blocks of 32 lanes): max abs err "
               f"da {errs[0][0]:.3e} (scale {errs[0][1]:.3e}), db "
               f"{errs[1][0]:.3e}; bitwise equal to the plain version, two "
               f"calls bit for bit; kernel {ms:.4f} ms "

@@ -13,6 +13,9 @@ shape and contiguity, allocates the outputs with ``torch.empty``, launches
 on PyTorch's current stream, raises if the launch fails, and counts its
 launches in the module-level integer :data:`launches`. Unlike the Pallas
 wrapper it takes any ``S >= 1`` and any ``W`` (no block divisibility).
+:func:`vec_bytes` gives the width of the kernels' copies into shared
+memory for a call (16 bytes, or 4 where ``W`` or an input's address does
+not allow 16), which the wrapper passes to the C entry.
 :func:`rglru_scan_bwd_cuda` launches the same source's backward kernel (the
 gradient of the scan, which no TPU kernel computes) and counts its launches
 in :data:`launches_bwd`.
@@ -52,14 +55,22 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.rglru_scan.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+            lib.rglru_scan.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             lib.rglru_scan.restype = i32
-            lib.rglru_scan_bwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+            lib.rglru_scan_bwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
             lib.rglru_scan_bwd.restype = i32
             lib.rglru_scan_error_string.argtypes = [i32]
             lib.rglru_scan_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def vec_bytes(w: int, *tensors) -> int:
+    """Bytes of one ``cp.async`` copy for inputs of width ``w``: 16 where a
+    row's ``w`` floats fill whole 16-byte pieces (``w % 4 == 0``) and every
+    input starts on 16 bytes, else 4. The C entry refuses 16 otherwise."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    return 16 if w % 4 == 0 and aligned else 4
 
 
 def _check(a, b, **more) -> None:
@@ -100,7 +111,8 @@ def rglru_scan_cuda(a: torch.Tensor,
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.rglru_scan(a.data_ptr(), b.data_ptr(), y.data_ptr(),
-                             h_final.data_ptr(), bsz, s, w, stream)
+                             h_final.data_ptr(), bsz, s, w,
+                             vec_bytes(w, a, b), stream)
     if err != 0:
         msg = lib.rglru_scan_error_string(err).decode()
         raise RuntimeError(f"RG-LRU scan kernel launch failed: {msg}")
@@ -130,7 +142,7 @@ def rglru_scan_bwd_cuda(a: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.rglru_scan_bwd(a.data_ptr(), y.data_ptr(), dy.data_ptr(),
                                  dh.data_ptr(), da.data_ptr(), db.data_ptr(),
-                                 bsz, s, w, stream)
+                                 bsz, s, w, vec_bytes(w, a, y, dy), stream)
     if err != 0:
         msg = lib.rglru_scan_error_string(err).decode()
         raise RuntimeError(f"RG-LRU scan backward kernel launch failed: {msg}")

@@ -73,6 +73,8 @@ SPEC = AcceleratorSpec(
         PortSpec("y", Axes(lx.BATCH, lx.SEQ, lx.RNN_WIDTH)),
     ),
     power_domain=PowerDomain("acc_rglru", leak_uw=6.0, active_dyn_uw_mhz=22.0),
-    description="RG-LRU linear scan: one thread per lane, h in a register",
+    description="RG-LRU linear scan: blocks of 32 lanes, 128-step tiles "
+                "streamed through a cp.async ring in shared memory, h in a "
+                "register",
 )
 register(SPEC, allow_override=True)

@@ -5,15 +5,20 @@ The plain version (``repro_torch.kernels.rglru.ref``), reached through the
 dispatching ``ops.rglru`` on CPU tensors, is held to the JAX sequential scan
 and to the Pallas kernel in interpret mode (as the JAX tests run it) on the
 reference's cases (``tests/test_kernels.py:110``), at the reference's
-tolerance: atol 1e-5. Also: the ``h0`` fold, a ragged S and W (which the
-Pallas wrapper does not take, so against ``linear_scan_ref`` only), and the
+tolerance: atol 1e-5. Also: the ``h0`` fold, a ragged S and W and the
+edges of the CUDA kernels' tiles (``chip_smoke.RGLRU_EDGES``; the Pallas
+wrapper does not take them, so against ``linear_scan_ref`` only), and the
 plain version in float64. The backward (``ops.rglru``'s autograd function
 on the plain ``ref.rglru_bwd``) is held to ``jax.vjp`` of
 ``linear_scan_blocked``, the function the reference trains through, with
-and without ``h0``, within one block and across blocks, at 2e-5. The CUDA
-kernels are held to the plain versions on the card by the tests that skip
-here, ``tests/test_torch_rglru_cuda.py`` and ``chip_smoke.py``.
+and without ``h0``, within one block, across blocks and on the same
+edges, at 2e-5. ``kernel.vec_bytes`` is checked without a card. The CUDA
+kernels are held to the plain versions on the card by the tests that skip here,
+``tests/test_torch_rglru_cuda.py`` and ``chip_smoke.py``.
 """
+
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +29,19 @@ from repro.kernels.rglru import ops as jops
 from repro.models import griffin as jg
 
 torch = kernel = ops = ref = None  # bound by _port
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _chip_smoke()          # the kernels' tile and its edges
+EDGES = [pytest.param(*case, id="b{}_s{}_w{}".format(*case))
+         for case in cs.RGLRU_EDGES]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -85,10 +103,13 @@ def test_h0_is_folded_into_the_first_step(impl):
     assert torch.equal(tb, torch.from_numpy(bb))      # the caller's b is kept
 
 
-def test_ragged_s_and_w_match_linear_scan_ref():
-    """S 200 and W 48: no block divides them (the Pallas wrapper asserts
-    ``S % min(128, S) == 0``); the port takes any shape."""
-    a, bb, h0 = _inputs(2, 200, 48, seed=5)
+@pytest.mark.parametrize("b,s,w", [pytest.param(2, 200, 48, id="b2_s200_w48")]
+                         + EDGES)
+def test_ragged_s_and_w_match_linear_scan_ref(b, s, w):
+    """S 200 and W 48, and the edges of the CUDA kernels' tiles: no block
+    divides them (the Pallas wrapper asserts ``S % min(128, S) == 0``);
+    the port takes any shape."""
+    a, bb, h0 = _inputs(b, s, w, seed=5)
     got = ops.rglru(torch.from_numpy(a), torch.from_numpy(bb),
                     torch.from_numpy(h0))
     _close(got, _jax("ref", a, bb, h0))
@@ -168,13 +189,15 @@ def _cotangents(b, s, w, seed=11):
 
 
 @pytest.mark.parametrize("with_h0", [False, True], ids=["no_h0", "h0"])
-@pytest.mark.parametrize("b,s,w", [(2, 64, 32), (2, 300, 16)],
-                         ids=["one_block", "two_blocks"])
+@pytest.mark.parametrize("b,s,w", [pytest.param(2, 64, 32, id="one_block"),
+                                   pytest.param(2, 300, 16, id="two_blocks")]
+                         + EDGES)
 def test_backward_matches_jax_vjp_of_linear_scan_blocked(b, s, w, with_h0):
     """Gradients of a, b (and h0) for cotangents of y and h_final: the
     port's autograd function on the plain reverse scan against ``jax.vjp``
     of ``linear_scan_blocked`` (block 256: S 300 crosses a block and is
-    padded), float32, 2e-5."""
+    padded), float32, 2e-5; also on the edges of the CUDA kernels'
+    tiles."""
     a, bb, h0 = _inputs(b, s, w, seed=13)
     dy, dh = _cotangents(b, s, w)
     args = [a, bb] + ([h0] if with_h0 else [])
@@ -219,3 +242,14 @@ def test_backward_refuses_cpu_tensors_on_the_kernel():
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         kernel.rglru_scan_bwd_cuda(a, a, a, torch.zeros(1, 4))
     assert kernel.launches_bwd == before
+
+
+def test_vec_bytes_takes_16_only_where_rows_and_addresses_allow():
+    """16-byte copies need W % 4 == 0 and every input on 16 bytes; the C
+    entry refuses 16 otherwise, so the wrapper must pick 4 there."""
+    x = torch.zeros(1, 8, 48)
+    assert kernel.vec_bytes(48, x, x) == 16
+    assert kernel.vec_bytes(17, torch.zeros(1, 8, 17)) == 4
+    off = torch.zeros(1 + 8 * 48)[1:].view(1, 8, 48)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    assert kernel.vec_bytes(48, x, off) == 4

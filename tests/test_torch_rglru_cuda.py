@@ -1,15 +1,16 @@
 """The CUDA RG-LRU scan and its backward against their plain versions on
-the card: the reference's cases, a ragged S and W and one step, bit for bit
-(both kernels round each step's multiply and add as the plain versions
-do), the backward against float64, the launch counts, and the gradients
-that the autograd wiring of ``ops.rglru`` gives h0, a and b through the
-kernels. Every test skips without a card.
+the card: the reference's cases, a ragged S and W and one step, the edges
+of the kernels' tile (``RGLRU_EDGES``) and inputs off 16-byte alignment,
+bit for bit (both kernels round each step's multiply and add as the plain
+versions do) and two calls bit for bit; the backward against float64, the
+launch counts, and the gradients that the autograd wiring of ``ops.rglru``
+gives h0, a and b through the kernels. Every test skips without a card.
 
 This file imports no JAX, so that it also runs on the card's machine:
 ``python -m pytest -q tests/test_torch_rglru_cuda.py``. The cases
-(``RGLRU_CASES``), the inputs and the one-call check of the backward
-(``rglru_bwd_case``) and the bound (``RGLRU_TOL``, the reference's 1e-5,
-under ``close_scaled``) come from ``chip_smoke.py``.
+(``RGLRU_CASES``, ``RGLRU_EDGES``), the inputs, the one-call checks
+(``rglru_case``, ``rglru_bwd_case``) and the bound (``RGLRU_TOL``, the
+reference's 1e-5, under ``close_scaled``) come from ``chip_smoke.py``.
 """
 
 import importlib.util
@@ -30,7 +31,7 @@ def _chip_smoke():
 
 cs = _chip_smoke()       # its cases, bounds and one-call check
 CASES = [pytest.param(*case, id="b{}_s{}_w{}".format(*case))
-         for case in cs.RGLRU_CASES]
+         for case in cs.RGLRU_CASES + cs.RGLRU_EDGES]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -54,16 +55,26 @@ def gen():
 
 @pytest.mark.parametrize("b,s,w", CASES)
 def test_cuda_forward_matches_plain_bit_for_bit(gen, b, s, w):
-    a, bb = cs.rglru_inputs(torch, gen, b, s, w)
-    y, h = kernel.rglru_scan_cuda(a, bb)
-    wy, wh = ref.rglru(a, bb)
-    assert torch.equal(y, wy) and torch.equal(h, wh)
+    errs, exact = cs.rglru_case(torch, gen, kernel, ref, b, s, w)
+    assert exact, errs
 
 
 @pytest.mark.parametrize("b,s,w", CASES)
 def test_cuda_backward_matches_plain_bit_for_bit(gen, b, s, w):
     errs, exact = cs.rglru_bwd_case(torch, gen, kernel, ref, b, s, w)
     assert exact, errs
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 131, 48), (1, 65, 2560)])
+def test_cuda_off_16_byte_alignment_bit_for_bit(gen, b, s, w):
+    """Inputs that start 4 bytes past a 16-byte boundary take the 4-byte
+    copies (``vec_bytes``) and give the plain version's bits, both ways."""
+    a, _ = cs.rglru_inputs(torch, gen, b, s, w)
+    assert kernel.vec_bytes(w, a) == 16
+    assert kernel.vec_bytes(w, cs.misaligned(torch, a)) == 4
+    for case in (cs.rglru_case, cs.rglru_bwd_case):
+        errs, exact = case(torch, gen, kernel, ref, b, s, w, offset=True)
+        assert exact, (case.__name__, errs)
 
 
 def test_cuda_backward_against_float64(gen):
