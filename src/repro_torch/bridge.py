@@ -3,7 +3,10 @@
 :func:`params_from_numpy` takes a params tree whose leaves are numpy arrays
 (the caller converts the JAX arrays with ``np.asarray``) and returns a tree
 of torch tensors with the same keys and layout, so both packages can run on
-the same weights. This module imports no JAX.
+the same weights: every family's tree, the VLM family's (internvl2) with
+the transformer's layout included, since the port's ``registry.decls``
+keeps the reference's keys and shapes for each. This module imports no
+JAX.
 """
 
 from __future__ import annotations

@@ -111,6 +111,13 @@ class XaifRegistry:
             raise ValueError(f"impl {spec.impl!r} already registered for op {spec.op!r}")
         impls[spec.impl] = spec
 
+    def unregister(self, op: str, impl: str) -> AcceleratorSpec:
+        """Take the accelerator of ``op`` under ``impl`` out of the socket
+        and return it (a plug-in that is unplugged again)."""
+        spec = self.get(op, impl)
+        del self._ops[op][impl]
+        return spec
+
     def get(self, op: str, impl: str) -> AcceleratorSpec:
         try:
             return self._ops[op][impl]

@@ -6,9 +6,12 @@ is a pure function of ``(seed, step)`` and the shape, drawn from a
 batches. The structure is the reference's: even positions are Zipf-ish
 draws ``floor(exp(0.9 log u) * vocab)``, odd positions ``(even * 7 + 13) %
 vocab`` (a model that learns the bigram halves the loss), and ``labels``
-are the tokens shifted by one. The bits differ from the reference's
-threefry draws: tests that compare the two packages feed both the same
-numpy batches.
+are the tokens shifted by one. With ``embed_dim`` set (the audio and VLM
+stubs, whose inputs are embeddings) the batch holds standard-normal bf16
+``embeds`` in place of the input tokens, drawn from the same step's
+generator after the tokens (the reference's ``data/lm.py:52-56``). The
+bits differ from the reference's threefry draws: tests that compare the
+two packages feed both the same numpy batches.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ class LMDataConfig:
     global_batch: int
     accum: int = 1
     seed: int = 0
+    embed_dim: int | None = None   # set for the modality stubs: embeds
 
 
 class LMPipeline:
@@ -45,7 +49,8 @@ class LMPipeline:
 
     def batch_at(self, step: int) -> dict[str, torch.Tensor]:
         """``{"tokens", "labels"}`` int64 of shape (accum, microbatch, seq)
-        on the CPU."""
+        on the CPU; with ``embed_dim``, ``{"embeds" (accum, microbatch,
+        seq, embed_dim) bf16, "labels"}``."""
         c = self.cfg
         mb = c.global_batch // c.accum
         gen = self._generator(step)
@@ -58,5 +63,10 @@ class LMPipeline:
         odds = (evens * 7 + 13) % c.vocab
         toks = torch.stack([evens, odds], dim=-1).reshape(c.accum, mb, 2 * half)
         toks = toks[..., :n]
-        return {"tokens": toks[..., :-1].contiguous(),
-                "labels": toks[..., 1:].contiguous()}
+        out = {"labels": toks[..., 1:].contiguous()}
+        if c.embed_dim is None:
+            out["tokens"] = toks[..., :-1].contiguous()
+        else:
+            out["embeds"] = torch.randn((c.accum, mb, c.seq, c.embed_dim),
+                                        generator=gen).to(torch.bfloat16)
+        return out

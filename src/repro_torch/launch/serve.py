@@ -10,14 +10,20 @@
       --prompt-len 1024 --steps 64
   python -m repro_torch.launch.serve --arch grok-1-314b --smoke \\
       --device cpu --batch 2 --prompt-len 16 --steps 4
+  python -m repro_torch.launch.serve --arch musicgen-large --batch 8 \\
+      --prompt-len 512 --steps 64
 
 Port of ``src/repro/launch/serve.py`` on one device, through
 :func:`repro_torch.serve.engine.build_serve`, for the families the serve
-driver runs (dense, MoE, hybrid and SSM). Runs on the card unless
-``--device cpu`` is given; without a card and without ``--device`` it
-raises. Random weights drawn straight in bf16 (``init_tree``) and a random
-prompt (a ``torch.Generator``), both from ``--seed`` and made on the
-device; greedy decoding takes ``torch.argmax`` (the first maximal index).
+driver runs (every family). Runs on the card unless ``--device cpu`` is
+given; without a card and without ``--device`` it raises. Random weights
+drawn straight in bf16 (``init_tree``) and a random prompt (a
+``torch.Generator``), both from ``--seed`` and made on the device: tokens,
+or for the audio and VLM stubs (musicgen-large, internvl2-76b), whose
+inputs are embeddings, standard-normal bf16 embeddings ``(batch,
+prompt_len, d_model)``, as the reference draws them
+(``src/repro/launch/serve.py:53-59``); decode runs on tokens. Greedy
+decoding takes ``torch.argmax`` (the first maximal index).
 Prints the prefill time, the decode tokens/s and the peak device memory.
 :func:`run` is the same driver for a config object (full-width grok-1 does
 not fit one card at its 64 layers; ``chip_smoke.py`` serves it at 4 with
@@ -45,8 +51,9 @@ from repro_torch.sharding.params import init_tree
 
 @dataclasses.dataclass
 class ServeRun:
-    """What a run leaves: the model, the prompt, the last logits and cache,
-    the generated tokens ``(B, steps)``, the prefill's seconds and each
+    """What a run leaves: the model, the prompt (tokens, or embeddings for
+    the audio and VLM stubs), the last logits and cache, the generated
+    tokens ``(B, steps)``, the prefill's seconds and each
     decode step's, and the peak device memory (bytes; ``None`` on the
     CPU)."""
     cfg: ModelConfig
@@ -69,7 +76,8 @@ def _sync(dev: torch.device) -> None:
 def run(cfg: ModelConfig, batch: int, prompt_len: int, steps: int,
         seed: int = 0, max_len: int | None = None, device=None) -> ServeRun:
     """Serve ``cfg`` once: draw its weights and a prompt of ``(batch,
-    prompt_len)`` tokens from ``seed``, prefill, then ``steps`` greedy
+    prompt_len)`` tokens (or embeddings of ``d_model``) from ``seed``,
+    prefill, then ``steps`` greedy
     decode steps; print one line and return the :class:`ServeRun`.
     ``max_len`` defaults to ``prompt_len + steps``; ``device=None`` is the
     card (raises without one)."""
@@ -81,8 +89,12 @@ def run(cfg: ModelConfig, batch: int, prompt_len: int, steps: int,
     params = init_tree(registry.decls(cfg), seed, dev, dtype=torch.bfloat16)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
-                           device=dev)
+    if registry.uses_token_inputs(cfg):
+        prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                               generator=gen, device=dev)
+    else:
+        prompt = torch.randn((batch, prompt_len, cfg.d_model), generator=gen,
+                             device=dev).to(torch.bfloat16)
 
     done = {"flag": False}
 
@@ -112,8 +124,9 @@ def run(cfg: ModelConfig, batch: int, prompt_len: int, steps: int,
     rate = f"{toks / dt:.1f} tok/s" if dt > 0 else "no decode steps"
     mem = (f"peak device memory {peak / 1e9:.2f} GB" if peak is not None
            else "peak device memory not measured (cpu)")
+    what = "tokens" if registry.uses_token_inputs(cfg) else "embeddings"
     print(f"{cfg.name} on {dev}: prefill {batch} x {prompt_len} "
-          f"tokens in {prefill_s:.3f}s; decoded {toks} tokens in {dt:.3f}s "
+          f"{what} in {prefill_s:.3f}s; decoded {toks} tokens in {dt:.3f}s "
           f"({rate}); {mem}", flush=True)
     assert done["flag"], "completion interrupt not fired"
     return ServeRun(cfg, params, sv, prompt, logits, cache, tokens, prefill_s,

@@ -3,16 +3,25 @@
   python -m repro_torch.launch.train --arch granite-3-2b --init true-fan-in \\
       --steps 4 --global-batch 4 --accum 2 --seq 4096
   python -m repro_torch.launch.train --arch granite-3-2b --smoke --device cpu \\
-      --steps 20 --global-batch 8 --seq 64
+      --steps 20 --global-batch 8 --seq 64 --ckpt ckpt/run --ckpt-every 10
+  python -m repro_torch.launch.train --arch musicgen-large --init true-fan-in \\
+      --steps 4 --global-batch 8 --accum 2 --seq 2048
 
-Port of ``src/repro/launch/train.py`` without the mesh, the checkpoints and
-the fault-tolerance controller (later slices of the port). Runs on the card
-unless ``--device cpu`` is given; without a card and without ``--device``
-it raises. Random weights from ``--seed``, batches from
-:class:`repro_torch.data.lm.LMPipeline`; prints one line per step with the
-loss, the gradient norm and the step time, and raises when either is not
-finite. The dense family (granite-3-2b), the hybrid family
-(recurrentgemma-2b) and the SSM family (mamba2-370m) train. ``--init
+Port of ``src/repro/launch/train.py`` (``:43-101``) without the mesh (the
+tensor-parallel slice of the port). Runs on the card unless ``--device
+cpu`` is given; without a card and without ``--device`` it raises. Random
+weights from ``--seed``, batches from :class:`repro_torch.data.lm.
+LMPipeline` (embeddings of ``d_model`` in place of tokens for the audio and
+VLM stubs, musicgen-large and internvl2-76b, whose inputs are
+embeddings); prints one line per step with the loss, the gradient norm
+and the step time, and raises when either is not finite. Each step
+reports a heartbeat and its time to an ``FTController`` of one worker and
+ticks it. Every family but MoE trains. ``--ckpt DIR`` saves the params
+under ``DIR`` (on a thread, after a copy to the host) and the optimizer
+state under ``DIR/opt`` every ``--ckpt-every`` steps
+(:mod:`repro_torch.ckpt.checkpoint`); ``--resume`` restores both from the
+latest step there and continues from it on the step-indexed batches, so a
+resumed run's losses and params equal an uninterrupted run's. ``--init
 reference`` (the default) is the reference's init, whose gradients overflow
 at full depth (granite-3-2b's 40 layers: a gradient norm of inf on the
 first step); ``--init true-fan-in`` rescales the attention projections to
@@ -33,17 +42,21 @@ import torch
 
 from repro_torch import configs
 from repro_torch import device as device_mod
+from repro_torch.ckpt import checkpoint
 from repro_torch.data.lm import LMDataConfig, LMPipeline
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.params import init_tree
+from repro_torch.runtime.ft import FTController
+from repro_torch.sharding.params import init_tree, tree_map
 from repro_torch.train.trainer import TrainConfig, make_train_step
 
 
 @dataclasses.dataclass
 class TrainRun:
     """What a run leaves: the trained params and optimizer state, the step
-    function and the data, and per step its loss, grad norm and seconds."""
+    function and the data, the step it started from (0, or the restored
+    checkpoint's), the fault-tolerance controller, and per step run its
+    loss, grad norm and seconds."""
     cfg: ModelConfig
     params: Any
     opt_state: Any
@@ -52,6 +65,8 @@ class TrainRun:
     losses: list[float]
     grad_norms: list[float]
     seconds: list[float]
+    start_step: int = 0
+    ft: FTController | None = None
 
 
 def main(argv=None) -> TrainRun:
@@ -74,6 +89,12 @@ def main(argv=None) -> TrainRun:
                          "(needed at granite-3-2b's full depth; mamba2 has "
                          "none, so it changes nothing there)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None,
+                    help="directory for checkpoints (params; opt/ the "
+                         "optimizer state)")
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint under --ckpt")
     args = ap.parse_args(argv)
 
     dev = device_mod.resolve(args.device)
@@ -82,21 +103,42 @@ def main(argv=None) -> TrainRun:
     train_step, optimizer = make_train_step(cfg, tc)
     data = LMPipeline(LMDataConfig(
         vocab=cfg.vocab, seq=args.seq, global_batch=args.global_batch,
-        accum=args.accum, seed=args.seed))
+        accum=args.accum, seed=args.seed,
+        embed_dim=None if registry.uses_token_inputs(cfg) else cfg.d_model))
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    params = init_tree(registry.decls(cfg), args.seed, dev, dtype=dtype)
-    if args.init == "true-fan-in":
-        params = registry.true_fan_in(params, cfg)
-    opt_state = optimizer.init(params)
+    start_step = 0
+    if (args.resume and args.ckpt
+            and checkpoint.latest_step(args.ckpt) is not None):
+        # restore into trees of meta tensors: nothing is drawn twice
+        params_like = tree_map(
+            lambda d: torch.empty(d.shape, dtype=dtype, device="meta"),
+            registry.decls(cfg))
+        params, start_step, _ = checkpoint.restore(args.ckpt, params_like,
+                                                   device=dev)
+        opt_state, _, _ = checkpoint.restore(
+            f"{args.ckpt}/opt", optimizer.init(params_like), step=start_step,
+            device=dev)
+        print(f"resumed from step {start_step}", flush=True)
+    else:
+        params = init_tree(registry.decls(cfg), args.seed, dev, dtype=dtype)
+        if args.init == "true-fan-in":
+            params = registry.true_fan_in(params, cfg)
+        opt_state = optimizer.init(params)
 
-    run = TrainRun(cfg, params, opt_state, train_step, data, [], [], [])
-    for step in range(args.steps):
+    ft = FTController(n_workers=1)
+    run = TrainRun(cfg, params, opt_state, train_step, data, [], [], [],
+                   start_step, ft)
+    pending_save = None
+    for step in range(start_step, args.steps):
         t0 = time.perf_counter()
         batch = data.batch_at(step)
         run.params, run.opt_state, metrics = train_step(run.params,
                                                         run.opt_state, batch)
         loss = float(metrics["loss"])          # waits for the step to end
         dt = time.perf_counter() - t0
+        ft.report_heartbeat(0)
+        ft.report_step_time(0, dt)
+        ft.tick()
         norm = float(metrics["grad_norm"])
         run.losses.append(loss)
         run.grad_norms.append(norm)
@@ -109,6 +151,15 @@ def main(argv=None) -> TrainRun:
             raise FloatingPointError(f"step {step}: loss {loss}, grad norm "
                                      f"{norm}: the update is not training"
                                      f"{hint}")
+        if args.ckpt and (step + 1) % args.ckpt_every == 0:
+            if pending_save is not None:
+                pending_save.join()
+            pending_save = checkpoint.save(
+                args.ckpt, run.params, step=step + 1, async_=True,
+                metadata={"arch": cfg.name})
+            checkpoint.save(f"{args.ckpt}/opt", run.opt_state, step=step + 1)
+    if pending_save is not None:
+        pending_save.join()
     print("done; final loss", run.losses[-1] if run.losses else math.nan)
     return run
 

@@ -9,11 +9,12 @@ layout (``triples`` stacked along a leading axis, ``tail`` per layer), so
 weights map one to one; the reference's ``lax.scan`` over the triples is a
 Python loop here.
 
-Every RG-LRU scan goes through :func:`linear_scan`
-(:func:`repro_torch.kernels.rglru.ops.rglru`: the CUDA kernels on the card,
-forward and backward), and every multi-token attention call through
-:func:`repro_torch.models.layers.attention` (the CUDA flash forward and
-backward). The
+Every RG-LRU scan goes through :func:`linear_scan`, which dispatches op
+``"rglru"`` through the XAIF registry under ``cfg.scan_impl``
+(``"cuda"``: :func:`repro_torch.kernels.rglru.ops.rglru`, the CUDA
+kernels on the card, forward and backward), and every multi-token
+attention call through :func:`repro_torch.models.layers.attention` under
+``cfg.attn_impl`` (the CUDA flash forward and backward). The
 one-token decode step needs neither: its recurrence is one multiply-add,
 and its attention over the ring cache is :func:`layers.attention_ref`
 (plain PyTorch), as the reference computes it with ``attention_chunked``,
@@ -22,7 +23,11 @@ not with a Pallas kernel.
 The reference's dtype boundaries are kept: activations are bfloat16
 whatever ``cfg.dtype`` is (the embedding is gathered from a bf16 cast of
 the table), the Gemma scaling multiplies by ``sqrt(d_model)`` rounded to
-bf16, the gates run in float32, and the recurrent state is float32.
+bf16, the gates run in float32, and the recurrent state is float32. The
+training forward and the prefill also take ``embeds`` (B, S, d_model) in
+place of tokens (``src/repro/models/griffin.py:309-313,368-373``): the
+activations then take the embeddings' dtype, and the scaling is rounded
+to it.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import device as device_mod
-from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.core.xaif import REGISTRY
+# imported for its XAIF registration under "cuda"
+from repro_torch.kernels.rglru import ops as _rglru_ops  # noqa: F401
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (_attn_decls, _attn_out, _ffn,
@@ -86,12 +93,13 @@ def rglru_gates(x: torch.Tensor, p: dict,
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor,
-                h0: torch.Tensor | None = None
+                h0: torch.Tensor | None = None, *, impl: str = "cuda"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``h_t = a_t h_{t-1} + b_t`` over (B,S,W): ``(y, h_final)``, always
-    through :func:`repro_torch.kernels.rglru.ops.rglru` (the reference's
-    ``scan_impl`` picks one of three backends; the port has the one)."""
-    return rglru_ops.rglru(a, b, h0)
+    """``h_t = a_t h_{t-1} + b_t`` over (B,S,W): ``(y, h_final)``, op
+    ``"rglru"`` dispatched under :func:`layers.impl_key` of ``impl`` (the
+    reference's three backend names are the port's one, ``"cuda"``:
+    :func:`repro_torch.kernels.rglru.ops.rglru`)."""
+    return REGISTRY.dispatch("rglru", L.impl_key(impl), a, b, h0)
 
 
 # ---------------------------------------------------------------------------
@@ -243,13 +251,17 @@ class GriffinCache:
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    # gathered, then cast: the same values as the reference's gather from a
-    # bf16 cast of the table, whatever cfg.dtype is
-    x = params["embed"][tokens].to(BF16)
-    # gemma-style scaling by sqrt(d_model) rounded to bf16, as the
-    # reference's jnp.asarray(sqrt(d), bf16) (a Python float would not be)
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=BF16)
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor | None,
+           embeds: torch.Tensor | None = None) -> torch.Tensor:
+    if embeds is None:
+        # gathered, then cast: the same values as the reference's gather
+        # from a bf16 cast of the table, whatever cfg.dtype is
+        x = params["embed"][tokens.to(params["embed"].device)].to(BF16)
+    else:
+        x = embeds.to(params["embed"].device)
+    # gemma-style scaling by sqrt(d_model) rounded to x's dtype, as the
+    # reference's jnp.asarray(sqrt(d), x.dtype) (a Python float would not be)
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
 
 
 def _rec_mix(x, p, cfg: ModelConfig):
@@ -263,7 +275,7 @@ def _rec_mix(x, p, cfg: ModelConfig):
     u = h @ p["w_x"].to(h.dtype)
     u, tail = L.causal_conv1d(u, p["conv"].to(u.dtype))
     a, b_in = rglru_gates(u, p["rglru"], cfg.rglru_c)
-    ys, h_fin = linear_scan(a, b_in)
+    ys, h_fin = linear_scan(a, b_in, impl=cfg.scan_impl)
     out = (ys.to(x.dtype) * y) @ p["w_out"].to(x.dtype)
     return x + out, tail, h_fin
 
@@ -278,7 +290,8 @@ def _attn_mix(x, p, cfg: ModelConfig, rope_cs):
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     w = {n: p[n].to(h.dtype) for n in ("wq", "wk", "wv", "wo")}
     q, k, v = _project_qkv(h, w, cfg, rope_cs)
-    o = L.attention(q, k, v, causal=True, window=cfg.attn_window)
+    o = L.attention(q, k, v, causal=True, window=cfg.attn_window,
+                    impl=cfg.attn_impl)
     return _attn_out(x, o, w["wo"]), k, v
 
 
@@ -300,9 +313,10 @@ def _triple_train(x, tp, cfg: ModelConfig, rope_cs):
     return x
 
 
-def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
-    """Training forward: tokens (B, S) -> ``(logits (B, S, V), aux = 0)``
-    (``src/repro/models/griffin.py:313-329``).
+def forward(params, cfg: ModelConfig, tokens=None, positions=None,
+            embeds=None):
+    """Training forward: tokens (B, S) or embeds (B, S, d_model) ->
+    ``(logits (B, S, V), aux = 0)`` (``src/repro/models/griffin.py:309-329``).
 
     Runs where the params are, in bf16 activations whatever ``cfg.dtype``
     is, after gemma's sqrt(d_model) scaling. Each pattern triple runs under
@@ -312,14 +326,11 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
     list of per-triple trees (:func:`repro_torch.models.transformer.
     superblocks`).
     """
-    if embeds is not None:
-        raise NotImplementedError("embeds inputs are not yet ported")
     dev = params["embed"].device
-    tokens = tokens.to(dev)
+    x = _embed(params, cfg, tokens, embeds)
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=dev)[None]
+        positions = torch.arange(x.shape[1], device=dev)[None]
     rope_cs = _rope(cfg, positions.to(dev))
-    x = _embed(params, cfg, tokens)
     n_full, tail = plan(cfg)
     for tp in superblocks(params["triples"], n_full):
         x = remat(_triple_train, cfg, x, tp, cfg, rope_cs)
@@ -329,10 +340,12 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
     return L.lm_head(x, params, cfg), torch.zeros((), device=dev)
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None,
             max_len: int | None = None) -> tuple[torch.Tensor, GriffinCache]:
-    """tokens (B, S) -> ``(logits (B, V), cache)``: the logits of the last
-    position, and the cache that :func:`decode_step` continues from.
+    """tokens (B, S) or embeds (B, S, d_model) -> ``(logits (B, V),
+    cache)``: the logits of the last position, and the cache that
+    :func:`decode_step` continues from.
 
     Runs where the params are. ``max_len`` (default S) sizes the attention
     rings: ``win = min(attn_window, max_len)``; a prompt of at least ``win``
@@ -340,12 +353,11 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     zero-padded to ``win``.
     """
     dev = params["embed"].device
-    tokens = tokens.to(dev)
-    b, s = tokens.shape
+    x = _embed(params, cfg, tokens, embeds)
+    s = x.shape[1]
     max_len = max_len or s
     win = min(cfg.attn_window or max_len, max_len)
     rope_cs = _rope(cfg, torch.arange(s, device=dev)[None])
-    x = _embed(params, cfg, tokens)
     convs, hs, ks, vs = [], [], [], []
     for kind, lp in _layers(params, cfg):
         if kind == "rec":
@@ -397,8 +409,6 @@ def decode_step(params, cfg: ModelConfig, cache: GriffinCache,
     out of it, their conv tail, RG-LRU state, ring and ``pos`` left bit for
     bit as they were (see :func:`repro_torch.models.transformer.
     decode_step`)."""
-    dev = params["embed"].device
-    tokens = tokens.to(dev)
     pos = cache.pos
     new_pos = advance(pos, keep)
     rope_cs = _rope(cfg, pos.reshape(-1, 1))

@@ -9,6 +9,13 @@ LM head, the cross-entropy loss and the naive attention oracle, with the
 reference's dtype boundaries (norm and rope in float32, cast back to the
 input dtype; router and combine in float32; the loss in float32) and mask
 constant (``-1e30``).
+
+Every kernel call of a model path goes through the XAIF registry
+(:data:`repro_torch.core.xaif.REGISTRY`), by op name and the impl key that
+:func:`impl_key` makes of the config's ``attn_impl``, ``scan_impl`` or
+``moe_impl``, as the reference's models dispatch
+(``src/repro/models/layers.py:313,441``): an accelerator registered under
+a new key plugs in without an edit here.
 """
 
 from __future__ import annotations
@@ -18,13 +25,28 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.attention import ops as attn_ops
-from repro_torch.kernels.moe import ops as moe_ops
+from repro_torch.core.xaif import REGISTRY
+# imported for their XAIF registrations under "cuda"
+from repro_torch.kernels.attention import ops as _attn_ops  # noqa: F401
+from repro_torch.kernels.moe import ops as _moe_ops  # noqa: F401
 from repro_torch.sharding import axes as lx
 from repro_torch.sharding.params import Axes, ParamDecl
 
 F32 = torch.float32
 NEG_INF = -1e30
+
+# the reference's backend names; the port has one backend for them all
+_REFERENCE_IMPLS = ("ref", "chunked", "pallas")
+
+
+def impl_key(impl: str) -> str:
+    """The registry's impl key for a config's ``attn_impl``, ``scan_impl``
+    or ``moe_impl``: the reference's own names (``"ref"``, ``"chunked"``,
+    ``"pallas"``) are the port's one backend, ``"cuda"`` (its wrapper sends
+    a CPU tensor to the plain version and a CUDA tensor to the kernel);
+    any other name is a key of its own, and an unregistered one raises the
+    registry's ``KeyError`` at the call."""
+    return "cuda" if impl in _REFERENCE_IMPLS else impl
 
 
 # ---------------------------------------------------------------------------
@@ -115,19 +137,21 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     return o.reshape(b, sq, h, d).to(q.dtype)
 
 
-def attention(q, k, v, *, causal: bool = True,
-              window: int | None = None) -> torch.Tensor:
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              impl: str = "cuda") -> torch.Tensor:
     """Multi-token attention of the training path: q (B,S,H,D), k/v
     (B,S,K,D) -> (B,S,H,D), differentiable.
 
-    Every call goes through :func:`repro_torch.kernels.attention.ops.
-    flash_attention` (the CUDA kernels on the card, the plain versions on
+    Every call dispatches op ``"attention"`` under :func:`impl_key` of
+    ``impl`` (``"cuda"``: :func:`repro_torch.kernels.attention.ops.
+    flash_attention`, the CUDA kernels on the card, the plain versions on
     the CPU). Unlike the reference (``layers.py:293-298``) it does not
     repeat KV to the full head count: the kernels read KV head ``h // G``
     for query head ``h``, and sum dk/dv over each group in float32, which
     is what the transpose of the repeat computes.
     """
-    return attn_ops.flash_attention(q, k, v, causal=causal, window=window)
+    return REGISTRY.dispatch("attention", impl_key(impl), q, k, v,
+                             causal=causal, window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -208,16 +232,17 @@ def capacity(t: int, top_k: int, capacity_factor: float, n_exp: int) -> int:
 
 
 def moe(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
-        capacity_factor: float = 1.25,
-        kind: str = "swiglu") -> tuple[torch.Tensor, torch.Tensor]:
+        capacity_factor: float = 1.25, kind: str = "swiglu",
+        impl: str = "cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> ``(out (B, S, d), aux_loss)`` (``layers.py:396-453``).
 
     Dispatch is sort-based with a static per-expert capacity: each token's
     k choices are stably sorted by expert, a slot past the expert's
     capacity is dropped (it contributes nothing: GShard semantics), and the
     kept tokens are gathered into an (E, capacity, d) buffer, zero rows in
-    the free slots. The expert FFN runs on that buffer through
-    :func:`repro_torch.kernels.moe.ops.moe_ffn` (three launches of the
+    the free slots. The expert FFN runs on that buffer through op
+    ``"moe_ffn"`` under :func:`impl_key` of ``impl`` (``"cuda"``:
+    :func:`repro_torch.kernels.moe.ops.moe_ffn`, three launches of the
     grouped-matmul kernel on the card), and the outputs are combined
     back per token in float32, weighted by the renormalised gates. The aux
     loss is Switch's load-balance term ``E * sum_e f_e * p_e``. Only
@@ -253,7 +278,8 @@ def moe(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
     buf = torch.full((n_exp * cap + 1,), t, dtype=torch.long, device=dev)
     buf[torch.where(keep, dest, n_exp * cap)] = tok
     xg = torch.cat([xt, xt.new_zeros((1, d))])[buf[:-1]]
-    hg = moe_ops.moe_ffn(xg.reshape(n_exp, cap, d), p, kind)
+    hg = REGISTRY.dispatch("moe_ffn", impl_key(impl),
+                           xg.reshape(n_exp, cap, d), p, kind)
 
     slot_out = hg.reshape(n_exp * cap, d)[torch.where(keep, dest, 0)]
     w = (slot_g[order] * keep).to(F32)[:, None]
@@ -268,7 +294,7 @@ def moe(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
 
 
 def moe_lanes(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
-              kind: str = "swiglu") -> torch.Tensor:
+              kind: str = "swiglu", impl: str = "cuda") -> torch.Tensor:
     """x (B, 1, d) -> out (B, 1, d): each row routed as a batch of its own,
     as the reference's lane engine routes a lane under ``vmap``.
 
@@ -278,8 +304,8 @@ def moe_lanes(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
     expert among them and drop past it. The lanes' (E, 1, d) dispatch
     buffers are packed along the capacity axis into one (E, B, d) buffer,
     lane b in row b, zero where the lane did not pick the expert, so the
-    expert FFN is one :func:`repro_torch.kernels.moe.ops.moe_ffn` call for
-    all lanes (three grouped-matmul launches on the card): rows of a
+    expert FFN is one ``"moe_ffn"`` dispatch for all lanes, as in
+    :func:`moe` (three grouped-matmul launches on the card): rows of a
     product are independent, so each row is the lane's own result. The k
     outputs of a lane are weighted by its gates and summed in float32 in
     expert order, as the reference's combine adds them.
@@ -292,7 +318,7 @@ def moe_lanes(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
     picked = torch.zeros((n_exp, b), dtype=torch.bool, device=x.device)
     picked[eidx.T, torch.arange(b, device=x.device)] = True
     xg = torch.where(picked[..., None], xt, xt.new_zeros(()))
-    hg = moe_ops.moe_ffn(xg, p, kind)                   # (E, B, d)
+    hg = REGISTRY.dispatch("moe_ffn", impl_key(impl), xg, p, kind)  # (E, B, d)
     order = torch.argsort(eidx, dim=-1, stable=True)
     eidx, gates = eidx.gather(1, order), gates.gather(1, order)
     lanes = torch.arange(b, device=x.device)
@@ -306,7 +332,7 @@ def moe_lanes(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
 
 
 def moe_dense_ref(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
-                  kind: str = "swiglu") -> torch.Tensor:
+                  kind: str = "swiglu", impl: str = "cuda") -> torch.Tensor:
     """Oracle: every expert on every token, then mixed by the gates
     (``layers.py:456-470``). O(E) FLOPs; equals :func:`moe` when no slot is
     dropped."""
@@ -316,7 +342,8 @@ def moe_dense_ref(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
     _, gates, eidx = route(xt, p["router"], top_k)
     full = torch.zeros((t, n_exp), dtype=F32, device=x.device).scatter_(
         1, eidx, gates)
-    outs = moe_ops.moe_ffn(xt.expand(n_exp, t, d).contiguous(), p, kind)
+    outs = REGISTRY.dispatch("moe_ffn", impl_key(impl),
+                             xt.expand(n_exp, t, d).contiguous(), p, kind)
     out = torch.einsum("te,etd->td", full, outs.to(F32))
     if "shared" in p:
         out = out + mlp(x, p["shared"], kind).reshape(t, d).to(F32)

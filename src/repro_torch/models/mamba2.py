@@ -7,17 +7,19 @@ the reference's layout (``blocks`` stacked along a leading layer axis), so
 weights map one to one; the reference's ``lax.scan`` over the layers is a
 Python loop here.
 
-Every multi-token SSD scan goes through :func:`repro_torch.kernels.ssd.ops.ssd`
-(the CUDA chunk-scan kernels on the card, forward and backward), whatever
-``cfg.scan_impl`` says:
-the reference picks one of three backends, the port has the one. The
-one-token decode step needs no kernel: its recurrence is one
-multiply-add of the state, as in the reference.
+Every multi-token SSD scan dispatches op ``"ssd"`` through the XAIF
+registry under ``cfg.scan_impl`` (:func:`repro_torch.models.layers.
+impl_key`: the reference's three backend names are the port's one,
+``"cuda"``, :func:`repro_torch.kernels.ssd.ops.ssd`, the CUDA chunk-scan
+kernels on the card, forward and backward). The one-token decode step
+needs no kernel: its recurrence is one multiply-add of the state, as in
+the reference.
 
 The reference's dtype boundaries are kept: activations are bfloat16
 whatever ``cfg.dtype`` is (the embedding is gathered from a bf16 cast of
-the table), dt, dA and the scan run in float32, the conv tails are bf16
-and the states float32. State per layer is heads x head_dim x state, so a
+the table; ``embeds`` (B, S, d_model), which the training forward and
+the prefill take in place of tokens, keep their own dtype), dt, dA and the
+scan run in float32, the conv tails are bf16 and the states float32. State per layer is heads x head_dim x state, so a
 decode step costs the same at any context length.
 """
 
@@ -29,8 +31,10 @@ from typing import Any, Iterator
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.core.xaif import REGISTRY
 from repro_torch.kernels.moe import ref as moe_ref
-from repro_torch.kernels.ssd import ops as ssd_ops
+# imported for its XAIF registration under "cuda"
+from repro_torch.kernels.ssd import ops as _ssd_ops  # noqa: F401
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.griffin import _softplus
@@ -131,10 +135,13 @@ class SSMCache:
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params, tokens: torch.Tensor | None,
+           embeds: torch.Tensor | None = None) -> torch.Tensor:
+    if embeds is not None:
+        return embeds.to(params["embed"].device)
     # gathered, then cast: the same values as the reference's gather from a
     # bf16 cast of the table, whatever the params' dtype
-    return params["embed"][tokens].to(BF16)
+    return params["embed"][tokens.to(params["embed"].device)].to(BF16)
 
 
 _silu = moe_ref.silu   # jax.nn.silu as XLA rounds it in bf16
@@ -190,14 +197,16 @@ def _block_train(x, lp, cfg: ModelConfig):
     z, xin, Braw, Craw, dt_raw = _mix(x, lp, cfg)
     (xin, Braw, Craw), _ = _convs(xin, Braw, Craw, lp)
     xh, xs, dA, Bh, Ch = _ssm_math(xin, Braw, Craw, dt_raw, lp, cfg)
-    y, _ = ssd_ops.ssd(xs, dA, Bh, Ch, chunk=cfg.ssm_chunk,
-                       compute_dtype=getattr(torch, cfg.ssm_compute_dtype))
+    y, _ = REGISTRY.dispatch(
+        "ssd", L.impl_key(cfg.scan_impl), xs, dA, Bh, Ch, chunk=cfg.ssm_chunk,
+        compute_dtype=getattr(torch, cfg.ssm_compute_dtype))
     return _out(x, y, xh, z, lp, cfg)
 
 
-def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
-    """Training forward: tokens (B, S) -> ``(logits (B, S, V), aux = 0)``
-    (``src/repro/models/mamba2.py:247-271``).
+def forward(params, cfg: ModelConfig, tokens=None, positions=None,
+            embeds=None):
+    """Training forward: tokens (B, S) or embeds (B, S, d_model) ->
+    ``(logits (B, S, V), aux = 0)`` (``src/repro/models/mamba2.py:261-271``).
 
     Runs where the params are, in bf16 activations. Each layer runs under
     ``cfg.remat`` (:func:`repro_torch.models.transformer.remat`). Unlike
@@ -208,20 +217,20 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
     registry's common signature (the SSM has no positional encoding).
     """
     del positions
-    if embeds is not None:
-        raise NotImplementedError("embeds inputs are not yet ported")
     dev = params["embed"].device
-    x = _embed(params, tokens.to(dev))
+    x = _embed(params, tokens, embeds)
     for lp in superblocks(params["blocks"], cfg.n_layers):
         x = remat(_block_train, cfg, x, lp, cfg)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return L.lm_head(x, params, cfg), torch.zeros((), device=dev)
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None,
             max_len: int | None = None) -> tuple[torch.Tensor, SSMCache]:
-    """tokens (B, S) -> ``(logits (B, V), cache)``: the logits of the last
-    position, and the cache that :func:`decode_step` continues from.
+    """tokens (B, S) or embeds (B, S, d_model) -> ``(logits (B, V),
+    cache)``: the logits of the last position, and the cache that
+    :func:`decode_step` continues from.
 
     Runs where the params are; ``max_len`` is not needed (the state does
     not grow). The conv tails are the last w-1 rows of ``[zeros, input]``,
@@ -231,9 +240,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     """
     del max_len
     dev = params["embed"].device
-    tokens = tokens.to(dev)
-    b, s = tokens.shape
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, embeds)
+    s = x.shape[1]
     tails, states = ([], [], []), []
     for lp in _layers(params, cfg):
         z, xin, Braw, Craw, dt_raw = _mix(x, lp, cfg)
@@ -241,7 +249,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
         for acc, t in zip(tails, layer_tails):
             acc.append(t.clone())        # a view would keep the input alive
         xh, xs, dA, Bh, Ch = _ssm_math(xin, Braw, Craw, dt_raw, lp, cfg)
-        y, st = ssd_ops.ssd(xs, dA, Bh, Ch, chunk=cfg.ssm_chunk)
+        y, st = REGISTRY.dispatch("ssd", L.impl_key(cfg.scan_impl), xs, dA, Bh,
+                                  Ch, chunk=cfg.ssm_chunk)
         states.append(st)
         x = _out(x, y, xh, z, lp, cfg)
     xf = L.rmsnorm(x[:, -1:], params["ln_f"], cfg.norm_eps)
@@ -260,9 +269,8 @@ def decode_step(params, cfg: ModelConfig, cache: SSMCache,
     lane cache (``pos`` (B,)), masks lanes out: their conv tails, SSD state
     and ``pos`` stay bit for bit as they were (see
     :func:`repro_torch.models.transformer.decode_step`)."""
-    dev = params["embed"].device
     new_pos = advance(cache.pos, keep)
-    x = _embed(params, tokens.to(dev))
+    x = _embed(params, tokens)
     for li, lp in enumerate(_layers(params, cfg)):
         z, xin, Braw, Craw, dt_raw = _mix(x, lp, cfg)
         conv = (cache.conv_x[li], cache.conv_B[li], cache.conv_C[li])

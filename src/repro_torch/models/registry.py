@@ -1,16 +1,17 @@
 """Family dispatch for the port (port of ``src/repro/models/registry.py``).
 
-The dense, MoE and audio families (the decoder-only transformer), the
-hybrid family (Griffin) and the SSM family (Mamba-2) are ported; every
-other family raises ``NotImplementedError`` until its slice lands. The
-serve driver's ``prefill`` / ``decode_step`` / ``cache_init`` serve the
-dense, MoE, hybrid and SSM families. The engine serves the same four: the
-dense family on its paged backend (``decode_step_paged``) or on lanes, the
-MoE, hybrid and SSM families on lanes only (``supports_paged`` is False
-for them), through ``decode_step`` over a lane cache
+Every family of the reference is ported: the dense, MoE, audio and VLM
+families (the decoder-only transformer), the hybrid family (Griffin) and
+the SSM family (Mamba-2). The serve driver's ``prefill`` / ``decode_step``
+/ ``cache_init`` serve them all; the audio and VLM families' stubbed front
+ends (``embed_inputs=False``, :func:`uses_token_inputs`) prefill from
+``embeds`` and decode tokens. The engine serves every family: the dense,
+audio and VLM families on its paged backend (``decode_step_paged``) or on
+lanes, the MoE, hybrid and SSM families on lanes only (``supports_paged``
+is False for them), through ``decode_step`` over a lane cache
 (``cache_init(..., lanes=True)``, :func:`lane_read`, :func:`lane_write`).
-Training (``forward``) runs the dense, hybrid and SSM families; the MoE,
-audio and VLM families raise, naming their ROADMAP item.
+Training (``forward``) runs every family but MoE, which raises naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,28 +23,24 @@ import torch
 from repro_torch.models import griffin, mamba2, transformer
 from repro_torch.models.config import ModelConfig
 
-_PORTED_FAMILIES = ("dense", "moe", "audio")
+_TRANSFORMER_FAMILIES = ("dense", "moe", "audio", "vlm")
 
-# the families the serve driver runs: (model module, its cache class)
-_SERVE = {"dense": (transformer, transformer.KVCache),
-          "moe": (transformer, transformer.KVCache),
-          "hybrid": (griffin, griffin.GriffinCache),
-          "ssm": (mamba2, mamba2.SSMCache)}
+# every family: (model module, its decode cache class)
+_FAMILIES = {**{f: (transformer, transformer.KVCache)
+                for f in _TRANSFORMER_FAMILIES},
+             "hybrid": (griffin, griffin.GriffinCache),
+             "ssm": (mamba2, mamba2.SSMCache)}
 
-# the ROADMAP.md items ("Still to port") that bring each family's serve
-# driver path, for the error a caller sees
-_LATER_SERVE = {
-    "audio": "embeds inputs",
-    "vlm": "embeds inputs",
-}
+
+def _family(cfg: ModelConfig):
+    """``(model module, cache class)`` of ``cfg``'s family."""
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
+    return _FAMILIES[cfg.family]
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family in _PORTED_FAMILIES:
-        return transformer
-    if cfg.family in _SERVE:
-        return _SERVE[cfg.family][0]
-    raise NotImplementedError(f"{cfg.name} ({cfg.family}): not yet ported")
+    return _family(cfg)[0]
 
 
 def decls(cfg: ModelConfig):
@@ -51,29 +48,33 @@ def decls(cfg: ModelConfig):
     return _mod(cfg).decls(cfg)
 
 
-# the families the training forward runs, and the ROADMAP.md items
-# ("Still to port") that bring the others
-_TRAIN = {"dense": transformer, "hybrid": griffin, "ssm": mamba2}
+# the families the training forward does not run yet, and the ROADMAP.md
+# items ("Still to port") that bring them
 _LATER_TRAIN = {
     "moe": "MoE training, after tensor parallelism (one grok-1 layer's "
            "experts with AdamW's state take 77 GB)",
-    "audio": "embeds inputs",
-    "vlm": "embeds inputs",
 }
 
 
-def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
-    """Training forward ``(logits, aux)``; see :func:`transformer.forward`,
-    :func:`griffin.forward` and :func:`mamba2.forward`. Dense, hybrid and
-    SSM families; the others raise ``NotImplementedError`` naming their
-    ROADMAP item."""
-    if cfg.family not in _TRAIN:
-        later = _LATER_TRAIN.get(cfg.family, "not yet planned")
+def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
+            positions=None):
+    """Training forward ``(logits, aux)`` from ``tokens`` (B, S) or
+    ``embeds`` (B, S, d_model); see :func:`transformer.forward`,
+    :func:`griffin.forward` and :func:`mamba2.forward`. Every family but
+    MoE, which raises ``NotImplementedError`` naming its ROADMAP item."""
+    if cfg.family in _LATER_TRAIN:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): the training forward is not yet "
-            f"ported for this family (ROADMAP.md, still to port: {later})")
-    return _TRAIN[cfg.family].forward(params, cfg, tokens,
-                                      positions=positions, embeds=embeds)
+            f"ported for this family (ROADMAP.md, still to port: "
+            f"{_LATER_TRAIN[cfg.family]})")
+    return _mod(cfg).forward(params, cfg, tokens=tokens, positions=positions,
+                             embeds=embeds)
+
+
+def uses_token_inputs(cfg: ModelConfig) -> bool:
+    """False for the modality stubs (audio, VLM) whose train and prefill
+    inputs are embeddings (``embed_inputs=False``)."""
+    return cfg.embed_inputs
 
 
 def stacked(cfg: ModelConfig) -> tuple[str, int]:
@@ -98,47 +99,33 @@ def true_fan_in(params, cfg: ModelConfig):
     return _mod(cfg).true_fan_in(params, cfg)
 
 
-def _serve(cfg: ModelConfig, what: str):
-    """``(module, cache class)`` of ``cfg``'s family on the serve driver;
-    raises ``NotImplementedError`` naming the ROADMAP item otherwise."""
-    if cfg.family not in _SERVE:
-        later = _LATER_SERVE.get(cfg.family, "not yet planned")
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): {what} of the serve driver is not "
-            f"yet ported for this family (ROADMAP.md, still to port: "
-            f"{later})")
-    return _SERVE[cfg.family]
-
-
-def prefill(params, cfg: ModelConfig, tokens, max_len=None):
-    """Batched prefill ``(logits of the last position, cache)``; see
+def prefill(params, cfg: ModelConfig, tokens=None, embeds=None, max_len=None):
+    """Batched prefill ``(logits of the last position, cache)`` from
+    ``tokens`` (B, S) or ``embeds`` (B, S, d_model); see
     :func:`transformer.prefill`, :func:`griffin.prefill` and
-    :func:`mamba2.prefill`. Dense, MoE, hybrid and SSM families."""
-    return _serve(cfg, "prefill")[0].prefill(params, cfg, tokens,
-                                             max_len=max_len)
+    :func:`mamba2.prefill`."""
+    return _mod(cfg).prefill(params, cfg, tokens=tokens, embeds=embeds,
+                             max_len=max_len)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, keep=None):
     """One token per lane ``(logits, cache)``, the cache written in place;
     see :func:`transformer.decode_step`, :func:`griffin.decode_step` and
-    :func:`mamba2.decode_step`. Dense, MoE, hybrid and SSM families.
-    ``keep`` (B,) bool masks lanes of a lane cache out: their state stays
-    bit for bit as it was."""
-    return _serve(cfg, "decode_step")[0].decode_step(params, cfg, cache,
-                                                     tokens, keep=keep)
+    :func:`mamba2.decode_step`. ``keep`` (B,) bool masks lanes of a lane
+    cache out: their state stays bit for bit as it was."""
+    return _mod(cfg).decode_step(params, cfg, cache, tokens, keep=keep)
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None,
                lanes: bool = False):
-    """A zeroed decode cache on ``device`` (``None`` is the card). Dense,
-    MoE, hybrid and SSM families.
+    """A zeroed decode cache on ``device`` (``None`` is the card).
 
     With ``lanes`` it is the lane engine's cache: ``batch`` lanes, each a
     copy of the family's batch-1 cache (its values, not assumed zero), and
     a position a lane (``pos`` (batch,)), so that :func:`decode_step`
     decodes every lane as a batch-1 model of its own. Every cache class
     keeps the batch on axis 1 of its state tensors and ``pos`` last."""
-    cls = _serve(cfg, "cache_init")[1]
+    cls = _family(cfg)[1]
     if not lanes:
         return cls.init(cfg, batch, max_len, device=device)
     one = cls.init(cfg, 1, max_len, device=device)

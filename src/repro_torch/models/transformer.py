@@ -15,13 +15,21 @@ layout, so weights map one to one: ``blocks[...]["l{j}"]`` with a leading
 KV page pool are written **in place** (the reference donates them and
 returns new ones).
 
-Every MoE layer's expert FFN goes through
-:func:`repro_torch.kernels.moe.ops.moe_ffn` (the CUDA grouped-matmul kernel
-on the card), and every prefill attention call through
-:func:`repro_torch.models.layers.attention` (the CUDA flash forward). The
-one-token decode step attends over the cache in plain PyTorch
-(:func:`layers.attention_ref` with ``kv_len``), as the reference does with
-``attention_chunked``, not with a Pallas kernel.
+Every kernel call goes through the XAIF registry under the config's impl
+keys (:func:`layers.impl_key`): every MoE layer's expert FFN as op
+``"moe_ffn"`` under ``cfg.moe_impl`` (the CUDA grouped-matmul kernel on the
+card), every multi-token attention call as ``"attention"`` under
+``cfg.attn_impl`` (the CUDA flash kernels), and the paged decode's
+attention as ``"paged_attention"`` under ``cfg.attn_impl`` (the CUDA paged
+kernel). The one-token decode step of the lane cache attends in plain
+PyTorch (:func:`layers.attention_ref` with ``kv_len``), as the reference
+does with ``attention_chunked``, not with a Pallas kernel.
+
+The training forward and the prefill take ``tokens`` or, for the audio and
+VLM families' stubbed front ends (``embed_inputs=False``), ``embeds`` (B,
+S, d_model): the activations then take the embeddings' dtype, as the
+reference's do (bf16 embeddings give bf16 activations under a float32
+config), and the sinusoidal positions are added in it.
 
 A lane cache (``KVCache.pos`` of shape (B,), built by
 ``registry.cache_init(..., lanes=True)``) decodes its B rows as B
@@ -42,7 +50,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import device as device_mod
-from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.core.xaif import REGISTRY
+# imported for its XAIF registration under "cuda"
+from repro_torch.kernels.paged_attention import ops as _paged_ops  # noqa: F401
 from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -176,12 +186,12 @@ def _ffn(x, lp, cfg: ModelConfig, is_moe: bool = False, lanes: bool = False):
     if is_moe and lanes:
         return x + L.moe_lanes(h, _cast(lp["moe"], x.dtype),
                                n_exp=cfg.moe_experts, top_k=cfg.moe_top_k,
-                               kind=cfg.mlp_type)
+                               kind=cfg.mlp_type, impl=cfg.moe_impl)
     if is_moe:
         o, _aux = L.moe(h, _cast(lp["moe"], x.dtype),
                         n_exp=cfg.moe_experts, top_k=cfg.moe_top_k,
                         capacity_factor=cfg.moe_capacity_factor,
-                        kind=cfg.mlp_type)
+                        kind=cfg.mlp_type, impl=cfg.moe_impl)
         return x + o
     return x + L.mlp(h, _cast(lp["mlp"], x.dtype), cfg.mlp_type)
 
@@ -190,9 +200,16 @@ def _act_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _embed(params, cfg: ModelConfig, tokens, positions):
-    # gather, then cast: the same values as casting the table first
-    x = params["embed"][tokens].to(_act_dtype(cfg))
+def _embed(params, cfg: ModelConfig, tokens, positions, embeds=None):
+    """The first activations (``transformer.py:190-197``): the token
+    embeddings in the config's dtype, or ``embeds`` as they are (their
+    dtype is the activations'), plus sinusoidal positions in that dtype
+    where the config uses them."""
+    if embeds is None:
+        # gather, then cast: the same values as casting the table first
+        x = params["embed"][tokens].to(_act_dtype(cfg))
+    else:
+        x = embeds
     if cfg.pos_emb == "sinusoidal":
         x = x + L.sinusoidal(positions, cfg.d_model).to(x.dtype)
     return x
@@ -258,7 +275,8 @@ def remat(fn, cfg: ModelConfig, *args):
 def _attn_train(x, p, cfg: ModelConfig, rope_cs):
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _project_qkv(h, p, cfg, rope_cs)
-    o = L.attention(q, k, v, causal=True, window=cfg.sliding_window)
+    o = L.attention(q, k, v, causal=True, window=cfg.sliding_window,
+                    impl=cfg.attn_impl)
     return _attn_out(x, o, p["wo"])
 
 
@@ -267,24 +285,37 @@ def _layer_train(x, lp, cfg: ModelConfig, rope_cs):
     return _ffn(x, lp, cfg)
 
 
-def forward(params, cfg: ModelConfig, tokens, positions=None, embeds=None):
-    """Training/prefill forward: tokens (B, S) -> ``(logits (B, S, V),
-    aux)``, ``aux`` being the MoE load-balance loss (0 for dense layers).
+def _inputs(params, tokens, embeds):
+    """``(tokens, embeds, S)`` on the params' device: one of the two is
+    given (``embeds`` (B, S, d_model) for a stubbed front end)."""
+    if (tokens is None) == (embeds is None):
+        raise ValueError("pass exactly one of tokens and embeds")
+    dev = params["embed"].device
+    if embeds is not None:
+        embeds = embeds.to(dev)
+        return None, embeds, embeds.shape[1]
+    tokens = tokens.to(dev)
+    return tokens, None, tokens.shape[1]
+
+
+def forward(params, cfg: ModelConfig, tokens=None, positions=None,
+            embeds=None):
+    """Training/prefill forward: tokens (B, S) or embeds (B, S, d_model) ->
+    ``(logits (B, S, V), aux)``, ``aux`` being the MoE load-balance loss (0
+    for dense layers).
 
     Runs where the params are. Every attention call goes through
-    :func:`repro_torch.models.layers.attention` (the CUDA flash kernels on
-    the card). Each layer runs under ``cfg.remat`` (:func:`remat`).
-    ``params["blocks"]`` may be stacked or a list of per-superblock trees
-    (:func:`superblocks`).
+    :func:`repro_torch.models.layers.attention` under ``cfg.attn_impl``
+    (the CUDA flash kernels on the card). Each layer runs under
+    ``cfg.remat`` (:func:`remat`). ``params["blocks"]`` may be stacked or a
+    list of per-superblock trees (:func:`superblocks`).
     """
-    if embeds is not None:
-        raise NotImplementedError("embeds inputs are not yet ported")
     dev = params["embed"].device
-    tokens = tokens.to(dev)
+    tokens, embeds, s = _inputs(params, tokens, embeds)
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=dev)[None]
+        positions = torch.arange(s, device=dev)[None]
     positions = positions.to(dev)
-    x = _embed(params, cfg, tokens, positions)
+    x = _embed(params, cfg, tokens, positions, embeds)
     rope_cs = _rope(cfg, positions)
     il = _interleave(cfg)
     for blk in superblocks(params["blocks"], cfg.n_layers // il):
@@ -386,11 +417,13 @@ def decode_attend(q, k, v, ck, cv, pos, keep=None):
     return L.attention_ref(q, ck, cv, causal=False, kv_len=kv_len)
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None,
             max_len: int | None = None) -> tuple[torch.Tensor, KVCache]:
-    """tokens (B, S) -> ``(logits (B, V), cache)``: the logits of the last
-    position, and the cache that :func:`decode_step` continues from
-    (``transformer.py:223-271``).
+    """tokens (B, S) or embeds (B, S, d_model) -> ``(logits (B, V),
+    cache)``: the logits of the last position, and the cache that
+    :func:`decode_step` continues from (``transformer.py:223-271``); the
+    decode steps after it take tokens.
 
     Runs where the params are. ``max_len`` (default S) sizes the cache
     (:meth:`KVCache.cache_len`): a prompt of at least ``S_cache`` positions
@@ -401,19 +434,19 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     are routed together, as the reference routes them.
     """
     dev = params["embed"].device
-    tokens = tokens.to(dev)
-    s = tokens.shape[1]
+    tokens, embeds, s = _inputs(params, tokens, embeds)
     max_len = max_len or s
     s_cache = KVCache.cache_len(cfg, max_len)
     positions = torch.arange(s, device=dev)[None]
     rope_cs = _rope(cfg, positions)
-    x = _embed(params, cfg, tokens, positions)
+    x = _embed(params, cfg, tokens, positions, embeds)
     ks, vs = [], []
     for _, is_moe, lp in _layers(params, cfg):
         ap = _cast(lp["attn"], x.dtype)
         h = L.rmsnorm(x, ap["ln"], cfg.norm_eps)
         q, k, v = _project_qkv(h, ap, cfg, rope_cs)
-        o = L.attention(q, k, v, causal=True, window=cfg.sliding_window)
+        o = L.attention(q, k, v, causal=True, window=cfg.sliding_window,
+                        impl=cfg.attn_impl)
         x = _attn_out(x, o, ap["wo"])
         x = _ffn(x, lp, cfg, is_moe)
         ck, cv = cache_tail(k, v, s_cache)
@@ -515,9 +548,10 @@ def decode_step_paged(params, cfg: ModelConfig, pool_k, pool_v, tables,
 
     ``window`` (default ``cfg.sliding_window``) reads the tables as rings
     and attends over the last ``window`` positions. Every attention call
-    goes through :func:`repro_torch.kernels.paged_attention.ops.
-    paged_attention`: the CUDA kernel on the card, its plain version on
-    the CPU.
+    dispatches op ``"paged_attention"`` under ``cfg.attn_impl``
+    (``"cuda"``: :func:`repro_torch.kernels.paged_attention.ops.
+    paged_attention`, the CUDA kernel on the card, its plain version on
+    the CPU).
     """
     if window is None:
         window = cfg.sliding_window
@@ -531,6 +565,7 @@ def decode_step_paged(params, cfg: ModelConfig, pool_k, pool_v, tables,
     # the tail rows are the same for every layer: select the lanes once
     rows = paged_ref.tail_rows(tables, lengths, pool_k.shape[2], append_mask)
     attend_len = lengths + 1
+    impl = L.impl_key(cfg.attn_impl)
     il = _interleave(cfg)
     blocks = params["blocks"]
     for s in range(cfg.n_layers // il):
@@ -544,9 +579,10 @@ def decode_step_paged(params, cfg: ModelConfig, pool_k, pool_v, tables,
             layer = s * il + j
             paged_ref.write_rows(k[:, 0], v[:, 0], pool_k[layer], pool_v[layer],
                                  rows)
-            o = paged_ops.paged_attention(q[:, 0].contiguous(), pool_k[layer],
-                                          pool_v[layer], tables, attend_len,
-                                          window=window)
+            o = REGISTRY.dispatch("paged_attention", impl,
+                                  q[:, 0].contiguous(), pool_k[layer],
+                                  pool_v[layer], tables, attend_len,
+                                  window=window)
             x = _attn_out(x, o[:, None], ap["wo"])
             x = _ffn(x, {"ln_mlp": lp["ln_mlp"][s],
                          "mlp": {n: w[s] for n, w in lp["mlp"].items()}}, cfg)

@@ -199,12 +199,13 @@ def build_serve(cfg: ModelConfig, batch: int, max_len: int,
 
     The one-device counterpart of the reference's ``build_sharded_serve``
     (``src/repro/serve/engine.py:125-200``): no mesh, rules or FSDP (the
-    tensor-parallel slice of the port), for the dense, MoE, hybrid and SSM
-    families. ``device=None`` is the card and raises without one; the
-    params passed to the functions must live there.
-    With ``prefill_len`` the prefill checks its tokens are ``(batch,
-    prefill_len)``. Families without a serve-driver path raise
-    ``NotImplementedError`` from the registry.
+    tensor-parallel slice of the port), for every family. ``device=None``
+    is the card and raises without one; the params passed to the functions
+    must live there. ``prefill_fn(params, inputs)`` takes tokens ``(batch,
+    S)``, or for a config whose inputs are embeddings
+    (``registry.uses_token_inputs`` False: the audio and VLM stubs) embeds
+    ``(batch, S, d_model)``; with ``prefill_len`` it checks that S is
+    ``prefill_len``. ``decode_fn`` takes tokens in every family.
     """
     dev = device_mod.resolve(device)
     if batch < 1 or max_len < 1:
@@ -213,14 +214,21 @@ def build_serve(cfg: ModelConfig, batch: int, max_len: int,
         raise ValueError(f"prefill_len {prefill_len} must be in [1, "
                          f"max_len {max_len}]")
 
-    def prefill_fn(params, tokens):
-        want = (batch, prefill_len or tokens.shape[-1])
-        if tuple(tokens.shape) != want:
-            raise ValueError(f"prefill tokens {tuple(tokens.shape)}, want "
+    by_tokens = registry.uses_token_inputs(cfg)
+
+    def prefill_fn(params, inputs):
+        if by_tokens:
+            what, want = "tokens", (batch, prefill_len or inputs.shape[-1])
+        else:
+            what = "embeddings"
+            want = (batch, prefill_len or inputs.shape[1], cfg.d_model)
+        if tuple(inputs.shape) != want:
+            raise ValueError(f"prefill {what} {tuple(inputs.shape)}, want "
                              f"{want}")
+        key = "tokens" if by_tokens else "embeds"
         with torch.inference_mode():
-            return registry.prefill(params, cfg, tokens.to(dev),
-                                    max_len=max_len)
+            return registry.prefill(params, cfg, max_len=max_len,
+                                    **{key: inputs.to(dev)})
 
     def decode_fn(params, cache, tokens):
         with torch.inference_mode():

@@ -45,11 +45,13 @@ class TrainConfig:
 
 def make_loss_fn(cfg: ModelConfig, tc: TrainConfig):
     """``loss_fn(params, batch) -> (loss, {"ce", "aux"})`` for one
-    microbatch: ``batch["tokens"]`` and ``batch["labels"]`` (B, S)."""
+    microbatch: ``batch["labels"]`` (B, S) and ``batch["tokens"]`` (B, S)
+    or, for a stubbed front end, ``batch["embeds"]`` (B, S, d_model)
+    (``src/repro/train/trainer.py:37-45``)."""
     def loss_fn(params, batch):
-        if "embeds" in batch:
-            raise NotImplementedError("embeds inputs are not yet ported")
-        logits, aux = registry.forward(params, cfg, batch["tokens"])
+        logits, aux = registry.forward(params, cfg,
+                                       tokens=batch.get("tokens"),
+                                       embeds=batch.get("embeds"))
         ce = L.cross_entropy(logits, batch["labels"].to(logits.device),
                              z_loss=tc.z_loss).mean()
         return ce + tc.aux_weight * aux, {"ce": ce, "aux": aux}

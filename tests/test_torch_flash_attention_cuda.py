@@ -1,4 +1,5 @@
-"""The CUDA flash forward and backward at head dims above 128 against their
+"""The CUDA flash forward and backward at head dims above 128, and at the
+audio and VLM families' groups (G 1 at D 64, G 8 at D 128), against their
 plain versions on the card: the edges of the bf16 tensor-core kernels' D
 256 tiles (64 queries a block, 16 a warp, 32 keys a forward step, 16 a dQ
 step; 64 keys and one query head a dK/dV block, 64 queries a step, the G
@@ -32,10 +33,14 @@ def _chip_smoke():
 
 
 cs = _chip_smoke()       # its bounds and the D 256 tile's edge cases
-D256_EDGES = [pytest.param(*case, id=f"d{case[5]}_sq{case[1]}_sk{case[2]}_"
-                           f"h{case[3]}_k{case[4]}_w{case[6]}_"
-                           f"{'causal' if case[7] else 'full'}")
+_case_id = (lambda case: f"d{case[5]}_sq{case[1]}_sk{case[2]}_h{case[3]}_"
+            f"k{case[4]}_w{case[6]}_{'causal' if case[7] else 'full'}")
+D256_EDGES = [pytest.param(*case, id=_case_id(case))
               for case in cs.FLASH256_EDGES]
+# the audio and VLM families' groups: G 1 at D 64, G 8 at D 128
+G_EDGES = [pytest.param(b, s, s, h, k, d, w, c, id=_case_id((b, s, s, h, k, d,
+                                                              w, c)))
+           for b, s, _, h, k, d, w, c in cs.FLASH_G_EDGES]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -76,6 +81,27 @@ def test_cuda_forward_d256_edges_match_plain(card, b, sq, sk, h, k, d, win,
     again = kernel.flash_attention_fwd_cuda(q, kk, vv, causal=causal,
                                             window=win)
     assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,k,d,win,causal", G_EDGES)
+def test_cuda_group_edges_match_plain(card, b, sq, sk, h, k, d, win, causal,
+                                      dtype):
+    """Forward and backward at G 1 (every query head its own KV head: the
+    dK/dV kernel's sum over a group is one head) and at G 8 with D 128,
+    against the plain versions (``flash_check``); bf16 forwards on the
+    tensor-core kernel; two calls of each give the same bits."""
+    q, kk, vv = _qkv(b, sq, sk, h, k, d, dtype)
+    do = _qkv(b, sq, sq, h, h, d, dtype, seed=12)[0]
+    mma0 = kernel.launches_fwd_mma
+    cs.flash_check(torch, kernel, ref, q, kk, vv, do, causal, win, dtype)
+    assert kernel.launches_fwd_mma - mma0 == (dtype == "bfloat16")
+    (o, lse), again = (kernel.flash_attention_fwd_cuda(
+        q, kk, vv, causal=causal, window=win) for _ in range(2))
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    first, second = (kernel.flash_attention_bwd_cuda(
+        q, kk, vv, o, lse, do, causal=causal, window=win) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def test_cuda_forward_d256_route(card):

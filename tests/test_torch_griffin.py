@@ -307,15 +307,22 @@ def test_prefill_scans_and_attends_once_per_layer_and_decode_never():
 
 
 def test_other_families_raise_on_the_serve_path():
-    for arch, item in (("musicgen_large", "embeds inputs"),):
+    """Every family is on the serve driver now: the audio and VLM stubs
+    prefill from embeddings (``tests/test_torch_embeds.py`` holds them to
+    the JAX package) and decode tokens; nothing raises. The hybrid family
+    has no paged decode."""
+    from repro_torch.sharding.params import init_tree
+    for arch in ("musicgen_large", "internvl2_76b"):
         cfg = configs.smoke(arch)
-        with pytest.raises(NotImplementedError, match=item):
-            registry.prefill({}, cfg, torch.zeros((1, 4), dtype=torch.long))
-        with pytest.raises(NotImplementedError, match=item):
-            registry.decode_step({}, cfg, None,
-                                 torch.zeros((1, 1), dtype=torch.long))
-        with pytest.raises(NotImplementedError, match=item):
-            registry.cache_init(cfg, 1, 8, device="cpu")
+        params = init_tree(registry.decls(cfg), 0, "cpu")
+        logits, cache = registry.prefill(params, cfg,
+                                         embeds=torch.zeros(1, 4, cfg.d_model),
+                                         max_len=8)
+        assert tuple(logits.shape) == (1, cfg.padded_vocab)
+        logits, cache = registry.decode_step(
+            params, cfg, cache, torch.zeros((1, 1), dtype=torch.long))
+        assert int(cache.pos) == 5 and torch.isfinite(logits).all()
+        assert registry.cache_init(cfg, 1, 8, device="cpu").k.shape[2] == 8
     assert not registry.supports_paged(configs.smoke(ARCH))
 
 

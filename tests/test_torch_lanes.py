@@ -438,7 +438,9 @@ def test_lane_moe_drops_no_slot_where_batched_routing_does():
     (E, 16, d) buffer) drops none and equals ``layers.moe`` on each lane
     alone, the dense oracle, and the reference's ``layers.moe`` under
     ``vmap`` over the lanes."""
-    from repro_torch.kernels.moe import ops as moe_ops
+    import dataclasses
+
+    from repro_torch.core.xaif import REGISTRY
     from repro_torch.sharding.params import init_tree
     e, k, d, f, b = 8, 2, 16, 32, 16
     decls = L.moe_decls(d, f, e)
@@ -453,17 +455,20 @@ def test_lane_moe_drops_no_slot_where_batched_routing_does():
     assert L.capacity(b, k, 1.25, e) == 8 and L.capacity(1, k, 1.25, e) == 1
 
     calls = []
-    real = moe_ops.moe_ffn
+    # the models reach the expert FFN through the XAIF registry: count the
+    # calls of the accelerator registered there
+    spec = REGISTRY.get("moe_ffn", "cuda")
 
     def counted(xg, *a, **kw2):
         calls.append(tuple(xg.shape))
-        return real(xg, *a, **kw2)
+        return spec.fn(xg, *a, **kw2)
 
-    moe_ops.moe_ffn = counted
+    REGISTRY.register(dataclasses.replace(spec, fn=counted),
+                      allow_override=True)
     try:
         lanes = L.moe_lanes(x, p, **kw)
     finally:
-        moe_ops.moe_ffn = real
+        REGISTRY.register(spec, allow_override=True)
     assert calls == [(e, b, d)]
     batched, _ = L.moe(x, p, **kw)
     alone = torch.cat([L.moe(x[i:i + 1], p, **kw)[0] for i in range(b)])

@@ -391,7 +391,9 @@ def _griffin_in_float64():
     with mock.patch.object(griffin, "BF16", f64), \
             mock.patch.object(griffin, "F32", f64), \
             mock.patch.object(L, "F32", f64), \
-            mock.patch.object(griffin, "linear_scan", rglru_ref.rglru):
+            mock.patch.object(griffin, "linear_scan",
+                              lambda a, b, h0=None, impl=None:
+                              rglru_ref.rglru(a, b, h0)):
         yield
 
 

@@ -218,16 +218,22 @@ def test_remat_full_gives_the_same_logits_and_grads():
 
 
 def test_unported_paths_raise():
-    """Embeds inputs, the audio family and MoE training still raise (remat
-    "dots" is ported: tests/test_torch_train_recurrent.py holds it)."""
+    """MoE training still raises. Embeds inputs and the audio family train
+    (``tests/test_torch_embeds.py`` holds them to the JAX package); passing
+    tokens and embeds together raises (remat "dots" is ported:
+    tests/test_torch_train_recurrent.py holds it)."""
     _, cfg, _, params = _models("granite_3_2b", "float32")
     tokens = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="MoE training"):
         registry.forward(params, configs.smoke("grok_1_314b"), tokens)
-    with pytest.raises(NotImplementedError, match="embeds"):
+    logits, _ = registry.forward(params, cfg, embeds=torch.zeros(1, 4, 64))
+    assert tuple(logits.shape) == (1, 4, cfg.padded_vocab)
+    with pytest.raises(ValueError, match="exactly one"):
         registry.forward(params, cfg, tokens, embeds=torch.zeros(1, 4, 64))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.forward(params, configs.smoke("musicgen_large"), tokens)
+    _, audio, _, audio_params = _models("musicgen_large", "float32")
+    logits, _ = registry.forward(audio_params, audio,
+                                 embeds=torch.zeros(1, 4, audio.d_model))
+    assert torch.isfinite(logits).all()
 
 
 # ---------------------------------------------------------------------------

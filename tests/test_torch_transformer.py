@@ -104,9 +104,17 @@ def test_teacher_forced_logits_match_jax(arch, dtype):
 
 
 def test_unported_families_raise():
+    """Every family is ported: the VLM family's declarations (the last to
+    come) are the transformer's, at the reference's parameter count; an
+    unknown family raises."""
     for arch in ("internvl2_76b",):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            registry.decls(configs.smoke(arch))
+        decls = registry.decls(configs.smoke(arch))
+        assert set(decls) == {"embed", "blocks", "ln_f", "head"}
+        assert configs.get(arch).param_count() == \
+            jconfigs.get(arch).param_count()
+    bad = dataclasses.replace(configs.smoke("granite_3_2b"), family="vision")
+    with pytest.raises(ValueError, match="unknown family"):
+        registry.decls(bad)
 
 
 def test_full_width_granite_param_count():
