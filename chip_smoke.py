@@ -329,12 +329,26 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
 36. dispatch phase: a probe accelerator registered under a new impl key
     (``probe_accelerators``) reached by the smoke engine with
     ``attn_impl`` set to it, every paged call through it, tokens bit for
-    bit the ``"cuda"`` run's.
+    bit the ``"cuda"`` run's;
+37. tp phase: full-width granite-3-2b served tensor-parallel on meshes
+    that repeat the card (its machine has one), the serve phase's trace
+    at tp 2 and 4 sync (tp 1 is the serve phase's run), and a replica
+    group of 2 x tp 2 async engines behind one cluster target whose home
+    member is drained mid-flight: paged launches == layers x tp x
+    one-token steps, each shard's arena 1/tp of tp 1's bytes, the
+    merge's counters zero after every step, the meter conserving, tokens
+    bit for bit tp 1's, async equal to sync, every paged call of the
+    group run held to the plain version at the shard's shape, the drained
+    member's namespace evicted; decode step, tokens/s and peak memory at
+    each tp, a fixed one-token step at tp 1, 2 and 4 in turns with its
+    launches, and the kernel at the shard shapes against its bound and
+    SDPA.
 
 Prints a ``{"kernels": [...]}`` JSON line (eleven entries; paged
 attention's launches are those of the greedy serve run, the vlm engine
-run, the window and cluster phases' main runs and the three sampled
-engine runs, the D <= 128 flash forward's and backward's those of the two
+run, the window and cluster phases' main runs, the three sampled
+engine runs and the tp phase's three runs, its ``by_shape`` the VLM and
+tp shard shapes' timings, the D <= 128 flash forward's and backward's those of the two
 train phases and (forward) the embeds serve runs, the grouped
 matmul's those of the serve driver and the lane engine's greedy and mixed
 runs, the RG-LRU scan's, the D 256 flash forward's and the SSD's those of
@@ -862,8 +876,9 @@ def teacher_force(torch, registry, cfg, params, seq, page_size, device):
 
 
 def serve_phase(torch, np, kernel, ref, card: str):
-    """Returns the kernel's launches on the greedy path and the greedy
-    run's completions by id."""
+    """Returns the kernel's launches on the greedy path, the greedy run's
+    completions by id, and the main run's numbers for the tp phase (its
+    tp 1 run): tokens, decode step ms, tokens/s, peak GB, arena bytes."""
     from repro_torch import configs
     from repro_torch.models import registry
     from repro_torch.serve.engine import ContinuousBatchingEngine, Request
@@ -1010,7 +1025,10 @@ def serve_phase(torch, np, kernel, ref, card: str):
           f"vs plain path: {fmt(logits[:16] - plain)}; plain vs plain with "
           f"its attention output perturbed by 2^-9: {fmt(noisy - plain)}")
     profile_phase(torch, np, cfg, params, card)
-    return launches, greedy
+    return launches, greedy, {
+        "tokens": greedy, "ms": statistics.median(decode_ms),
+        "tok_s": stats["tokens_generated"] / wall, "peak_gb": peak_gb,
+        "arena": engine._pool.bytes_by_device()}
 
 
 def dev_us(event) -> float:
@@ -1133,12 +1151,18 @@ def mixed_sampling(i: int):
                           MIXED["top_p"], MIXED["seed"] + i)
 
 
-def meter_conserves(engine) -> None:
-    en = engine.stats()["energy"]
-    per_request = sum(r.energy_uj for r in engine.completed)
-    assert abs(en["total_uj"] - (en["attributed_uj"] + en["overhead_uj"])) \
-        <= 1e-9 * en["total_uj"], en
-    assert abs(en["attributed_uj"] - per_request) <= 1e-9 * per_request, en
+def meter_conserves(*engines) -> None:
+    """Each engine's meter total is its attributed plus overhead joules,
+    and the engines' attributed joules sum to their completed requests'
+    ``energy_uj`` (a request migrated between engines carries what each
+    charged it)."""
+    ens = [e.stats()["energy"] for e in engines]
+    for en in ens:
+        assert abs(en["total_uj"] - (en["attributed_uj"] + en["overhead_uj"])) \
+            <= 1e-9 * en["total_uj"], en
+    attributed = sum(en["attributed_uj"] for en in ens)
+    per_request = sum(r.energy_uj for e in engines for r in e.completed)
+    assert abs(attributed - per_request) <= 1e-9 * per_request, ens
 
 
 def chain_key(chains: dict, seed: int, n: int):
@@ -5875,6 +5899,257 @@ def dispatch_phase(torch, np, kernel, card: str) -> None:
           f"tokens bit for bit the 'cuda' run's")
 
 
+TP_DEGREES = (1, 2, 4)
+TP_SHARDS = ((8, 16, 4, 64), (8, 8, 2, 64))   # B, H/tp, Kh/tp, D at tp 2, 4
+TP_DRAIN_AT = 16         # tokens generated when the group's home drains
+TP_TURNS = (1, 2, 4, 4, 2, 1)                  # tp of the timed step, in turns
+
+
+def lazy_checked(torch, kernel, ref, acc: dict):
+    """A stand-in for the paged attention op (:func:`set_cuda`) that
+    launches the kernel and holds each call to the plain version on its
+    own inputs at :func:`close_scaled`'s bf16 bound, keeping the verdict
+    and the largest error on the device (no wait a call): ``acc`` gains
+    ``ok``, ``err``, ``calls`` and the calls' (q, page) ``shapes``."""
+    tol = TOL["bfloat16"]
+    acc.update(ok=torch.ones((), dtype=torch.bool, device="cuda"),
+               err=torch.zeros((), device="cuda"), calls=0, shapes=set())
+
+    def checked(q, k_pool, v_pool, tables, lengths, *, window=None):
+        got = kernel.paged_attention_cuda(q, k_pool, v_pool, tables, lengths,
+                                          window=window)
+        want = ref.paged_attention(q, k_pool, v_pool, tables, lengths,
+                                   window=window).float()
+        err = (got.float() - want).abs()
+        scale = want.square().mean().sqrt().clamp(max=1.0)
+        acc["ok"] &= (err <= tol * scale + tol * want.abs()).all()
+        acc["err"] = torch.maximum(acc["err"], err.max())
+        acc["calls"] += 1
+        acc["shapes"].add((tuple(q.shape), tuple(k_pool.shape[1:])))
+        return got
+    return checked
+
+
+def tp_steps(torch, np, cfg, params, meshes: dict, card: str) -> dict:
+    """:func:`profile_phase`'s one-token step (8 lanes at 100 positions,
+    greedy) at each tp: ms a step (host clock, tokens on the host; median
+    of 10) in the turns ``TP_TURNS``, then kernel launches a step under
+    ``torch.profiler`` (None when it reports no launch this late in the
+    process)."""
+    from repro_torch.models import registry
+    from repro_torch.serve import paged, sampling
+
+    args = (np.arange(80, dtype=np.int32).reshape(8, 10),
+            np.full((8,), 100, np.int32), np.arange(8, dtype=np.int32), None,
+            None, np.ones((8,), bool), np.ones((8,), bool),
+            sampling.zero_keys(8), np.zeros((8,), np.float32),
+            np.zeros((8,), np.int32), np.ones((8,), np.float32))
+    calls = {}
+    for tp, mesh in meshes.items():
+        step = paged.paged_step_fn(cfg, None, mesh)
+        if mesh is None:
+            shards, (pool_k, pool_v) = params, registry.paged_pool_init(
+                cfg, 81, 16, device="cuda")
+        else:
+            shards = paged.place_params(cfg, params, mesh)
+            pools = [registry.paged_pool_init(cfg, 81, 16, device=d, tp=tp)
+                     for d in paged.shard_devices(mesh)]
+            pool_k, pool_v = [k for k, _ in pools], [v for _, v in pools]
+        calls[tp] = (lambda st=step, p=shards, k=pool_k, v=pool_v:
+                     st(p, k, v, *args)[0].cpu())
+        for _ in range(3):
+            calls[tp]()
+    ms = {tp: [] for tp in meshes}
+    for tp in TP_TURNS:
+        for _ in range(5):
+            t0 = time.perf_counter()
+            calls[tp]()
+            ms[tp].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for tp in meshes:
+        _, busy_ms, launches, _ = device_profile(torch, calls[tp], 2)
+        out[tp] = {"ms": statistics.median(ms[tp]),
+                   "launches": launches or None, "busy_ms": busy_ms}
+    print(f"tp one-token step on {card}, 8 lanes x 100 positions, in turns "
+          f"{TP_TURNS}: " + "; ".join(
+              f"tp {tp} {out[tp]['ms']:.3f} ms (median of 10), "
+              + (f"{out[tp]['launches']:.0f} launches, device busy "
+                 f"{out[tp]['busy_ms']:.3f} ms under the profiler"
+                 if out[tp]["launches"] else
+                 "launches not measured (the profiler reported none)")
+              for tp in meshes), flush=True)
+    return out
+
+
+def tp_phase(torch, np, kernel, ref, serve1: dict, card: str) -> dict:
+    """Full-width, full-depth granite-3-2b served tensor-parallel by
+    ``ContinuousBatchingEngine`` on meshes that repeat the card (its
+    machine has one): the serve phase's trace (16 requests of a shared
+    64-token prompt, 32 greedy tokens each, 8 slots, 16-token pages, chunk
+    16, metered) at tp 2 and 4 sync, and a replica group of 2 x tp 2 async
+    engines behind one cluster target whose home member is drained
+    mid-flight. ``serve1`` is the serve phase's run, the tp 1 run of this
+    trace (its tokens, decode step, tokens/s, peak memory and arena bytes).
+
+    Checks: tokens equal tp 1's bit for bit (the card gives that; else the
+    phase fails); paged launches == layers x tp x one-token steps; each
+    shard's arena 1/tp of tp 1's bytes; the merge's counters zero after
+    every step (a sync run's and, after a synchronise, the async group's);
+    the meters conserve; the group (async) equal to tp 2 sync, both
+    members served, the drained member's namespace evicted; every paged
+    call of the group run held to the plain version at the shard's shape
+    (tp 4's shard shape is held by the kernel's timing below and
+    ``tests/test_torch_paged_attention_cuda.py``). Prints decode step,
+    tokens/s and peak memory at each tp, a fixed one-token step at tp 1, 2
+    and 4 in turns with its launches, and times the kernel at the shard
+    shapes (``TP_SHARDS``) from a CUDA graph against its bound and SDPA.
+    Returns the paged launches by path and the shard shapes' timings."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import replica_meshes, serve_tp_mesh
+    from repro_torch.models import registry
+    from repro_torch.serve import paged
+    from repro_torch.serve.cluster import ServeCluster
+    from repro_torch.serve.engine import ContinuousBatchingEngine, Request
+    from repro_torch.sharding.params import init_tree
+
+    t_phase = time.perf_counter()
+    cfg = configs.get("granite_3_2b")
+    params = init_tree(registry.decls(cfg), SEED, "cuda",
+                       dtype=torch.bfloat16)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    meshes = {tp: serve_tp_mesh(tp, [dev] * tp) if tp > 1 else None
+              for tp in TP_DEGREES}
+    page_size, trace, d = 16, serve_trace(np), cfg.resolved_head_dim
+    want_tokens, whole = serve1["tokens"], serve1["arena"][str(dev)]
+
+    def counters_zero():
+        torch.cuda.synchronize()
+        c = kernel.counter_buffer(dev)
+        assert c is None or not bool(c.any()), "merge counters left set"
+
+    runs, by_path = {1: serve1}, {}
+    for tp in TP_DEGREES[1:]:
+        torch.cuda.reset_peak_memory_stats()
+        kernel.launches = 0
+        engine = ContinuousBatchingEngine(
+            cfg, params, slots=8, max_len=160, device="cuda",
+            page_size=page_size, prefill_chunk=16, mesh=meshes[tp])
+        for rid, prompt, n_new in trace:
+            assert engine.submit(Request(rid, prompt, n_new))
+        decode_ms, busy = [], 0.0
+        while True:
+            before = engine.token_steps
+            ts = time.perf_counter()
+            if not engine.step():
+                break
+            dt = time.perf_counter() - ts
+            busy += dt
+            if engine.token_steps - before == 1:
+                decode_ms.append(dt * 1e3)
+            counters_zero()                  # outside the timed window
+        meter_conserves(engine)
+        launches, st = kernel.launches, engine.stats()
+        assert st["tp"] == tp and len(engine.completed) == 16
+        want = cfg.n_layers * tp * st["token_steps"]
+        assert launches == want, f"tp {tp}: {launches} launches != {want}"
+        tokens = {r.id: r.tokens for r in engine.completed}
+        assert tokens == want_tokens, f"tp {tp} tokens differ from tp 1's"
+        arena = engine._pool.bytes_by_device()
+        assert arena == {f"{dev}#{i}": whole // tp for i in range(tp)}, arena
+        by_path[f"tp engine, tp {tp}, sync"] = launches
+        runs[tp] = {"ms": statistics.median(decode_ms),
+                    "tok_s": st["tokens_generated"] / busy,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"tp engine, tp {tp}, sync on {card}: decode step "
+              f"{runs[tp]['ms']:.3f} ms (median of {len(decode_ms)} "
+              f"decode-only steps), {runs[tp]['tok_s']:.1f} tokens/s, "
+              f"{launches} paged launches = {cfg.n_layers} layers x {tp} "
+              f"shards x {st['token_steps']} one-token steps, peak memory "
+              f"{runs[tp]['peak_gb']:.2f} GB; tokens bit for bit tp 1's, "
+              f"all 16 requests; KV arena {arena} (tp 1: {whole} B); merge "
+              f"counters zero after every step; meter conserves", flush=True)
+        del engine
+
+    # a replica group of 2 x tp 2 async engines behind one target, its
+    # home drained mid-flight; every paged call held to the plain version
+    cl = ServeCluster(pool_pages=512, page_size=page_size, device="cuda")
+    members = cl.add_replica_group(
+        cfg, params, name="granite", slots=8, max_len=160, prefill_chunk=16,
+        async_dispatch=True, meshes=replica_meshes(2, 2, [dev] * 4))
+    for rid, prompt, n_new in trace:
+        assert cl.submit("granite", Request(rid, prompt, n_new))
+    engines = dict(cl.engines)
+    acc: dict = {}
+    kernel.launches = 0
+    with on_cuda("paged_attention", lazy_checked(torch, kernel, ref, acc)):
+        rounds = 0
+        while sum(e.tokens_generated
+                  for e in engines.values()) < TP_DRAIN_AT:
+            assert cl.step()
+            counters_zero()
+            rounds += 1
+        served = {m: engines[m].tokens_generated for m in members}
+        home = max(members, key=served.get)
+        ns = f"{cfg.name}@r{members.index(home)}"
+        assert cl.table.resident_by_ns().get(ns, 0) > 0
+        moved = cl.drain_replica("granite", home)
+        assert home not in cl.engines and cl.migrations > 0, moved
+        while cl.step():
+            counters_zero()
+    launches = kernel.launches
+    assert bool(acc["ok"]), f"a paged call off the plain version: {acc}"
+    assert acc["shapes"] == {((8, cfg.n_heads // 2, d),
+                              (page_size, cfg.n_kv_heads // 2, d))}, acc
+    meter_conserves(*engines.values())
+    toks = {r.id: r.tokens for e in engines.values() for r in e.completed}
+    assert toks == want_tokens, "the group differs from tp 1 and tp 2"
+    after = {m: engines[m].tokens_generated - served[m] for m in members}
+    assert served[home] > 0 and all(
+        after[m] > 0 for m in members if m != home), (served, after)
+    assert cl.table.resident_by_ns().get(ns, 0) == 0, \
+        cl.table.resident_by_ns()
+    steps = sum(e.token_steps for e in engines.values())
+    assert launches == acc["calls"] == cfg.n_layers * 2 * steps, \
+        (launches, acc["calls"], steps)
+    by_path["tp engine, replica group 2 x tp 2, async, drained"] = launches
+    print(f"replica group {members} of tp 2 async engines on {card}: every "
+          f"request routed to {home} by its first page, {served[home]} "
+          f"tokens there before the drain after {rounds} cluster steps, "
+          f"{sum(len(v) for v in moved.values())} requests migrated "
+          f"({cl.migrations} journal records), the survivor served "
+          f"{sum(after.values())} tokens; tokens equal tp 2 sync's (async "
+          f"== sync) and tp 1's; the drained member's namespace evicted; "
+          f"{launches} paged launches = {cfg.n_layers} x 2 x {steps}, each "
+          f"held to the plain version at q (8, {cfg.n_heads // 2}, {d}): max "
+          f"abs err {acc['err'].item():.3e} (close_scaled at "
+          f"{TOL['bfloat16']}); merge counters zero after every step",
+          flush=True)
+    del cl, engines
+
+    steps = tp_steps(torch, np, cfg, params, meshes, card)
+    paged.clear_placed()
+    del params
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    shapes = {}
+    for tp, (b, h, kh, dh) in zip(TP_DEGREES[1:], TP_SHARDS):
+        t = timing(torch, gen, kernel, ref, b, h, kh, dh, 160, page_size)
+        shapes[f"granite-3-2b tp {tp} shard ({b}, {h}, {kh}, {dh}), max_len "
+               f"160"] = {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms",
+                                            "max_abs_err")}
+    print(f"tp on {card} (the engine's tp 1 run is the serve phase's): "
+          + "; ".join(
+              f"tp {tp} decode step {runs[tp]['ms']:.3f} ms, "
+              f"{runs[tp]['tok_s']:.1f} tokens/s, peak "
+              f"{runs[tp]['peak_gb']:.2f} GB, one-token step "
+              f"{steps[tp]['ms']:.3f} ms, {cfg.n_layers * tp} paged launches "
+              f"a step" for tp in TP_DEGREES)
+          + f"; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"by_path": by_path, "by_shape": shapes}
+
+
 def argmax_tie(torch) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -5932,7 +6207,7 @@ def main() -> int:
     build_all(kernel, fkernel, rkernel, skernel, ckernel, gkernel)
 
     paged = kernel_phase(torch, kernel, ref)
-    launched, greedy = serve_phase(torch, np, kernel, ref, card)
+    launched, greedy, serve1 = serve_phase(torch, np, kernel, ref, card)
     small_reference_phase(torch, np)
     argmax_tie(torch)
     torch.cuda.empty_cache()
@@ -6020,6 +6295,9 @@ def main() -> int:
     del vlm_params
     torch.cuda.empty_cache()
     dispatch_phase(torch, np, kernel, card)
+    torch.cuda.empty_cache()
+    tp = tp_phase(torch, np, kernel, ref, serve1, card)
+    by_path.update(tp["by_path"])
     # the D <= 128 flash kernels' main paths: training (tokens and
     # embeddings) and the serve driver's prefill from embeddings
     fwd["launches_by_path"] = {
@@ -6043,7 +6321,7 @@ def main() -> int:
     paged["by_shape"] = {"internvl2-76b decode (8, 64, 8, 128), max_len 160":
                          {k: vlm["timing"][k] for k in (
                              "ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms", "max_abs_err")}}
+                             "library_ms", "max_abs_err")}, **tp["by_shape"]}
     paged["launches"] = sum(by_path.values())
     paged["launches_by_path"] = by_path
     torch.cuda.empty_cache()

@@ -16,8 +16,8 @@ axes (§III-A):
 * ``peripherals`` — optional subsystems (data pipeline stages, loggers).
 
 An accelerator registered through XAIF can override the backend for its op,
-and its power domain joins the platform power manager. The sharding rules
-(:meth:`Platform.rules`) wait for the port's tensor-parallelism slice.
+and its power domain joins the platform power manager. The bus and the
+addressing mode pick the sharding rules (:meth:`Platform.rules`).
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from typing import Mapping, Sequence
 
 from repro_torch.core import xaif
 from repro_torch.core.power import PowerDomain, PowerManager
+from repro_torch.sharding import axes as lax_
+from repro_torch.sharding import rules as rules_lib
 
 CORE_BACKEND = {
     "cv32e20": "ref",       # control-oriented core -> reference path
@@ -37,10 +39,6 @@ CORE_BACKEND = {
 BUSES = ("one_at_a_time", "fully_connected")
 ADDRESSING = ("contiguous", "interleaved")
 DEFAULT_PERIPHERALS = ("uart", "spi", "gpio", "timer", "dma", "plic")
-
-# the ROADMAP.md item ("Still to port") that brings the sharding rules
-_RULES_ITEM = "tensor parallelism"
-
 
 @dataclasses.dataclass(frozen=True)
 class XHeepConfig:
@@ -148,10 +146,14 @@ class Platform:
         return self.registry.dispatch(op, self.impl_for(op), *args, **kwargs)
 
     # -- sharding rules (bus topology + addressing mode) ----------------------
-    def rules(self, mesh):
-        """The bus preset's sharding rules on ``mesh``
-        (``src/repro/core/platform.py:146-154``). Not yet ported: raises
-        ``NotImplementedError`` naming the ROADMAP.md item that brings it."""
-        raise NotImplementedError(
-            f"Platform.rules: not yet ported (ROADMAP.md, "
-            f"{_RULES_ITEM!r})")
+    def rules(self, mesh) -> rules_lib.Rules:
+        """The bus preset's sharding rules on ``mesh``; interleaved
+        addressing on the fully connected bus adds sequence parallelism."""
+        preset = rules_lib.PRESETS[self.config.bus](mesh)
+        if self.config.addressing == "interleaved" and self.config.bus == "fully_connected":
+            # Interleaved addressing stripes sequences across banks for
+            # bandwidth (paper §III-A3) == sequence parallelism on activations.
+            preset = preset.override(
+                name=f"{preset.name}+interleaved", **{lax_.SEQ: ("data",)}
+            )
+        return preset

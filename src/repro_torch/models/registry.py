@@ -179,15 +179,19 @@ def _require_paged(cfg: ModelConfig) -> None:
 
 
 def paged_pool_init(cfg: ModelConfig, n_pages: int, page_size: int,
-                    device=None):
-    """Zeroed bf16 (k, v) page pool of (L, n_pages, page_size, Kh, Dh)."""
+                    device=None, tp: int = 1):
+    """Zeroed bf16 (k, v) page pool of (L, n_pages, page_size, Kh/tp, Dh)
+    (``tp`` > 1: one tensor-parallel shard's)."""
     _require_paged(cfg)
-    return transformer.paged_pool_init(cfg, n_pages, page_size, device=device)
+    return transformer.paged_pool_init(cfg, n_pages, page_size, device=device,
+                                       tp=tp)
 
 
 def decode_step_paged(params, cfg: ModelConfig, pool_k, pool_v, tables,
                       lengths, tokens, append_mask=None, window=None):
-    """One paged decode step; see :func:`transformer.decode_step_paged`."""
+    """One paged decode step; see :func:`transformer.decode_step_paged`
+    (with a mesh, ``params`` and the pools are lists of shards, in mesh
+    order)."""
     _require_paged(cfg)
     return transformer.decode_step_paged(params, cfg, pool_k, pool_v, tables,
                                          lengths, tokens,

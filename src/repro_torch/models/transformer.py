@@ -5,8 +5,8 @@ Port of ``src/repro/models/transformer.py`` (``decls`` with dense and MoE
 superblocks, ``forward`` for the dense family, ``KVCache``, ``prefill`` and
 ``decode_step`` for the dense and MoE families, ``remat`` (the training
 forward's remat point, shared with griffin and mamba2), ``supports_paged``,
-``paged_pool_init``, ``decode_step_paged`` without tensor parallelism, and
-the helpers they use). The parameter tree keeps the reference's stacked
+``paged_pool_init``, ``decode_step_paged`` on one device or head-sharded
+over a mesh (tensor parallelism), and the helpers they use). The parameter tree keeps the reference's stacked
 layout, so weights map one to one: ``blocks[...]["l{j}"]`` with a leading
 ``n_super`` axis (``moe_interleave`` layers a superblock, the last one MoE),
 ``wq (d,h,hd)``, ``wk/wv (d,k,hd)``, ``wo (h,hd,d)``, the experts'
@@ -519,14 +519,17 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 
 def paged_pool_init(cfg: ModelConfig, n_pages: int, page_size: int,
-                    dtype=torch.bfloat16, device=None):
-    """Zeroed global KV page pool: a (k, v) pair of (L, P, ps, Kh, Dh).
+                    dtype=torch.bfloat16, device=None, tp: int = 1):
+    """Zeroed global KV page pool: a (k, v) pair of (L, P, ps, Kh, Dh), or
+    with ``tp`` one shard's pool, Kh/tp heads of every page.
 
     ``n_pages`` includes any null/sentinel pages the caller reserves.
     ``device=None`` is the card (raises without one).
     """
+    if cfg.n_kv_heads % tp:
+        raise ValueError(f"n_kv_heads {cfg.n_kv_heads} % tp {tp} != 0")
     dev = device_mod.resolve(device)
-    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
+    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads // tp,
              cfg.resolved_head_dim)
     return (torch.zeros(shape, dtype=dtype, device=dev),
             torch.zeros(shape, dtype=dtype, device=dev))
@@ -544,7 +547,7 @@ def decode_step_paged(params, cfg: ModelConfig, pool_k, pool_v, tables,
     its logits are garbage and must be ignored); pass it on the CPU, since
     the lanes it selects are read on the host. Returns ``(logits (B, V),
     pool_k, pool_v)``: the pools are written **in place** and returned as
-    the same tensors.
+    the same objects.
 
     ``window`` (default ``cfg.sliding_window``) reads the tables as rings
     and attends over the last ``window`` positions. Every attention call
@@ -552,40 +555,78 @@ def decode_step_paged(params, cfg: ModelConfig, pool_k, pool_v, tables,
     (``"cuda"``: :func:`repro_torch.kernels.paged_attention.ops.
     paged_attention`, the CUDA kernel on the card, its plain version on
     the CPU).
+
+    **Tensor parallelism** (the reference's ``tp_axis``,
+    ``src/repro/models/transformer.py:336-364``): ``params`` is the list of
+    per-shard trees and ``pool_k``/``pool_v`` the lists of the shards'
+    arenas (L, P, ps, Kh/tp, Dh), in mesh order, as
+    :func:`repro_torch.serve.paged.place_params` and
+    :meth:`repro_torch.serve.paged.PagePool.arena` lay them out. Shard
+    ``s`` runs on its arena's device: it projects q/k/v with its
+    contiguous slice of the heads of wq/wk/wv, writes its arena's tail
+    rows and calls the paged kernel on (B, H/tp, Dh) queries against
+    (., Kh/tp, Dh) pages. The heads are then gathered in mesh order on
+    each distinct device of the mesh (the reference's all-gather, as
+    copies and ``torch.cat``), and the tail (wo and the MLP) runs once per
+    distinct device, not once per shard; ``ln_f`` and ``lm_head`` run on
+    the first shard's device, which returns the logits. Each query head
+    attends only to its own KV head, so the gathered block is the
+    one-device block, and G = H/Kh is the same at every tp.
     """
     if window is None:
         window = cfg.sliding_window
-    dev = pool_k.device
-    tables = tables.to(dev, torch.int32)
-    lengths = lengths.to(dev, torch.int32)
-    tokens = tokens.to(dev)
-    positions = lengths[:, None]
-    x = _embed(params, cfg, tokens[:, None], positions)
-    rope_cs = _rope(cfg, positions)
-    # the tail rows are the same for every layer: select the lanes once
-    rows = paged_ref.tail_rows(tables, lengths, pool_k.shape[2], append_mask)
-    attend_len = lengths + 1
+    sharded = isinstance(params, (list, tuple))
+    shards = list(params) if sharded else [params]
+    pks = list(pool_k) if sharded else [pool_k]
+    pvs = list(pool_v) if sharded else [pool_v]
+    if not len(shards) == len(pks) == len(pvs):
+        raise ValueError(f"{len(shards)} param shards for {len(pks)} / "
+                         f"{len(pvs)} arena shards")
+    devs = [pk.device for pk in pks]
+    # one residual stream, and one copy of the step's inputs, a distinct
+    # device; the tail rows are the same for every layer: selected once
+    x, ctx = {}, {}
+    for shard, pk, dev in zip(shards, pks, devs):
+        if dev in ctx:
+            continue
+        tab = tables.to(dev, torch.int32)
+        lens = lengths.to(dev, torch.int32)
+        positions = lens[:, None]
+        x[dev] = _embed(shard, cfg, tokens.to(dev)[:, None], positions)
+        ctx[dev] = (shard, tab, lens + 1, _rope(cfg, positions),
+                    paged_ref.tail_rows(tab, lens, pk.shape[2], append_mask))
     impl = L.impl_key(cfg.attn_impl)
     il = _interleave(cfg)
-    blocks = params["blocks"]
     for s in range(cfg.n_layers // il):
         for j in range(il):
             if _is_moe_layer(cfg, j):
                 raise NotImplementedError("MoE layers have no paged decode")
-            lp = blocks[f"l{j}"]
-            ap = {k: v[s].to(x.dtype) for k, v in lp["attn"].items()}
-            h = L.rmsnorm(x, ap["ln"], cfg.norm_eps)
-            q, k, v = _project_qkv(h, ap, cfg, rope_cs)
             layer = s * il + j
-            paged_ref.write_rows(k[:, 0], v[:, 0], pool_k[layer], pool_v[layer],
-                                 rows)
-            o = REGISTRY.dispatch("paged_attention", impl,
-                                  q[:, 0].contiguous(), pool_k[layer],
-                                  pool_v[layer], tables, attend_len,
-                                  window=window)
-            x = _attn_out(x, o[:, None], ap["wo"])
-            x = _ffn(x, {"ln_mlp": lp["ln_mlp"][s],
-                         "mlp": {n: w[s] for n, w in lp["mlp"].items()}}, cfg)
-    x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    logits = L.lm_head(x, params, cfg)[:, 0]
+            heads, h = [], {}
+            for shard, pk, pv, dev in zip(shards, pks, pvs, devs):
+                _, tab, attend_len, rope_cs, rows = ctx[dev]
+                ap = shard["blocks"][f"l{j}"]["attn"]
+                if dev not in h:
+                    h[dev] = L.rmsnorm(x[dev], ap["ln"][s].to(x[dev].dtype),
+                                       cfg.norm_eps)
+                q, k, v = _project_qkv(
+                    h[dev], {n: ap[n][s].to(x[dev].dtype)
+                             for n in ("wq", "wk", "wv")}, cfg, rope_cs)
+                paged_ref.write_rows(k[:, 0], v[:, 0], pk[layer], pv[layer],
+                                     rows)
+                heads.append(REGISTRY.dispatch(
+                    "paged_attention", impl, q[:, 0].contiguous(), pk[layer],
+                    pv[layer], tab, attend_len, window=window))
+            for dev, (shard, *_) in ctx.items():
+                o = (heads[0] if len(heads) == 1
+                     else torch.cat([o.to(dev) for o in heads], dim=1))
+                lp = shard["blocks"][f"l{j}"]
+                x[dev] = _attn_out(x[dev], o[:, None],
+                                   lp["attn"]["wo"][s].to(x[dev].dtype))
+                x[dev] = _ffn(x[dev], {"ln_mlp": lp["ln_mlp"][s],
+                                       "mlp": {n: w[s] for n, w
+                                               in lp["mlp"].items()}}, cfg)
+    head = shards[0]
+    out = L.rmsnorm(x[devs[0]], head["ln_f"], cfg.norm_eps)
+    logits = L.lm_head(out, head, cfg)[:, 0]
     return logits, pool_k, pool_v

@@ -5,9 +5,10 @@ same as the reference's: its grants, deficits, sheds, stalls, preemptions,
 reclaims and fault handling depend on lengths, the clock and the fault
 plan's draws, never on token values, so for the same trace the port's
 schedule equals the reference's. Its engines run on ``device`` (the card
-by default): every tenant's arena lives there, and every tenant's launches
-go on the device's current stream, one after another, which the paged
-kernel's shared merge counters need.
+by default), or a tenant on a mesh on its mesh's shards: every tenant's
+arena lives there, and every tenant's launches go on the device's current
+stream, one after another, which the paged kernel's shared merge counters
+need.
 
 This is the serving rendition of the paper's HEEPocrates example — several
 heterogeneous compute units (there: CGRA, IMC, crypto accelerators; here:
@@ -58,10 +59,24 @@ What the :class:`ServeCluster` arbitrates:
   Sliding-window tenants participate like any other engine (ring block
   tables): their recycled pages return to the *shared* free list,
   so an SWA tenant's O(window) footprint frees budget for its peers.
-* **Data-parallel replica groups** (:meth:`add_replica_group`,
-  :meth:`route`, :meth:`drain_replica`) pin each member to a slice of a
-  device mesh; they come with the port's tensor parallelism and raise
-  ``NotImplementedError`` until then.
+* **Data-parallel replica groups.** :meth:`add_replica_group` builds N
+  same-model engines, each pinned to its own mesh slice (each member's
+  page arena and sharded params live only on its own shards — see
+  :mod:`repro_torch.serve.paged`; build the slices with
+  :func:`repro_torch.launch.mesh.replica_meshes`), addressable under one
+  group name: :meth:`submit` routes group traffic with prefix affinity
+  (requests sharing a first page land on the same member, so
+  intra-replica prefix dedup keeps working), falling back to least-loaded
+  with round-robin tie-breaks. Members get per-replica table namespaces
+  (``ns@r0``, ``ns@r1``, …) because page *bytes* live on the owning
+  replica's devices — a sibling cannot adopt them by block-table
+  pointing, so cross-replica aliasing is deliberately off.
+  :meth:`drain_replica` live-migrates a member's work onto its siblings
+  (elastic scale-in): preempt flushes its tokens to the journal, each
+  in-flight record is :meth:`~repro_torch.runtime.ft.RequestJournal.
+  transfer`-red into a sibling's journal, and replay there is
+  cross-checked token-for-token against the drained member's output —
+  migration meets the same bit-identity bar as crash rebuild.
 
 Invariants (held by ``tests/test_torch_cluster.py``):
 
@@ -102,9 +117,6 @@ from repro_torch.serve.pages import PageTable
 from repro_torch.serve.sampling import SamplingParams
 
 __all__ = ["PowerBudget", "SchedPolicy", "ServeCluster", "awake_banks"]
-
-# the ROADMAP.md item ("Modules still to port") that brings replica groups
-_REPLICA_ITEM = "tensor parallelism"
 
 # XAIF interrupt lines the fault-recovery layer raises on the platform
 CRASH_LINE = "chaos.engine_crash"    # payload: engine name
@@ -241,8 +253,10 @@ class ServeCluster:
     clock; admission inside each engine step is arbitrated by the
     cluster's weighted-round-robin grants and the optional
     :class:`PowerBudget`. ``device`` (default None: the card, which raises
-    without one) is every tenant's device and its arena's; the params
-    given to :meth:`add_engine` must live there.
+    without one) is the device of every tenant without a mesh and its
+    arena's; the params given to :meth:`add_engine` must live there. A
+    tenant on a mesh (``mesh=`` to :meth:`add_engine`, or a replica
+    group's member) runs on its mesh's shards.
     """
 
     def __init__(self, *, pool_pages: int, page_size: int = 16,
@@ -318,6 +332,11 @@ class ServeCluster:
         # kept while fault handling is live, pruned of finished work at
         # every rebuild
         self._requests: dict[str, dict[str, Request]] = {}
+        # -- data-parallel replica groups -------------------------------------
+        self._groups: dict[str, list[str]] = {}   # group -> member engines
+        self._group_rr: dict[str, int] = {}       # routing tie-break cursor
+        self._group_hint: dict[str, dict[tuple, str]] = {}  # first page->home
+        self.migrations = 0            # journal records handed to siblings
         self.step_faults = 0           # device launches that raised
         self.alloc_faults = 0          # pool allocations that raised
         self.retries = 0               # engine steps retried after a fault
@@ -351,7 +370,7 @@ class ServeCluster:
         like an isolated engine — lower it to pace a tenant's admissions
         relative to its peers.
         """
-        if name in self.engines:
+        if name in self.engines or name in self._groups:
             raise ValueError(f"duplicate target name {name!r}")
         if not registry.supports_paged(cfg):
             raise ValueError(
@@ -386,9 +405,12 @@ class ServeCluster:
     def _build_engine(self, cfg, params, ns: str, name: str,
                       kwargs: dict) -> ContinuousBatchingEngine:
         """One construction path for both first build and crash rebuild:
-        the tenant always lands on the cluster's shared resources."""
+        the tenant always lands on the cluster's shared resources (a
+        tenant on a mesh on its mesh: ``kwargs`` keeps it for the
+        rebuild)."""
         return ContinuousBatchingEngine(
-            cfg, params, device=self.device,
+            cfg, params,
+            device=self.device if kwargs.get("mesh") is None else None,
             platform=self.platform, clock=self.clock,
             journal=self.journal.journal(name),
             pool=self.pool, page_table=self.table,
@@ -400,26 +422,75 @@ class ServeCluster:
 
     def add_replica_group(self, cfg: ModelConfig, params, *, name: str,
                           slots: int, max_len: int, meshes,
+                          namespace: str | None = None,
+                          weight: int | None = None,
                           **engine_kwargs) -> list[str]:
-        """Data-parallel replica groups pin each member to a device mesh
-        slice; they come with the port's tensor parallelism."""
-        raise NotImplementedError(
-            f"replica groups: not yet ported ({_REPLICA_ITEM})")
+        """Construct a data-parallel replica group: one member engine per
+        entry of ``meshes`` (a :class:`~repro_torch.launch.mesh.Mesh` pins
+        that member's arena + sharded params to its shards — build the
+        slices with :func:`repro_torch.launch.mesh.replica_meshes`;
+        ``None`` means an unsharded member on the cluster's device).
+        Members are named ``{name}/r{i}`` and land in per-replica table
+        namespaces ``{ns}@r{i}``: page bytes live only on the owning
+        replica's shards, so siblings must not alias each other's prefix
+        pages — sharing happens *within* a replica, steered there by the
+        group router's prefix affinity. Submit to the group name; the
+        cluster routes (:meth:`route`). Returns the member names."""
+        meshes = list(meshes)
+        if not meshes:
+            raise ValueError("a replica group needs at least one mesh "
+                             "(use None entries for unsharded members)")
+        if name in self.engines or name in self._groups:
+            raise ValueError(f"duplicate target name {name!r}")
+        ns = cfg.name if namespace is None else namespace
+        members = []
+        for i, mesh in enumerate(meshes):
+            member = f"{name}/r{i}"
+            self.add_engine(cfg, params, name=member, slots=slots,
+                            max_len=max_len, namespace=f"{ns}@r{i}",
+                            weight=weight, mesh=mesh, **engine_kwargs)
+            members.append(member)
+        self._groups[name] = members
+        self._group_rr[name] = 0
+        self._group_hint[name] = {}
+        return list(members)           # a copy: the group's own roster mutates
 
     @property
     def targets(self) -> set[str]:
-        """Every name :meth:`submit` accepts (what a trace may tag; the
-        simulator validates against this)."""
-        return set(self.engines)
+        """Every name :meth:`submit` accepts: engines plus replica groups
+        (what a trace may tag; the simulator validates against this)."""
+        return set(self.engines) | set(self._groups)
 
     def route(self, group: str, request: Request) -> str:
-        """Replica-group routing; see :meth:`add_replica_group`."""
-        raise NotImplementedError(
-            f"replica groups: not yet ported ({_REPLICA_ITEM})")
+        """Pick the member of ``group`` that serves ``request``.
+
+        Deterministic three-step policy: (1) **prefix affinity** — the
+        prompt's first page of tokens looks up the member that last homed
+        that prefix, so shared-prefix traffic co-locates and the member's
+        intra-namespace dedup/adoption machinery fires exactly as it
+        would on a single engine; (2) a cold prefix goes to the **least
+        loaded** member (queued + active), (3) ties broken **round-robin**
+        so a cold burst spreads instead of piling onto member 0. The
+        winner becomes the prefix's home for subsequent arrivals."""
+        members = self._groups[group]
+        hints = self._group_hint[group]
+        key = tuple(request.prompt[:self.pool.page_size])
+        target = hints.get(key)
+        if target is None:
+            off = self._group_rr[group] % len(members)
+            order = members[off:] + members[:off]
+            self._group_rr[group] += 1
+            target = min(order, key=lambda m: (len(self.engines[m].queue)
+                                               + self.engines[m].active))
+            hints[key] = target
+        return target
 
     def submit(self, name: str, request: Request) -> bool:
-        """Enqueue ``request`` on engine ``name``. Engine backpressure
-        applies: False = rejected and counted there."""
+        """Enqueue ``request`` on engine ``name`` — or, when ``name`` is a
+        replica group, on the member :meth:`route` picks. Engine
+        backpressure applies: False = rejected and counted there."""
+        if name in self._groups:
+            name = self.route(name, request)
         ok = self.engines[name].submit(request)
         if ok and self.watchdog is not None:
             # keep the client's handle: after a crash the rebuild re-admits
@@ -429,10 +500,70 @@ class ServeCluster:
         return ok
 
     def drain_replica(self, group: str, member: str) -> dict[str, list[str]]:
-        """Live migration off a replica-group member; see
-        :meth:`add_replica_group`."""
-        raise NotImplementedError(
-            f"replica groups: not yet ported ({_REPLICA_ITEM})")
+        """Live-migrate every request on ``member`` onto its group
+        siblings and retire the member (elastic scale-in).
+
+        The drain reuses the crash-recovery plumbing, but *losslessly*:
+        ``preempt()`` first retires any in-flight device step (its tokens
+        are journaled, not dropped) and requeues the member's residents in
+        FIFO order; each journaled record is then
+        :meth:`~repro_torch.runtime.ft.RequestJournal.transfer`-red into a
+        sibling's journal (round-robin over siblings, FIFO preserved
+        per destination) and the request resubmitted there — the sibling
+        replays it with every regenerated token cross-checked against
+        the drained member's output, so migration is bit-identical by
+        construction, not by luck. The member's table namespace is then
+        evicted (its page bytes live on devices we are giving up) and the
+        engine removed from every cluster registry and the group. Returns
+        ``{sibling: [migrated request ids]}``."""
+        if group not in self._groups:
+            raise ValueError(f"unknown replica group {group!r}")
+        members = self._groups[group]
+        if member not in members:
+            raise ValueError(f"{member!r} is not a member of {group!r}")
+        siblings = [m for m in members if m != member and m in self.engines]
+        if not siblings:
+            raise ValueError(f"cannot drain {member!r}: it is the last "
+                             f"replica of {group!r}")
+        if member in self._down:
+            raise ValueError(f"{member!r} is down — crashed members go "
+                             "through rebuild_engine, not a live drain")
+        eng = self.engines[member]
+        eng.preempt()                  # flush in-flight tokens to the journal
+        moving = list(eng.queue)
+        eng.queue.clear()
+        src = self.journal.journal(member)
+        moved: dict[str, list[str]] = {m: [] for m in siblings}
+        for i, req in enumerate(moving):
+            dest = siblings[i % len(siblings)]
+            if src.has(req.id):
+                self.journal.journal(dest).adopt(src.transfer(req.id))
+                self.migrations += 1
+            if not self.engines[dest].submit(req):
+                raise RuntimeError(
+                    f"drain of {member!r} would drop {req.id!r}: sibling "
+                    f"{dest!r} rejected it (queue capacity) — migration "
+                    "must be lossless, raise capacity or drain later")
+            if self.watchdog is not None:
+                self._requests.setdefault(dest, {})[req.id] = req
+            moved[dest].append(req.id)
+        # the member's prefix pages live on devices we are releasing:
+        # evict its namespace (unpinned now — preempt dropped every pin)
+        ns = eng.namespace
+        while self.table.evict_lru(1, ns=ns):
+            pass
+        # re-home future traffic: hints that pointed at the member re-route
+        hints = self._group_hint[group]
+        for k in [k for k, v in hints.items() if v == member]:
+            del hints[k]
+        members.remove(member)
+        del self.engines[member]
+        for reg in (self._weights, self._grants, self._deficit,
+                    self._tenants, self._requests, self._fault_streak,
+                    self._backoff, self._lost, self._watch_ids):
+            reg.pop(member, None)
+        self._ns_identity.pop(ns, None)
+        return moved
 
     # -- arbitration -----------------------------------------------------------
 
@@ -869,6 +1000,8 @@ class ServeCluster:
             "sheds": self.sheds,
             "slo_preempts": self.slo_preempts,
             "reclaims": dict(self.reclaims),
+            "groups": {g: list(ms) for g, ms in self._groups.items()},
+            "migrations": self.migrations,
             "awake_banks": self.awake_banks(),
             "energy": {
                 "total_uj": sum(m.total_uj for m in meters),

@@ -88,9 +88,14 @@ unchunked, preempted ≡ undisturbed, bit for bit, greedy and sampled).
 (the reference's ``build_sharded_serve`` without a mesh), which serves the
 dense, MoE, hybrid and SSM families.
 
-A later slice ports the reference engine's tensor parallelism: passing
-``mesh`` or ``tp_axis`` with a non-default value raises
-``NotImplementedError``.
+**Tensor parallelism** (``mesh``, ``tp_axis``): a
+:class:`~repro_torch.launch.mesh.Mesh` pins the paged decode to its shards
+(:mod:`repro_torch.serve.paged`): wq/wk/wv split by head, one arena of
+``Kh/tp`` heads a shard, the heads gathered before wo. The host state
+(slots, block tables, journal, sampling chains) is kept once and does not
+depend on the mesh, so tp changes where bytes live, never which tokens
+come out. The lane families (MoE, SSM, hybrid) and ``paged=False`` raise
+with a mesh.
 """
 
 from __future__ import annotations
@@ -104,20 +109,18 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core.platform import Platform, XHeepConfig
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.ft import RequestJournal
 from repro_torch.serve import sampling
 from repro_torch.serve.energy_meter import EnergyMeter
-from repro_torch.serve.paged import (PagePool, feed, last_fed, paged_chunk_fn,
-                                     paged_step_fn, to_device)
+from repro_torch.serve.paged import (PagePool, feed, last_fed, mesh_tp,
+                                     paged_chunk_fn, paged_step_fn,
+                                     place_params, shard_devices, to_device)
 from repro_torch.serve.pages import PageTable
 from repro_torch.serve.sampling import GREEDY, SamplingParams
 from repro_torch.sharding.params import tree_leaves
-
-# constructor arguments of the reference engine that a later slice ports
-# (tensor parallelism), with the value that leaves the feature off
-_LATER_SLICES = {"mesh": None, "tp_axis": "model"}
 
 COMPLETE_LINE = "serve.complete"     # interrupt line raised per finished request
 ADMIT_LINE = "serve.admit"           # raised per slot admission
@@ -393,6 +396,15 @@ class ContinuousBatchingEngine:
     already live on the engine's device. The engine is clock-agnostic:
     ``clock`` is any ``() -> float``.
 
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) serves the paged
+    backend tensor-parallel over its ``tp_axis`` (``self.tp`` shards):
+    ``params`` may then live anywhere and are placed on the mesh
+    (:func:`~repro_torch.serve.paged.place_params`), and the engine's
+    device is the first shard's, where the logits are sampled and the
+    async path's tokens and event live. A config the head-sharded decode
+    cannot serve (the lane families, Kh not divisible by tp) and
+    ``paged=False`` raise ``ValueError``.
+
     ``platform`` is the X-HEEP platform whose banks and interrupt lines the
     engine uses (default: its own ``Platform(XHeepConfig())``, whose banks
     start clock-gated). ``metered`` (default on, as in the reference) runs
@@ -416,20 +428,23 @@ class ContinuousBatchingEngine:
                  pool: PagePool | None = None, namespace: str = "",
                  name: str | None = None, admission_hook=None, reclaim=None,
                  chaos=None, journal_horizon: int | None = None,
+                 mesh: Mesh | None = None, tp_axis: str = "model",
                  metered: bool = True,
-                 operating_point: str = "max", gate_idle_banks: bool = True,
-                 **later_slices):
-        for arg, value in later_slices.items():
-            if arg not in _LATER_SLICES:
-                raise TypeError(f"unexpected keyword argument {arg!r}")
-            if value != _LATER_SLICES[arg]:
-                raise NotImplementedError(f"{arg}={value!r}: not yet ported")
+                 operating_point: str = "max", gate_idle_banks: bool = True):
         if slots < 1:
             raise ValueError("engine needs at least one decode slot")
         if max_len < 2:
             raise ValueError("max_len must fit a prompt token plus one output")
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        # tensor parallelism: the params land head-sharded on the mesh
+        # (placement raises for a config the sharded decode cannot serve,
+        # before any backend is picked) and the tail runs on the first
+        # shard's device, the engine's
+        self.mesh, self.tp_axis = mesh, tp_axis
+        self.tp = mesh_tp(mesh, tp_axis) if mesh is not None else 1
+        if mesh is not None:
+            placed = place_params(cfg, params, mesh, tp_axis)
         # a shared external table is paged territory only when its payloads
         # are pool ids valid across engines, i.e. the pool is shared too;
         # otherwise it holds lane snapshots and the lane backend serves
@@ -453,14 +468,25 @@ class ContinuousBatchingEngine:
         if pool is not None and not paged:
             raise ValueError("a shared pool is a paged-backend resource; "
                              "drop it or drop paged=False")
+        if mesh is not None and not paged:
+            raise ValueError(
+                "tensor parallelism is a paged-backend feature: the lane "
+                "backend has no sharded arena to decode against")
         self.paged = paged
         self.cfg = cfg
-        self.device = device_mod.resolve(device)
-        for leaf in tree_leaves(params):
-            if leaf.device != self.device:
-                raise ValueError(f"params live on {leaf.device}, the engine "
-                                 f"runs on {self.device}")
-        self.params = params
+        if mesh is None:
+            self.device = device_mod.resolve(device)
+            for leaf in tree_leaves(params):
+                if leaf.device != self.device:
+                    raise ValueError(f"params live on {leaf.device}, the "
+                                     f"engine runs on {self.device}")
+            self.params = params
+        else:
+            self.device = shard_devices(mesh, tp_axis)[0]
+            if device is not None and device_mod.resolve(device) != self.device:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"shard's, {self.device}")
+            self.params = placed
         self.n_slots = slots
         self.max_len = max_len
         self.n_lanes = max(slots, lane_batch or 0)
@@ -508,9 +534,11 @@ class ContinuousBatchingEngine:
                 self._pool = PagePool(
                     slots * self._np_slot + (cap if page_size else 0),
                     self._ps)
-            self._arena = self._pool.arena(cfg, self.device)
-            self._pstep = paged_step_fn(cfg, self._window)
-            self._pchunk = (paged_chunk_fn(cfg, prefill_chunk, self._window)
+            self._arena = self._pool.arena(
+                cfg, self.device if mesh is None else mesh, tp_axis)
+            self._pstep = paged_step_fn(cfg, self._window, mesh, tp_axis)
+            self._pchunk = (paged_chunk_fn(cfg, prefill_chunk, self._window,
+                                           mesh, tp_axis)
                             if prefill_chunk > 1 else None)
         else:
             # one lane a device slot, each a copy of the family's batch-1
@@ -903,7 +931,7 @@ class ContinuousBatchingEngine:
             launched.host = self._pinned.pop()
             launched.host.copy_(nxt, non_blocking=True)
             launched.done = torch.cuda.Event()
-            launched.done.record()
+            launched.done.record(torch.cuda.current_stream(nxt.device))
         return launched
 
     def _retire(self, launched: _Launched) -> None:
@@ -1383,6 +1411,7 @@ class ContinuousBatchingEngine:
             "prefill_chunk": self.prefill_chunk,
             "backend": "paged" if self.paged else "lanes",
             "async_dispatch": self.async_dispatch,
+            "tp": self.tp,
             "window": self._window,
             "table_entries_per_slot": self._np_slot if self.paged else None,
             "pages_recycled": self.pages_recycled,

@@ -1,6 +1,6 @@
 """Global KV page pool + paged decode steps for the serving engine.
 
-Port of ``src/repro/serve/paged.py`` (single device). One pool of
+Port of ``src/repro/serve/paged.py``. One pool of
 fixed-size KV pages is shared by every decode slot and by the prefix page
 table, reached per step through per-slot *block tables*. The allocator
 (free list, refcounts, per-tenant accounting, the null page) is host state;
@@ -31,6 +31,17 @@ The step functions are plain functions. They write the arena **in place**
 (the reference donates its buffers and gets new ones back) and return the
 next token of every lane, sampled under its request's parameters (exact
 argmax at temperature 0), with the lanes' carried PRNG keys.
+
+**Tensor parallelism** (the reference's ``mesh``/``tp_axis``): on a
+:class:`~repro_torch.launch.mesh.Mesh` whose ``tp_axis`` holds ``tp``
+positions, :func:`place_params` splits wq/wk/wv into contiguous per-shard
+head slices and :meth:`PagePool.arena` gives every shard an arena of
+``Kh/tp`` heads of every page; the step functions then run
+:func:`repro_torch.models.transformer.decode_step_paged` on the shards in
+mesh order and sample on the first shard's device. One process drives
+every shard, as the reference's one process drives its mesh, and a mesh
+may name one device more than once (``["cuda:0"] * 4``). Page ids, block
+tables and the allocator do not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -41,12 +52,86 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve import sampling
+from repro_torch.sharding import rules as R
+from repro_torch.sharding.params import tree_map2
 
 __all__ = ["PagePool", "PoolArena", "feed", "last_fed", "pool_signature",
-           "paged_step_fn", "paged_chunk_fn", "to_device"]
+           "paged_step_fn", "paged_chunk_fn", "to_device", "place_params",
+           "mesh_tp", "shard_devices", "clear_placed"]
+
+# params tree -> its placement on a mesh, keyed (id(params), mesh,
+# tp_axis); the entry holds the tree itself, so a recycled id() never
+# returns another model's placement
+_PLACED_PARAMS: dict = {}
+
+
+def mesh_tp(mesh: Mesh, tp_axis: str = "model") -> int:
+    """Size of the tensor-parallel axis of ``mesh`` (loud on a bad axis)."""
+    if tp_axis not in mesh.shape:
+        raise ValueError(f"mesh {mesh.axis_names} has no axis {tp_axis!r}")
+    return mesh.shape[tp_axis]
+
+
+def shard_devices(mesh: Mesh, tp_axis: str = "model") -> list[torch.device]:
+    """The devices of the decode's shards, in mesh order: one a position
+    of ``tp_axis``. The decode shards over that axis alone, so every other
+    axis of the mesh must have size 1."""
+    tp = mesh_tp(mesh, tp_axis)
+    if mesh.devices.size != tp:
+        raise ValueError(
+            f"mesh {mesh.shape}: the paged decode shards over {tp_axis!r} "
+            "alone, every other axis must have size 1")
+    return list(mesh.devices.flat)
+
+
+def place_params(cfg: ModelConfig, params, mesh: Mesh,
+                 tp_axis: str = "model") -> list[dict]:
+    """Lay a params tree out on ``mesh`` for the tensor-parallel paged
+    decode: one tree a shard, in mesh order.
+
+    :func:`repro_torch.sharding.rules.serve_param_specs` names the leaves
+    that shard: wq/wk/wv, whose head axis each shard holds a contiguous
+    slice of (a tensor of its own on its device). Every other leaf is
+    replicated, placed once per distinct device and shared by the shards
+    there (on the leaf's own device it is the leaf itself). ``params`` may
+    live on any device. The placement is cached per (params, mesh, axis),
+    so replicas of one checkpoint on one mesh share it; the cache holds
+    ``params`` alive until :func:`clear_placed`. Raises the reference's
+    ``ValueError`` for a config the head-sharded decode cannot serve.
+    """
+    devs = shard_devices(mesh, tp_axis)
+    tp = len(devs)
+    R.validate_serve_tp(cfg, tp)           # on every call: cfg is no key
+    key = (id(params), mesh, tp_axis)
+    hit = _PLACED_PARAMS.get(key)
+    if hit is None or hit[0] is not params:
+        specs = R.serve_param_specs(cfg, tp_axis)
+        replicated: dict = {}
+
+        def shard(i: int, dev: torch.device) -> dict:
+            def leaf(p, spec):
+                if tp_axis in spec:
+                    axis = spec.index(tp_axis)
+                    n = p.shape[axis] // tp
+                    return p.narrow(axis, i * n, n).to(dev).contiguous()
+                if (id(p), dev) not in replicated:
+                    replicated[(id(p), dev)] = p.to(dev)
+                return replicated[(id(p), dev)]
+            return tree_map2(leaf, params, specs)
+
+        hit = (params, [shard(i, d) for i, d in enumerate(devs)])
+        _PLACED_PARAMS[key] = hit
+    return hit[1]
+
+
+def clear_placed() -> None:
+    """Forget every cached placement (:func:`place_params`), letting the
+    params trees and their shards go."""
+    _PLACED_PARAMS.clear()
 
 
 def pool_signature(cfg: ModelConfig) -> tuple:
@@ -59,10 +144,13 @@ def pool_signature(cfg: ModelConfig) -> tuple:
 class PoolArena:
     """Device storage for one cache signature: a (k, v) pair shaped
     ``(L, n_pages + 1, page_size, Kh, Dh)``; the extra row is the null
-    page. Engines write ``k``/``v`` in place every step."""
+    page. Engines write ``k``/``v`` in place every step. On a ``mesh``,
+    ``k`` and ``v`` are lists of the shards' tensors in mesh order, each
+    ``(L, n_pages + 1, page_size, Kh/tp, Dh)`` on its shard's device."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: torch.Tensor | list[torch.Tensor]
+    v: torch.Tensor | list[torch.Tensor]
+    mesh: Mesh | None = None
 
 
 class PagePool:
@@ -92,10 +180,33 @@ class PagePool:
         self.stats = {"allocated": 0, "freed": 0, "high_water": 0}
         self.fault_hook = None
 
-    def arena(self, cfg: ModelConfig, device: torch.device) -> PoolArena:
-        """Device arena for ``cfg``'s cache signature on ``device``, created
-        on first use; same-signature configs get the same arena object."""
-        device = device_mod.resolve(device)
+    def arena(self, cfg: ModelConfig, where, tp_axis: str = "model"
+              ) -> PoolArena:
+        """Device arena for ``cfg``'s cache signature on ``where`` (a
+        device, or a :class:`~repro_torch.launch.mesh.Mesh`), created on
+        first use; same-signature configs on the same device or mesh get
+        the same arena object.
+
+        On a mesh the arena's KV-head axis is split over ``tp_axis``
+        (:func:`repro_torch.sharding.rules.serve_pool_spec`): each shard
+        holds ``Kh/tp`` heads of every page, so ``tp`` shards hold the KV
+        bytes of one. Arenas on different meshes are distinct storage,
+        keyed ``(signature, mesh, tp_axis)``; meshes naming the same
+        devices in the same layout are one mesh.
+        """
+        if isinstance(where, Mesh):
+            sig = (pool_signature(cfg), where, tp_axis)
+            if sig not in self._arenas:
+                devs = shard_devices(where, tp_axis)
+                R.validate_serve_tp(cfg, len(devs))
+                pools = [registry.paged_pool_init(cfg, self.n_pages + 1,
+                                                  self.page_size, device=d,
+                                                  tp=len(devs))
+                         for d in devs]
+                self._arenas[sig] = PoolArena([k for k, _ in pools],
+                                              [v for _, v in pools], where)
+            return self._arenas[sig]
+        device = device_mod.resolve(where)
         sig = (pool_signature(cfg), device)
         if sig not in self._arenas:
             k, v = registry.paged_pool_init(cfg, self.n_pages + 1,
@@ -104,13 +215,22 @@ class PagePool:
         return self._arenas[sig]
 
     def bytes_by_device(self) -> dict[str, int]:
-        """KV bytes resident per device, summed over every arena (k and v),
-        keyed by the device's name (``"cuda:0"``, ``"cpu"``)."""
+        """KV bytes resident per device, summed over every arena (k and v).
+        A one-device arena counts under the device's name (``"cuda:0"``,
+        ``"cpu"``); a mesh arena's shard under its device and mesh
+        position (``"cuda:0#1"``: position 1), so the split shows when
+        shards share a device. Arenas of two meshes add up under a key
+        they share."""
         out: dict[str, int] = {}
         for arena in self._arenas.values():
-            for t in (arena.k, arena.v):
-                dev = str(t.device)
-                out[dev] = out.get(dev, 0) + t.numel() * t.element_size()
+            if arena.mesh is None:
+                named = [(str(t.device), t) for t in (arena.k, arena.v)]
+            else:
+                named = [(f"{t.device}#{i}", t)
+                         for pair in (arena.k, arena.v)
+                         for i, t in enumerate(pair)]
+            for key, t in named:
+                out[key] = out.get(key, 0) + t.numel() * t.element_size()
         return out
 
     def _check(self, idx: int) -> None:
@@ -226,7 +346,28 @@ def last_fed(last, logits: torch.Tensor, j: int, counts,
     return torch.where(to_device(ends, dev)[:, None], logits, last)
 
 
-def paged_step_fn(cfg: ModelConfig, window: int | None = None):
+def _sampling_device(mesh: Mesh | None, tp_axis: str):
+    """A step function's check of its pools against ``mesh``: returns a
+    function of ``pool_k`` giving the device that samples (the first
+    shard's)."""
+    if mesh is None:
+        def tail(pool_k):
+            if isinstance(pool_k, (list, tuple)):
+                raise ValueError("sharded pools need the step's mesh")
+            return pool_k.device
+        return tail
+    devs = shard_devices(mesh, tp_axis)
+
+    def tail(pool_k):
+        if [t.device for t in pool_k] != devs:
+            raise ValueError(f"pool shards on {[t.device for t in pool_k]}, "
+                             f"the mesh is {devs}")
+        return devs[0]
+    return tail
+
+
+def paged_step_fn(cfg: ModelConfig, window: int | None = None,
+                  mesh: Mesh | None = None, tp_axis: str = "model"):
     """Single-token paged decode over every lane, sampled.
 
     Signature: ``(params, pool_k, pool_v, tables, lengths, toks, feedback,
@@ -244,10 +385,18 @@ def paged_step_fn(cfg: ModelConfig, window: int | None = None):
     half is kept where ``emit`` is set. ``next_tokens`` (B,) int32 lives on
     the pool's device, ``keys`` where they came from. ``window`` reads the
     block tables as rings (sliding-window configs).
+
+    With ``mesh`` the step is tensor-parallel over ``tp_axis``: ``params``
+    is :func:`place_params`' list of shards and the pools the arena's
+    lists; the tokens are fed and sampled on the first shard's device,
+    from the logits the tail computes there, as the reference samples the
+    replicated logits outside its sharded region.
     """
+    tail = _sampling_device(mesh, tp_axis)
+
     def step(params, pool_k, pool_v, tables, lengths, toks, feedback, prev,
              mask, emit, keys, temp, top_k, top_p):
-        dev = pool_k.device
+        dev = tail(pool_k)
         logits, _, _ = registry.decode_step_paged(
             params, cfg, pool_k, pool_v, to_device(tables, dev),
             to_device(lengths, dev), feed(toks, feedback, prev, dev),
@@ -257,7 +406,8 @@ def paged_step_fn(cfg: ModelConfig, window: int | None = None):
     return step
 
 
-def paged_chunk_fn(cfg: ModelConfig, chunk: int, window: int | None = None):
+def paged_chunk_fn(cfg: ModelConfig, chunk: int, window: int | None = None,
+                   mesh: Mesh | None = None, tp_axis: str = "model"):
     """Chunked step: up to ``chunk`` tokens per lane in one launch, sampled.
 
     Signature: ``(params, pool_k, pool_v, tables, lengths, toks, counts,
@@ -271,11 +421,13 @@ def paged_chunk_fn(cfg: ModelConfig, chunk: int, window: int | None = None):
     split of its key, as every iteration of the reference's scan draws
     with it and keeps the last fed one's. Steps past every lane's count
     would be masked for all lanes and change nothing, so the loop stops at
-    ``max(counts)``.
+    ``max(counts)``. ``mesh`` and ``tp_axis`` as in :func:`paged_step_fn`.
     """
+    tail = _sampling_device(mesh, tp_axis)
+
     def step(params, pool_k, pool_v, tables, lengths, toks, counts, feedback,
              prev, emit, keys, temp, top_k, top_p):
-        dev = pool_k.device
+        dev = tail(pool_k)
         counts = np.asarray(counts)
         n = int(counts.max())
         if n > chunk:

@@ -50,6 +50,10 @@ class Axes:
         return Axes(name, *self.dims)
 
 
+def is_axes(x) -> bool:
+    return isinstance(x, Axes)
+
+
 # float32 elements drawn at a time (256 MB): the bound on init's transient
 DRAW_CHUNK = 1 << 26
 
@@ -113,6 +117,16 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_map2(fn: Callable[[Any, Any], Any], a: Any, b: Any) -> Any:
+    """``fn`` over the paired leaves of two nested dicts of the same
+    structure, in sorted-key order."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            raise ValueError("the two trees differ in structure")
+        return {k: tree_map2(fn, a[k], b[k]) for k in sorted(a)}
+    return fn(a, b)
+
+
 def tree_leaves(tree: Any) -> list:
     """Leaves in sorted-key order (the order ``jax.tree.leaves`` uses)."""
     if isinstance(tree, dict):
@@ -123,6 +137,12 @@ def tree_leaves(tree: Any) -> list:
 def stack_tree(tree: Any, n: int, axis_name: str | None = None) -> Any:
     """Stack every decl in a layer tree n times (stacked per-layer weights)."""
     return tree_map(lambda d: d.stacked(n, axis_name), tree)
+
+
+def axes_tree(tree: Any) -> Any:
+    """The tree of :class:`Axes` of a decl tree (the sharding rules'
+    input)."""
+    return tree_map(lambda d: d.axes, tree)
 
 
 def init_tree(tree: Any, seed: int | torch.Generator,

@@ -464,8 +464,10 @@ def test_namespaces_isolate_different_weights(sides):
 
 
 def test_tenancy_is_checked(sides):
-    """Namespace peers share config and weights exactly; duplicate names,
-    lane-only families and replica groups (tensor parallelism) raise."""
+    """Namespace peers share config and weights exactly; duplicate names
+    and lane-only families raise; a replica group is a target of its own,
+    whose name no engine may take (``tests/test_torch_tp.py`` serves
+    them)."""
     port = sides[0]
     cl, _ = port.cluster()
     port.add(cl, name="a", namespace="shared", seed=0)
@@ -479,13 +481,14 @@ def test_tenancy_is_checked(sides):
     with pytest.raises(ValueError, match="paged"):
         port.add(cl, "mamba2_370m", name="ssm")
     m = weights()
-    for call in (lambda: cl.add_replica_group(m[2], m[3], name="g", slots=1,
-                                              max_len=8, meshes=[None]),
-                 lambda: cl.route("g", port.requests(1)[0]),
-                 lambda: cl.drain_replica("g", "g/r0")):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            call()
-    assert cl.targets == {"a", "d"}
+    assert cl.add_replica_group(m[2], m[3], name="g", slots=1, max_len=8,
+                                meshes=[None]) == ["g/r0"]
+    assert cl.route("g", port.requests(1)[0]) == "g/r0"
+    with pytest.raises(ValueError, match="last replica"):
+        cl.drain_replica("g", "g/r0")
+    with pytest.raises(ValueError, match="duplicate target name"):
+        port.add(cl, name="g")
+    assert cl.targets == {"a", "d", "g", "g/r0"}
 
 
 def test_cluster_runs_on_the_card_unless_asked_for_cpu():

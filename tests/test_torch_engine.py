@@ -16,8 +16,9 @@ weights and a seeded shared-prefix trace:
   request served alone;
 * the constructor's validation, backpressure, the backend choice (the
   lane backend's own tests are in ``tests/test_torch_lanes.py``), the
-  feature a later slice ports (tensor parallelism), which raises
-  ``NotImplementedError``, and those earlier slices brought (async
+  constructor arguments of tensor parallelism (``mesh``, ``tp_axis``; its
+  own tests are in ``tests/test_torch_tp.py``), and those earlier slices
+  brought (async
   dispatch, the journal, sampled requests: ``tests/test_torch_async.py``;
   a shared pool and table, the scheduler's hooks, fault injection and
   windowed configs on the paged backend: ``tests/test_torch_cluster.py``,
@@ -210,9 +211,16 @@ def test_later_slices_raise_not_implemented(model):
     assert eng.journal is journal and eng.stats()["async_dispatch"]
     assert ContinuousBatchingEngine(
         cfg, params, journal_horizon=8, **kw).journal.horizon == 8
-    for arg, value in [("mesh", object()), ("tp_axis", "x")]:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ContinuousBatchingEngine(cfg, params, **{arg: value}, **kw)
+    # tensor parallelism is ported: a mesh shards the paged decode, a
+    # mesh without the tp axis and a mesh on lanes raise
+    from repro_torch.launch.mesh import serve_tp_mesh
+    mesh = serve_tp_mesh(2, ["cpu"] * 2)
+    tp = ContinuousBatchingEngine(cfg, params, mesh=mesh, **kw)
+    assert tp.tp == 2 and tp.stats()["tp"] == 2 and tp.mesh is mesh
+    with pytest.raises(ValueError, match="has no axis 'x'"):
+        ContinuousBatchingEngine(cfg, params, mesh=mesh, tp_axis="x", **kw)
+    with pytest.raises(ValueError, match="paged-backend feature"):
+        ContinuousBatchingEngine(cfg, params, mesh=mesh, paged=False, **kw)
     with pytest.raises(TypeError):
         ContinuousBatchingEngine(cfg, params, no_such_arg=1, **kw)
     moe = configs.smoke("grok_1_314b")

@@ -3,7 +3,11 @@ the edges of the design (single-split and merged slots in one call, one
 slot at 4096 positions, G 1 to 16, every load width, rings whose window is
 not a multiple of the page size, page ids outside the pool in unused
 entries, a slot of length 0, h2o-danube3-4b's windowed decode shape with
-D 120), each in all four dtype pairs, and the reference's cases. Every test skips without a card.
+D 120), each in all four dtype pairs, and the reference's cases; the
+tensor-parallel shards' shapes (granite-3-2b's heads at tp 2 and 4,
+``TP_SHARDS``), each call repeated bit for bit with the counters zeroed,
+and the shards' calls, one after another on one stream, bit for bit the
+heads of the one-device call. Every test skips without a card.
 
 This file imports no JAX, so that it also runs on the card's machine:
 ``python -m pytest -q tests/test_torch_paged_attention_cuda.py``. The cases
@@ -95,3 +99,42 @@ def test_one_launch_a_call_and_the_plan_it_runs(gen):
                     torch.bfloat16)
     assert (p.n_split, p.n_counters) == (64, 8)
     assert kernel.counter_buffer(torch.device("cuda", 0)).numel() >= 8
+
+
+TP_LENGTHS = (1, 17, 63, 64, 65, 100, 159, 160)   # the tp phase's max_len 160
+
+
+@pytest.mark.parametrize("q_dt,kv_dt", PAIRS)
+@pytest.mark.parametrize("b,h,kh,d", cs.TP_SHARDS,
+                         ids=lambda v: str(v))
+def test_tp_shard_shapes_match_plain(gen, b, h, kh, d, q_dt, kv_dt):
+    """A tensor-parallel shard's call (granite-3-2b's heads at tp 2 and 4,
+    16-token pages, 10-entry tables): within the tolerance of the plain
+    version, two calls bit for bit, the counters zero after both."""
+    cs.paged_case(torch, gen, kernel, ref, b, h, kh, d, 16, TP_LENGTHS, None,
+                  10, getattr(torch, q_dt), getattr(torch, kv_dt))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_shard_calls_equal_the_one_device_call(gen, tp):
+    """The shards of a tp decode call the kernel one after another on one
+    device's stream, sharing its merge counters: each call leaves them
+    zero, and the shards' outputs, concatenated in mesh order, are the
+    one-device call's bit for bit (each query head reads only its own KV
+    head; the split plan does not depend on the head counts)."""
+    b, h, kh, d = 8, 32, 8, 64
+    q, kp, vp, tables, lengths = cs.pool_case(
+        torch, gen, b, h, kh, d, 160, 16, None, torch.bfloat16,
+        torch.bfloat16)
+    full = kernel.paged_attention_cuda(q, kp[0], vp[0], tables, lengths)
+    parts = []
+    for i in range(tp):
+        hs = slice(i * h // tp, (i + 1) * h // tp)
+        ks = slice(i * kh // tp, (i + 1) * kh // tp)
+        parts.append(kernel.paged_attention_cuda(
+            q[:, hs].contiguous(), kp[0][:, :, ks].contiguous(),
+            vp[0][:, :, ks].contiguous(), tables, lengths))
+        torch.cuda.synchronize()
+        counters = kernel.counter_buffer(q.device)
+        assert counters is None or not bool(counters.any())
+    assert torch.equal(torch.cat(parts, 1), full)

@@ -8,7 +8,8 @@
 * ``XaifRegistry``, ``InterruptController`` and ``Platform`` behave as
   ``tests/test_platform.py`` holds the reference's, case for case, with the
   processing core's impl key ``"cuda"`` in place of ``"pallas"``, and
-  ``Platform.rules`` raising ``NotImplementedError``;
+  ``Platform.rules`` giving the reference's preset for every bus and
+  addressing mode;
 * importing ``repro_torch.kernels`` registers ``attention``,
   ``paged_attention``, ``rglru``, ``ssd`` and ``conv1d`` under ``"cuda"``,
   with the reference's ports and power domains, and builds nothing.
@@ -420,9 +421,27 @@ def test_port_direction_is_validated():
 
 
 def test_rules_waits_for_the_tensor_parallelism_slice():
-    p = platform_mod.Platform(platform_mod.XHeepConfig(bus="one_at_a_time"))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        p.rules(None)
+    """Ported with tensor parallelism: the rules equal the reference's
+    for both buses and both addressing modes, on a one-device mesh."""
+    from jax.sharding import Mesh as JMesh
+    import jax
+    import numpy as np
+    from repro.core.platform import Platform as JPlatform
+    from repro.core.platform import XHeepConfig as JConfig
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(["cpu"])
+    jmesh = JMesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
+                  ("data", "model"))
+    for bus in ("one_at_a_time", "fully_connected"):
+        for addressing in ("contiguous", "interleaved"):
+            p = platform_mod.Platform(platform_mod.XHeepConfig(
+                bus=bus, addressing=addressing))
+            want = JPlatform(JConfig(bus=bus, addressing=addressing)).rules(
+                jmesh)
+            got = p.rules(mesh)
+            assert (got.name, dict(got.table)) == (want.name,
+                                                   dict(want.table))
 
 
 # ---------------------------------------------------------------------------
