@@ -8,7 +8,8 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the paged-attention, flash-attention, RG-LRU scan, SSD
-   chunk-scan, depthwise causal conv1d and grouped-matmul kernels from
+   chunk-scan, depthwise causal conv1d and grouped-matmul (forward and
+   backward) kernels from
    ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, started together;
    reused when already built) and prints the compiler's resource reports;
 3. kernel phase: holds the paged CUDA kernel (split-KV, splits merged in
@@ -342,18 +343,40 @@ imports nothing of JAX or of the JAX package ``src/repro``. In order:
     member's namespace evicted; decode step, tokens/s and peak memory at
     each tp, a fixed one-token step at tp 1, 2 and 4 in turns with its
     launches, and the kernel at the shard shapes against its bound and
-    SDPA.
+    SDPA;
+38. gmm backward phase: the grouped matmul's backward kernels (dx = dy
+    w^T, dw = x^T dy) against their plain versions on the forward's cases
+    in float32 and bf16, each call's route (bf16 at C > 16 on wgmma, the
+    rest on the CUDA cores) and a second call's bits, operands off 16-byte
+    alignment, float32 against float64; at grok-1's training shapes timed
+    against the plain versions, ``torch.bmm`` on the transposed views and
+    the bound;
+39. moe train phase: grok-1 at full width on 1 of its 64 layers trained
+    by ``repro_torch.launch.train`` (Adafactor, global batch 2 at seq 4096
+    in one microbatch, remat full, 4 steps; the reference's init unless
+    its gradient is not finite): every grouped-matmul call of one
+    microbatch, forward and backward, held to the plain version; launches
+    as ``train_launches`` works them out, all on wgmma; finite losses and
+    a falling loss on a fixed microbatch; step time, tokens/s, mfu, peak
+    memory, slots dropped, and the grouped matmul's share of a step's
+    device time (CUDA events), forward and backward apart;
+40. small moe train reference: the grok and llama4 smoke configs, one
+    AdamW step of 2 microbatches on the card and on the CPU's plain path:
+    routing equal with clear margins, gradients leaf by leaf at
+    ``MOE_GRAD_TOL`` (and bit for bit on a second card run), loss, grad
+    norm and params at ``RECURRENT_STEP_TOL``.
 
-Prints a ``{"kernels": [...]}`` JSON line (eleven entries; paged
+Prints a ``{"kernels": [...]}`` JSON line (twelve entries; paged
 attention's launches are those of the greedy serve run, the vlm engine
 run, the window and cluster phases' main runs, the three sampled
 engine runs and the tp phase's three runs, its ``by_shape`` the VLM and
-tp shard shapes' timings, the D <= 128 flash forward's and backward's those of the two
+tp shard shapes' timings, the D <= 128 flash forward's and backward's those of the three
 train phases and (forward) the embeds serve runs, the grouped
-matmul's those of the serve driver and the lane engine's greedy and mixed
-runs, the RG-LRU scan's, the D 256 flash forward's and the SSD's those of
-the serve driver and the train phase, each under ``launches_by_path``; the
-three backward kernels' those of their train phase),
+matmul's those of the serve driver, the lane engine's greedy and mixed
+runs and grok-1's train run, the RG-LRU scan's, the D 256 flash forward's
+and the SSD's those of the serve driver and the train phase, each under
+``launches_by_path``; the four backward kernels' those of their train
+phase),
 the card line again,
 and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
@@ -2906,6 +2929,13 @@ RECURRENT_STEP_TOL = (1e-3, 1e-2, 5e-2)
 # (Mamba-2); a leaf with a missing, flipped or wrongly scaled gradient reads
 # 1 or more
 RECURRENT_GRAD_TOL = {"hybrid": 0.15, "ssm": 0.05}
+# the same for the MoE family (its smoke configs, the attention at its true
+# fan-in): port against the JAX package on the CPU the largest reading was
+# 1.7e-2 (tests/test_torch_moe_train.py, on batches whose every token
+# routes with a clear margin: a token whose top-k probabilities lie within
+# bf16's noise of each other may take another expert on either side, and
+# its gradients then differ by O(1))
+MOE_GRAD_TOL = 0.05
 
 
 def leaf_grad_errs(got, want) -> list[float]:
@@ -2929,8 +2959,10 @@ def train_launches(cfg, accum: int, steps: int) -> dict:
     or ``"dots"``) launches its forward kernels twice, in the forward and
     in the backward's recompute; a layer outside it (griffin's tail) once.
     Keys: ``scan``, ``scan_bwd``, ``flash_fwd``, ``flash_bwd`` (hybrid),
-    ``ssd``, ``ssd_bwd`` (SSM)."""
-    from repro_torch.models import griffin
+    ``ssd``, ``ssd_bwd`` (SSM), ``gmm`` (the grouped matmul's forward:
+    gate, up and down an MoE layer), ``gmm_bwd`` (its dx and dw calls, six
+    an MoE layer), ``flash_fwd``, ``flash_bwd`` (MoE)."""
+    from repro_torch.models import griffin, transformer
 
     twice = 1 if cfg.remat == "none" else 2
     if cfg.family == "hybrid":
@@ -2943,8 +2975,13 @@ def train_launches(cfg, accum: int, steps: int) -> dict:
             per[fwd], per[bwd] = twice * inner + outer, inner + outer
     elif cfg.family == "ssm":
         per = {"ssd": twice * cfg.n_layers, "ssd_bwd": cfg.n_layers}
+    elif cfg.family == "moe":
+        n_moe = sum(transformer._is_moe_layer(cfg, i)
+                    for i in range(cfg.n_layers))
+        per = {"gmm": 3 * twice * n_moe, "gmm_bwd": 6 * n_moe,
+               "flash_fwd": twice * cfg.n_layers, "flash_bwd": cfg.n_layers}
     else:
-        raise ValueError(f"{cfg.family}: not a recurrent family")
+        raise ValueError(f"{cfg.family}: not a recurrent or MoE family")
     return {k: v * accum * steps for k, v in per.items()}
 
 
@@ -6150,6 +6187,548 @@ def tp_phase(torch, np, kernel, ref, serve1: dict, card: str) -> dict:
     return {"by_path": by_path, "by_shape": shapes}
 
 
+# ---------------------------------------------------------------------------
+# MoE training: the grouped matmul's backward and grok-1 at full width
+# ---------------------------------------------------------------------------
+
+# the expert FFN's products on grok-1's training path (global batch 2 at seq
+# 4096 in one microbatch: 8192 tokens x top-2 x 1.25 / 8 experts, capacity
+# 2560): (label, E, C, D, F) of the forward x (E, C, D) . w (E, D, F), whose
+# backward's dx (E, C, D) and dw (E, D, F) are timed
+GMM_TRAIN = [("gate/up", 8, 2560, 6144, 32768), ("down", 8, 2560, 32768, 6144)]
+# grok-1 at full width on 1 of its 64 layers: 6.53e9 parameters (4.83e9 of
+# them experts), 52.2 GB with Adafactor's bf16 gradient and float32 master;
+# AdamW's 16 B a parameter (104.5 GB) and two layers (91.6 GB whatever the
+# optimizer) do not fit the card's 80 GB
+MOE_LAYERS = 1
+MOE_TRAIN = {"global_batch": 2, "accum": 1, "seq": 4096, "steps": 4,
+             "lr": 3e-4, "optimizer": "adafactor"}
+GROK_TRAIN_PARAMS = 6_530_598_912
+# active_param_count(): the total less the 6 idle experts' 3 d d_ff
+GROK_TRAIN_ACTIVE = 2_906_720_256
+# the small train reference's batches (2 microbatches of 2 x 24 tokens):
+# every token of both smoke configs routes with a margin of at least
+# ROUTER_MARGIN between its k-th and (k+1)-th router probability, where
+# the card's and the CPU's bf16 roundings cannot flip it (a token within
+# that noise takes another expert on one side, and its gradients differ
+# by O(1): tests/test_torch_moe_train.py)
+MOE_BATCH_SEED = 24
+ROUTER_MARGIN = 2e-3
+
+
+def gmm_bwd_case(torch, gen, gkernel, gref, e, c, d, f, dt, scaled=False):
+    """dx = dy w^T and dw = x^T dy for one shape against the plain versions
+    at the reference's tolerance (``close_scaled`` where ``scaled``), the
+    route the C entry reports against ``plan_bwd``'s, and second calls'
+    bits; returns ``((err, scale) of dx, of dw)`` and the route."""
+    x, w = gmm_inputs(torch, gen, e, c, d, f, dt)
+    dy = torch.randn((e, c, f), generator=gen, device="cuda", dtype=dt)
+    w0 = gkernel.launches_bwd_wgmma
+    dx = gkernel.grouped_matmul_dx_cuda(dy, w)
+    dw = gkernel.grouped_matmul_dw_cuda(x, dy)
+    route = gkernel.plan_bwd(c, d, f, dt)
+    ran = gkernel.launches_bwd_wgmma - w0
+    assert ran == (2 if route == "wgmma" else 0), ((e, c, d, f), dt, route,
+                                                  ran)
+    tol = GMM_TOL[str(dt)[6:]]
+    check = ((lambda g, p: close_scaled(g, p, tol, tol)) if scaled else
+             (lambda g, p: (close(g, p, tol), None)))
+    errs = (check(dx, gref.grouped_matmul_dx(dy, w)),
+            check(dw, gref.grouped_matmul_dw(x, dy)))
+    assert torch.equal(dx, gkernel.grouped_matmul_dx_cuda(dy, w)), (e, c, d, f)
+    assert torch.equal(dw, gkernel.grouped_matmul_dw_cuda(x, dy)), (e, c, d, f)
+    return errs, route
+
+
+def gmm_bwd_phase(torch, gkernel, gref) -> dict:
+    """The grouped matmul's backward kernels against their plain versions:
+    dx and dw on the forward's cases (``GMM_CASES``, ``GMM_RAGGED``,
+    ``GMM_EDGES``) in float32 and bf16 at its tolerances, every call's
+    route by the C entry's report (bf16 at C > 16 on wgmma, the rest on the
+    CUDA cores) and a second call's bits; operands off 16-byte alignment;
+    float32 against float64; and at grok-1's training shapes
+    (``GMM_TRAIN``, ``close_scaled``), where kernel, plain version and
+    ``torch.bmm`` on the transposed views (the yardstick, never called by
+    the port) are timed against the bound. Returns the JSON entry (row 6b;
+    no launches), timed at the gate/up shape's dx, every shape's timings
+    under ``by_shape``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    routes, worst = {}, {}
+    for case in GMM_CASES + GMM_RAGGED + GMM_EDGES:
+        for dt in (torch.float32, torch.bfloat16):
+            errs, route = gmm_bwd_case(torch, gen, gkernel, gref, *case, dt)
+            routes[route] = routes.get(route, 0) + 1
+            key = str(dt)[6:]
+            worst[key] = max(worst.get(key, 0.0), errs[0][0], errs[1][0])
+    assert set(routes) == set(gkernel.ROUTES_BWD), routes
+    # operands whose data start 2 bytes past a 16-byte boundary take the
+    # CUDA cores' bf16 route
+    x, w = gmm_inputs(torch, gen, 2, 64, 64, 64, torch.bfloat16)
+    dy = torch.randn((2, 64, 64), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    off = torch.empty(dy.numel() + 1, dtype=dy.dtype, device="cuda")[1:]
+    dyo = off.view(dy.shape).copy_(dy)
+    assert dyo.data_ptr() % 16 != 0 and dyo.is_contiguous()
+    w0 = gkernel.launches_bwd_wgmma
+    tol = GMM_TOL["bfloat16"]
+    close(gkernel.grouped_matmul_dx_cuda(dyo, w), gref.grouped_matmul_dx(dy, w),
+          tol)
+    close(gkernel.grouped_matmul_dw_cuda(x, dyo), gref.grouped_matmul_dw(x, dy),
+          tol)
+    assert gkernel.launches_bwd_wgmma == w0
+    x, w = gmm_inputs(torch, gen, 4, 96, 1000, 72, torch.float32)
+    dy = torch.randn((4, 96, 72), generator=gen, device="cuda")
+    f64 = {"dx": torch.einsum("ecf,edf->ecd", dy.double(), w.double()),
+           "dw": torch.einsum("ecd,ecf->edf", x.double(), dy.double())}
+    got = {"dx": gkernel.grouped_matmul_dx_cuda(dy, w),
+           "dw": gkernel.grouped_matmul_dw_cuda(x, dy)}
+    plain = {"dx": gref.grouped_matmul_dx(dy, w),
+             "dw": gref.grouped_matmul_dw(x, dy)}
+    e64 = {k: ((got[k].double() - f64[k]).abs().max().item(),
+               (plain[k].double() - f64[k]).abs().max().item()) for k in f64}
+    assert all(ek <= GMM_TOL["float32"] for ek, _ in e64.values()), e64
+    print(f"gmm backward: dx and dw on {len(GMM_CASES + GMM_RAGGED + GMM_EDGES)}"
+          f" shapes in float32 and bf16 against the plain versions, max abs "
+          f"err float32 {worst['float32']:.3e} (tolerance "
+          f"{GMM_TOL['float32']}), bf16 {worst['bfloat16']:.3e} "
+          f"({GMM_TOL['bfloat16']}), two calls bit for bit; routes {routes}; "
+          f"dy off 16-byte alignment on the CUDA cores' bf16 route within the "
+          f"tolerance; against float64 (E 4, C 96, D 1000, F 72, float32): "
+          + ", ".join(f"{k} kernel {a:.3e}, plain {b:.3e}"
+                      for k, (a, b) in e64.items()), flush=True)
+    del x, w, dy, got, plain, f64
+
+    entry, by_shape = None, {}
+    for label, e, c, d, f in GMM_TRAIN:
+        errs, route = gmm_bwd_case(torch, gen, gkernel, gref, e, c, d, f,
+                                   torch.bfloat16, scaled=True)
+        assert route == "wgmma", (label, route)
+        torch.cuda.empty_cache()
+        x, w = gmm_inputs(torch, gen, e, c, d, f, torch.bfloat16)
+        dy = torch.randn((e, c, f), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        bound, by, moved = gmm_bound_ms(e, c, d, f, 2, BF16_OPS_PER_S)
+        calls = {
+            "dx": (lambda i: gkernel.grouped_matmul_dx_cuda(dy, w),
+                   lambda i: gref.grouped_matmul_dx(dy, w),
+                   lambda i: torch.bmm(dy, w.transpose(1, 2))),
+            "dw": (lambda i: gkernel.grouped_matmul_dw_cuda(x, dy),
+                   lambda i: gref.grouped_matmul_dw(x, dy),
+                   lambda i: torch.bmm(x.transpose(1, 2), dy))}
+        for (prod, (kern, plain, lib)), err in zip(calls.items(), errs):
+            ms = time_ms(torch, kern, 1, inner=3, reps=5)
+            lib_ms = time_ms(torch, lib, 1, inner=3, reps=5)
+            plain_ms = time_ms(torch, plain, 1, inner=1, reps=3)
+            out = {"max_abs_err": err[0], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+            by_shape[f"{prod} at grok-1's {label} (E {e}, C {c}, D {d}, F "
+                     f"{f})"] = out
+            print(f"gmm backward {prod} at grok-1's {label} training shape x "
+                  f"({e}, {c}, {d}) w ({e}, {d}, {f}) dy ({e}, {c}, {f}) bf16, "
+                  f"wgmma route: max abs err {err[0]:.3e} (scale "
+                  f"{err[1]:.3e}), two calls bit for bit; kernel {ms:.4f} ms "
+                  f"({2 * e * c * d * f / ms / 1e9:.1f} TFLOP/s), plain "
+                  f"{plain_ms:.3f} ms, torch.bmm on the transposed views "
+                  f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {moved} "
+                  f"bytes)", flush=True)
+            if entry is None:
+                entry = {"name": "grouped_matmul_bwd", "route": "cuda",
+                         "source": "src/repro_torch/kernels/moe/csrc/"
+                                   "grouped_matmul.cu",
+                         "replaces": "none (backward of src/repro/kernels/moe/"
+                                     "kernel.py:38; the reference "
+                                     "differentiates the einsums of "
+                                     "src/repro/models/layers.py:371)",
+                         **out}
+        del x, w, dy, calls
+        torch.cuda.empty_cache()
+    entry["by_shape"] = by_shape
+    return entry
+
+
+def per_expert(torch, got, plain, tol: float, *args) -> tuple[float, float]:
+    """The worst ``close_scaled`` of one grouped-matmul call's output
+    against its plain version, one expert at a time (rows of different
+    experts are independent; this bounds the plain version's float32
+    copies to one expert's)."""
+    return max(close_scaled(got[e:e + 1], plain(*(a[e:e + 1] for a in args)),
+                            tol, tol) for e in range(got.shape[0]))
+
+
+def held_moe_microbatch(torch, gkernel, gref, loss_fn, params, mb,
+                        cfg) -> tuple[float, dict]:
+    """One microbatch's loss and gradients with every grouped-matmul call,
+    forward (gate, up, down, and their remat recompute) and backward (dx
+    and dw of each), held to its plain version on that call's own inputs
+    (``close_scaled`` at ``GMM_TOL``, one expert at a time), each on the
+    wgmma route; the router's drops recorded. Returns the loss and the
+    errors by kind."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+    from repro_torch.train import trainer
+
+    tol = GMM_TOL["bfloat16"]
+    want = train_launches(cfg, 1, 1)
+    errs, dropped = {"gmm": [], "dx": [], "dw": []}, []
+    real = (gkernel.grouped_matmul_cuda, gkernel.grouped_matmul_dx_cuda,
+            gkernel.grouped_matmul_dw_cuda)
+    real_route = L.route
+
+    def fwd(x, w):
+        y = real[0](x, w)
+        errs["gmm"].append(per_expert(torch, y, gref.grouped_matmul, tol, x, w))
+        return y
+
+    def dx(dy, w):
+        out = real[1](dy, w)
+        errs["dx"].append(per_expert(torch, out, gref.grouped_matmul_dx, tol,
+                                     dy, w))
+        return out
+
+    def dw(x, dy):
+        out = real[2](x, dy)
+        errs["dw"].append(per_expert(torch, out, gref.grouped_matmul_dw, tol,
+                                     x, dy))
+        return out
+
+    def route(xt, router, top_k):
+        out = real_route(xt, router, top_k)
+        dropped.append((out[2], xt.shape[0]))
+        return out
+
+    w0, b0 = gkernel.launches_wgmma, gkernel.launches_bwd_wgmma
+    with mock.patch.object(gkernel, "grouped_matmul_cuda", fwd), \
+            mock.patch.object(gkernel, "grouped_matmul_dx_cuda", dx), \
+            mock.patch.object(gkernel, "grouped_matmul_dw_cuda", dw), \
+            mock.patch.object(L, "route", route):
+        tree, leaves = trainer._layer_leaves(params, *registry.stacked(cfg))
+        loss, _ = loss_fn(tree, mb)
+        grads = torch.autograd.grad(loss, leaves)
+    bad = [i for i, g in enumerate(grads)
+           if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    assert not bad, f"{len(bad)} of {len(grads)} leaves have a non-finite or " \
+                    f"all-zero gradient (first: leaf {bad[0]})"
+    del grads, leaves, tree
+    # remat full: the three products twice (forward, recompute); the
+    # backward's six once, dx and dw alike
+    got = (len(errs["gmm"]), len(errs["dx"]) + len(errs["dw"]))
+    assert got == (want["gmm"], want["gmm_bwd"]), (got, want)
+    assert len(errs["dx"]) == len(errs["dw"]), errs
+    assert gkernel.launches_wgmma - w0 == want["gmm"]
+    assert gkernel.launches_bwd_wgmma - b0 == want["gmm_bwd"]
+    errs["dropped"] = dropped
+    return loss.item(), errs
+
+
+def moe_train_phase(torch, np, gkernel, gref, fkernel, card: str) -> dict:
+    """grok-1 at full width on 1 of its 64 layers (``MOE_LAYERS``, patched
+    into the launcher as ``resume_phase`` patches its cut) trained by the
+    training entry point: Adafactor, global batch 2 at seq 4096 in one
+    microbatch, remat full, 4 steps, seed 0 (``MOE_TRAIN``). A control
+    first: the gradient's norm on one microbatch at the reference's init,
+    which the run takes unless that norm is not finite (then ``--init
+    true-fan-in``). On that microbatch every grouped-matmul call, forward
+    and backward, is held to its plain version (:func:`held_moe_microbatch`).
+    The run's launches equal :func:`train_launches`'s exactly, every
+    grouped matmul forward and backward on the wgmma route, every flash
+    forward on the tensor-core kernel; the losses are finite and the
+    microbatch's loss falls over the 4 steps. Prints step time (median of
+    steps 2-4), tokens/s, mfu, peak memory, the slots dropped a step, and
+    from one more step timed with CUDA events (around its gradients, its
+    optimizer update, and each grouped-matmul and flash call) the grouped
+    matmul's share of the step's device time, forward and backward apart,
+    beside the flash kernels', the rest of the forward and backward and
+    the optimizer's. Returns the run's launches by counter."""
+    import math
+
+    from repro_torch import configs
+    from repro_torch.data.lm import LMDataConfig, LMPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+    from repro_torch.sharding.params import count_params, init_tree
+    from repro_torch.train import optim, trainer
+
+    cfg = dataclasses.replace(configs.get("grok_1_314b"), n_layers=MOE_LAYERS)
+    r = MOE_TRAIN
+    n_params, n_active = cfg.param_count(), cfg.active_param_count()
+    assert (n_params, n_active) == (GROK_TRAIN_PARAMS, GROK_TRAIN_ACTIVE), \
+        (n_params, n_active)
+    tc = trainer.TrainConfig(optimizer=r["optimizer"], lr=r["lr"],
+                             accum=r["accum"])
+    loss_fn = trainer.make_loss_fn(cfg, tc)
+    data = LMDataConfig(vocab=cfg.vocab, seq=r["seq"],
+                        global_batch=r["global_batch"], accum=r["accum"],
+                        seed=SEED)
+    mb = {k: v[0] for k, v in LMPipeline(data).batch_at(0).items()}
+    stacked = registry.stacked(cfg)
+    tokens = r["global_batch"] * r["seq"]
+    cap = L.capacity(tokens // r["accum"], cfg.moe_top_k,
+                     cfg.moe_capacity_factor, cfg.moe_experts)
+
+    # the control: the reference's init, one microbatch's gradient norm
+    params = init_tree(registry.decls(cfg), SEED, "cuda", dtype=torch.bfloat16)
+    assert count_params(params) == n_params
+    tree, leaves = trainer._layer_leaves(params, *stacked)
+    grads = torch.autograd.grad(loss_fn(tree, mb)[0], leaves)
+    norm = optim.global_norm(dict(enumerate(grads))).item()
+    del grads, tree, leaves
+    init = "reference" if math.isfinite(norm) else "true-fan-in"
+    if init == "true-fan-in":
+        params = registry.true_fan_in(params, cfg)
+    print(f"moe train control: at the reference's init one microbatch's "
+          f"gradient norm is {norm:.4e}, so the run takes --init {init}",
+          flush=True)
+    loss_before, errs = held_moe_microbatch(torch, gkernel, gref, loss_fn,
+                                            params, mb, cfg)
+    del params
+    torch.cuda.empty_cache()
+    span = lambda xs: (f"max abs err {max(e for e, _ in xs):.3e}, scales "
+                       f"{min(s for _, s in xs):.3e} to "
+                       f"{max(s for _, s in xs):.3e}")
+    held_drops = [drops(eidx, cfg.moe_experts, cap)
+                  for eidx, _ in errs["dropped"]]
+    print(f"moe train: every grouped-matmul call of one microbatch held to "
+          f"the plain version on its own inputs, one expert at a time (bound "
+          f"{GMM_TOL['bfloat16']} * scale + {GMM_TOL['bfloat16']} * "
+          f"|plain|), all on the wgmma route: forward {len(errs['gmm'])} "
+          f"calls (gate, up, down and their recompute), {span(errs['gmm'])}; "
+          f"dx {len(errs['dx'])} calls, {span(errs['dx'])}; dw "
+          f"{len(errs['dw'])} calls, {span(errs['dw'])}; every parameter "
+          f"leaf's gradient finite and not all zero; capacity {cap} slots an "
+          f"expert, {held_drops[0]} of {tokens * cfg.moe_top_k} slots "
+          f"dropped", flush=True)
+    del errs
+
+    argv = ["--arch", "grok-1-314b", "--init", init, "--steps",
+            str(r["steps"]), "--global-batch", str(r["global_batch"]),
+            "--accum", str(r["accum"]), "--seq", str(r["seq"]), "--lr",
+            str(r["lr"]), "--optimizer", r["optimizer"], "--seed", str(SEED)]
+    want = train_launches(cfg, r["accum"], r["steps"])
+    print(f"moe train: python -m repro_torch.launch.train {' '.join(argv)} "
+          f"(grok-1-314b at full width on {cfg.n_layers} of its 64 layers: "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.moe_experts} experts of d_ff "
+          f"{cfg.d_ff}, top-{cfg.moe_top_k}; {n_params} parameters in bf16, "
+          f"{n_active} active; remat {cfg.remat}); launches worked out: "
+          + ", ".join(f"{k} {v}" for k, v in want.items()), flush=True)
+    run_routes = []
+    real_route = L.route
+
+    def route(xt, router, top_k):
+        out = real_route(xt, router, top_k)
+        run_routes.append(out[2])
+        return out
+
+    gkernel.launches = gkernel.launches_wgmma = gkernel.launches_splitd = 0
+    gkernel.launches_bwd = gkernel.launches_bwd_wgmma = 0
+    fkernel.launches_fwd = fkernel.launches_bwd = fkernel.launches_fwd_mma = 0
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(launch_train.configs, "get", lambda _: cfg), \
+            mock.patch.object(L, "route", route):
+        run = launch_train.main(argv)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = {"gmm": gkernel.launches, "gmm_bwd": gkernel.launches_bwd,
+           "flash_fwd": fkernel.launches_fwd, "flash_bwd": fkernel.launches_bwd}
+    assert got == want, (got, want)
+    assert gkernel.launches_wgmma == got["gmm"], gkernel.launches_wgmma
+    assert gkernel.launches_bwd_wgmma == got["gmm_bwd"], \
+        gkernel.launches_bwd_wgmma
+    assert fkernel.launches_fwd_mma == got["flash_fwd"], \
+        fkernel.launches_fwd_mma
+    losses, times = run.losses, run.seconds
+    assert len(losses) == r["steps"] and all(np.isfinite(losses)), losses
+    assert all(np.isfinite(run.grad_norms)), run.grad_norms
+    # remat full routes each step's tokens twice (forward, recompute): the
+    # forward's call is the first of each step's pair
+    per_step = len(run_routes) // r["steps"]
+    step_drops = [sum(drops(e, cfg.moe_experts, cap)
+                      for e in run_routes[i * per_step:(i + 1) * per_step:2])
+                  for i in range(r["steps"])]
+    with torch.no_grad():
+        loss_after = loss_fn(run.params, mb)[0].item()
+    assert loss_after < loss_before, (loss_after, loss_before)
+    steady = statistics.median(times[1:])
+    flops = 6 * n_active * tokens + attention_flops(cfg, r["global_batch"],
+                                                     r["seq"])
+    mfu = flops / (steady * BF16_OPS_PER_S)
+    # the same with the input embedding's V d parameters left out of N: its
+    # forward is a gather and its gradient a scatter, no product (the
+    # lm_head's are products and stay)
+    n_embed = cfg.vocab * cfg.d_model
+    flops_mm = flops - 6 * n_embed * tokens
+    print(f"moe train on {card}: step {steady:.3f} s (median of steps 2-"
+          f"{r['steps']}; step 1 {times[0]:.3f} s), {tokens / steady:.0f} "
+          f"tokens/s, mfu {mfu:.4f} ((6 N_active T + attention) = "
+          f"{flops:.4e} FLOPs a step at 989 TFLOP/s), "
+          f"{flops_mm / (steady * BF16_OPS_PER_S):.4f} with the input "
+          f"embedding's {n_embed} parameters left out of N_active "
+          f"({flops_mm:.4e} FLOPs a step), peak memory "
+          f"{peak_gb:.2f} GB; launches "
+          + ", ".join(f"{k} {v}" for k, v in got.items())
+          + f" (as worked out; every grouped matmul forward and backward on "
+          f"the wgmma route, every flash forward on the tensor-core kernel); "
+          f"slots dropped a step {step_drops} of {tokens * cfg.moe_top_k} "
+          f"(capacity {cap}); losses {' '.join(f'{x:.4f}' for x in losses)}; "
+          f"grad norms {' '.join(f'{x:.4f}' for x in run.grad_norms)}; loss "
+          f"on the first microbatch {loss_before:.4f} before the steps, "
+          f"{loss_after:.4f} after", flush=True)
+
+    # one more step as the launcher's train_step runs it (the gradients,
+    # then the optimizer's update), CUDA events around each part and
+    # around every grouped-matmul and flash call
+    marks = {k: [] for k in ("gmm fwd", "gmm bwd", "flash fwd", "flash bwd")}
+
+    def timed(kind, fn):
+        def call(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            marks[kind].append(ev)
+            return out
+        return call
+
+    batch = run.data.batch_at(r["steps"])
+    grad_fn = trainer.make_grad_fn(cfg, tc)
+    optimizer = optim.get(r["optimizer"])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with contextlib.ExitStack() as stack:
+        for mod, name, kind in (
+                (gkernel, "grouped_matmul_cuda", "gmm fwd"),
+                (gkernel, "grouped_matmul_dx_cuda", "gmm bwd"),
+                (gkernel, "grouped_matmul_dw_cuda", "gmm bwd"),
+                (fkernel, "flash_attention_fwd_cuda", "flash fwd"),
+                (fkernel, "flash_attention_bwd_cuda", "flash bwd")):
+            stack.enter_context(mock.patch.object(
+                mod, name, timed(kind, getattr(mod, name))))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        _, _, grads = grad_fn(run.params, batch)
+        ev[1].record()
+        optimizer.update(grads, run.opt_state, run.params, r["lr"])
+        ev[2].record()
+        ev[2].synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del grads
+    step_ms = ev[0].elapsed_time(ev[2])
+    parts = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in marks.items()}
+    parts["rest of forward and backward"] = (ev[0].elapsed_time(ev[1])
+                                             - sum(parts.values()))
+    parts[f"{r['optimizer']} update"] = ev[1].elapsed_time(ev[2])
+    print(f"moe train on {card}, one more step timed with CUDA events: "
+          f"{step_ms:.1f} ms on the device's stream ({wall_ms:.1f} ms wall): "
+          + "; ".join(f"{k} {v:.1f} ms"
+                      + (f" in {len(marks[k])} calls" if k in marks else "")
+                      + f" ({100 * v / step_ms:.1f}%)"
+                      for k, v in parts.items()), flush=True)
+    del run, batch
+    torch.cuda.empty_cache()
+    return got
+
+
+def small_moe_train_reference_phase(torch, np) -> None:
+    """The card's MoE training against the CPU's plain path on a small
+    input: the grok smoke config (top-2 of 4 experts; capacity 32, its
+    grouped matmuls and their backward on the wgmma route) and the llama4
+    smoke config (top-1, a shared expert every second layer; capacity 16,
+    the split-D forward and the CUDA cores' backward), float32 params with
+    bf16 activations, remat full, one AdamW step of 2 microbatches of 2 x
+    24 tokens from the same params and numpy batches. Every token routes
+    with a clear margin (``ROUTER_MARGIN``) and alike on both sides; the
+    gradients handed to AdamW agree leaf by leaf at ``MOE_GRAD_TOL``, and a
+    second run on the card gives them bit for bit (the combine's
+    ``index_add_`` and the dispatch's gather backward add at most k <= 2
+    values a row into zeros, so their atomics are exact in any order);
+    loss, grad norm and every parameter after the step at
+    ``RECURRENT_STEP_TOL``; the card's step made :func:`train_launches`'s
+    grouped-matmul calls."""
+    from repro_torch import configs
+    from repro_torch.kernels.moe import kernel as gkernel
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+    from repro_torch.sharding.params import init_tree, tree_leaves, tree_map
+    from repro_torch.train.trainer import (TrainConfig, make_grad_fn,
+                                           make_train_step)
+
+    loss_tol, norm_tol, share_tol = RECURRENT_STEP_TOL
+    for arch in ("grok_1_314b", "llama4_maverick_400b"):
+        cfg = dataclasses.replace(configs.smoke(arch), remat="full")
+        params = registry.true_fan_in(
+            init_tree(registry.decls(cfg), SEED, "cpu"), cfg)
+        rng = np.random.default_rng(MOE_BATCH_SEED)
+        toks = rng.integers(0, cfg.vocab, size=(2, 2, 25))
+        batch = {"tokens": torch.from_numpy(toks[..., :-1]),
+                 "labels": torch.from_numpy(toks[..., 1:])}
+        tc = TrainConfig(accum=2)
+        out, grads, routes, margins = {}, {}, {}, []
+        real_route = L.route
+        for dev in ("cpu", "cuda"):
+            seen = routes.setdefault(dev, [])
+
+            def route(xt, router, top_k, seen=seen):
+                o = real_route(xt, router, top_k)
+                top = o[0].detach().sort(-1, descending=True).values
+                margins.append((top[:, top_k - 1] - top[:, top_k]).min()
+                               .item())
+                seen.append(o[2].cpu())
+                return o
+
+            p = tree_map(lambda t: t.to(dev, copy=True), params)
+            with mock.patch.object(L, "route", route):
+                grads[dev] = [g.double().cpu().numpy() for g in
+                              tree_leaves(make_grad_fn(cfg, tc)(p, batch)[2])]
+            if dev == "cuda":
+                again = [g.double().cpu().numpy() for g in
+                         tree_leaves(make_grad_fn(cfg, tc)(p, batch)[2])]
+                assert all(np.array_equal(a, b)
+                           for a, b in zip(again, grads[dev]))
+            step, opt = make_train_step(cfg, tc)
+            gkernel.launches = gkernel.launches_bwd = 0
+            gkernel.launches_bwd_wgmma = 0
+            m = step(p, opt.init(p), batch)[2]
+            counts = {"gmm": gkernel.launches, "gmm_bwd": gkernel.launches_bwd,
+                      "gmm_bwd_wgmma": gkernel.launches_bwd_wgmma}
+            out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                        [t.cpu() for t in tree_leaves(p)])
+        assert min(margins) >= ROUTER_MARGIN, min(margins)
+        assert all(torch.equal(a, b) for a, b in zip(routes["cuda"],
+                                                     routes["cpu"]))
+        want = train_launches(cfg, 2, 1)
+        assert {k: counts[k] for k in ("gmm", "gmm_bwd")} == \
+            {k: want[k] for k in ("gmm", "gmm_bwd")}, (counts, want)
+        wgmma = cfg.moe_top_k == 2           # capacity 32 > 16
+        assert counts["gmm_bwd_wgmma"] == (counts["gmm_bwd"] if wgmma else 0)
+        gerrs = leaf_grad_errs(grads["cuda"], grads["cpu"])
+        assert max(gerrs) <= MOE_GRAD_TOL, (max(gerrs),
+                                            gerrs.index(max(gerrs)))
+        (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
+        np.testing.assert_allclose(lg, lc, rtol=loss_tol)
+        np.testing.assert_allclose(gg, gc, rtol=norm_tol)
+        diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
+        # 2 lr: an element whose gradient is below the noise steps either
+        # way; 1e-6 for the float32 rounding of the two updated values
+        assert diffs.max().item() <= 2 * tc.lr + 1e-6, diffs.max().item()
+        share = (diffs > 2e-6).float().mean().item()
+        assert share < share_tol, share
+        print(f"small moe train reference ({cfg.name}, float32 params, bf16 "
+              f"activations, one AdamW step of 2 x 2 x 24 tokens; grouped "
+              f"matmul {counts['gmm']} forward and {counts['gmm_bwd']} "
+              f"backward calls as worked out, the backward "
+              f"{'on wgmma' if wgmma else 'on the CUDA cores (capacity 16)'}"
+              f") on the card vs the CPU's plain path: routing equal on all "
+              f"{len(routes['cuda'])} MoE calls (smallest margin "
+              f"{min(margins):.3e}); gradients of all {len(gerrs)} leaves "
+              f"within {MOE_GRAD_TOL} (relative 2-norm, largest "
+              f"{max(gerrs):.3e}, median {statistics.median(gerrs):.3e}), "
+              f"bit for bit on a second run on the card; loss {lg:.6f} vs "
+              f"{lc:.6f}, grad norm {gg:.6f} vs {gc:.6f}; params max abs diff "
+              f"{diffs.max().item():.3e}, {100 * share:.3f}% of elements above "
+              f"2e-6", flush=True)
+
+
 def argmax_tie(torch) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -6298,14 +6877,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp = tp_phase(torch, np, kernel, ref, serve1, card)
     by_path.update(tp["by_path"])
+    torch.cuda.empty_cache()
+    # MoE training: the grouped matmul's backward, grok-1 trained at full
+    # width on 1 of its 64 layers, the smoke configs card against CPU
+    gmm_bwd = gmm_bwd_phase(torch, gkernel, gref)
+    torch.cuda.empty_cache()
+    moe = moe_train_phase(torch, np, gkernel, gref, fkernel, card)
+    torch.cuda.empty_cache()
+    small_moe_train_reference_phase(torch, np)
+    torch.cuda.empty_cache()
+    grok_train = f"train, grok-1-314b ({MOE_LAYERS} of 64 layers)"
+    gmm["launches_by_path"][grok_train] = moe["gmm"]
+    gmm["launches"] = sum(gmm["launches_by_path"].values())
+    gmm_bwd["launches_by_path"] = {grok_train: moe["gmm_bwd"]}
+    gmm_bwd["launches"] = moe["gmm_bwd"]
     # the D <= 128 flash kernels' main paths: training (tokens and
-    # embeddings) and the serve driver's prefill from embeddings
+    # embeddings; grok-1's at D 128, G 6) and the serve driver's prefill
+    # from embeddings
     fwd["launches_by_path"] = {
         "train, granite-3-2b": granite_fwd,
-        "train, musicgen-large (embeds)": emb_train["launches"][0], **served}
+        "train, musicgen-large (embeds)": emb_train["launches"][0],
+        grok_train: moe["flash_fwd"], **served}
     bwd["launches_by_path"] = {
         "train, granite-3-2b": granite_bwd,
-        "train, musicgen-large (embeds)": emb_train["launches"][1]}
+        "train, musicgen-large (embeds)": emb_train["launches"][1],
+        grok_train: moe["flash_bwd"]}
     for entry in (fwd, bwd):
         entry["launches"] = sum(entry["launches_by_path"].values())
     fwd["by_shape"] = {
@@ -6328,7 +6924,7 @@ def main() -> int:
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [paged, fwd, bwd, scan, fwd256, ssd, conv,
-                                  gmm, scan_bwd, bwd256, ssd_bwd]}))
+                                  gmm, scan_bwd, bwd256, ssd_bwd, gmm_bwd]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 // Grouped (per-expert) matmul for Hopper (sm_90a): the MoE expert FFN's
-// three products.
+// three products, and their backward.
 //
 // Replaces the Pallas TPU kernel `grouped_matmul` (body `_gmm_kernel`),
 // src/repro/kernels/moe/kernel.py:38. Same function: for x (E, C, D) and
@@ -8,6 +8,17 @@
 // every product exact in float32 (a bf16 x bf16 product is), summed in
 // float32, and rounded once to x's dtype. x and w have one dtype, float32 or
 // bfloat16; float32 inputs never go through TF32.
+//
+// The backward replaces no TPU kernel: the reference trains MoE by jax.grad
+// through three einsums (src/repro/models/layers.py:371-376) and never
+// differentiates its Pallas kernel. Training on the card runs every expert
+// product through this file, so the gradient's two grouped products are
+// kernels here too, with the forward's arithmetic (exact products, float32
+// sums, one rounding):
+//   dx[e, c, k] = sum_{f < F} dy[e, c, f] * w[e, k, f]   (E, C, D)
+//   dw[e, k, f] = sum_{c < C} x[e, c, k] * dy[e, c, f]   (E, D, F)
+// dw sums over the C capacity rows. At grok-1's training shapes each is
+// the forward's 2 E C D F operations (8.34 ms at 989 TFLOP/s).
 //
 // Differences from the TPU kernel, all in what it takes, none in what it
 // computes: any C >= 1, D >= 1 and F >= 1, the ragged edges masked (the
@@ -64,7 +75,27 @@
 //     steps of 32 through a 4-stage cp.async ring (element by element where
 //     a row is not 16-byte aligned), ldmatrix, mma.sync m16n8k16.
 //   * float32: 64 x 64 output tiles, 256 threads of 4 x 4 outputs, D in
-//     steps of 16 through shared memory, float32 FMAs on the CUDA cores.
+//     steps of 16 through shared memory, float32 FMAs on the CUDA cores
+//     (gmm_fma_kernel<float>, the backward's CUDA-core kernel).
+//
+// The backward's routes (the wrapper's `plan_bwd`):
+//   * wgmma (bf16, C > 16, aligned as the forward's): the forward's kernel
+//     body with the operands' majors swapped, so neither product needs a
+//     transposed copy in memory. wgmma reads bf16 A and B from shared
+//     memory K-major or MN-major, and TMA writes either layout from the
+//     tensors as they lie:
+//       dx (M C, N D, K F): A = dy's {F, C, E} map K-major, as the
+//         forward's x; B = w's {F, D, E} map read K-major (F contiguous is
+//         wgmma's native B layout, transpose bit off) in one 64 x 256 box;
+//       dw (M D, N F, K C): A = x's {D, C, E} map read MN-major (transpose
+//         bit on: two 64 x 64 boxes of 64 D columns), B = dy's {F, C, E}
+//         map MN-major, as the forward's w.
+//     A box past C, D or F reads zeros, so a partial K step (F for dx, C
+//     for dw) adds nothing. gmm_wgmma_dx_kernel and gmm_wgmma_dw_kernel.
+//   * CUDA cores (float32; bf16 at C <= 16 or that TMA cannot take): the
+//     float32 forward's kernel, each operand read through its own strides
+//     (coalesced along whichever of its axes is contiguous), float32 FMAs,
+//     one rounding: gmm_fma_kernel<T>.
 //
 // Every device kernel's name starts with `gmm_` (profiles find the grouped
 // matmul's device time by that prefix). Left for later: thread-block
@@ -453,13 +484,14 @@ constexpr int kWSmemBytes = kWStages * kWStageBytes + 4 * kWOutBytes +
                             2 * kWStages * 8 + 1024;
 
 // wgmma shared-memory descriptors, 128-byte swizzle (offsets in bytes here,
-// in 16-byte units in the descriptor). x's tile is K-major: rows of 128 bytes, 8-row groups
-// 1024 bytes apart (the stride offset; the leading one is unused). w's is
-// MN-major: each 64-column box holds kWK rows of 128 bytes, so 8-row groups
-// along D are 1024 bytes apart (stride offset) and the 64-column boxes along
-// F 8 KB apart (leading offset).
-constexpr uint32_t kDescALead = 16, kDescAStride = 1024;
-constexpr uint32_t kDescBLead = kWBoxB, kDescBStride = 1024;
+// in 16-byte units in the descriptor). A K-major tile (the forward's x) has
+// rows of 128 bytes, 8-row groups 1024 bytes apart (the stride offset; the
+// leading one is unused), and a k16 step is 32 bytes along the row. An
+// MN-major tile (the forward's w) is boxes of 64 MN columns, each kWK rows
+// of 128 bytes: 8-row groups along K 1024 bytes apart (stride offset), the
+// boxes 8 KB apart (leading offset), and a k16 step is 16 rows (2 KB).
+constexpr uint32_t kDescKLead = 16, kDescMnLead = kWBoxB, kDescStride = 1024;
+constexpr uint32_t kStepK = 32 >> 4, kStepMn = (16 * 128) >> 4;
 
 __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lead,
                                               uint32_t stride) {
@@ -565,9 +597,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
 }
 
 // d (64 x 256 float32, the warpgroup's accumulator fragment) += a * b for
-// one k16 step: a (64 x 16) K-major and b (16 x 256) MN-major ("trans-b"),
-// both bf16 in shared memory behind their descriptors. scale_d 0 starts d at
-// zero (the first step of a tile).
+// one k16 step: a (64 x 16) and b (16 x 256), both bf16 in shared memory
+// behind their descriptors, a K-major (kTransA 0) or MN-major (1), b K-major
+// (kTransB 0) or MN-major (1). scale_d 0 starts d at zero (the first step
+// of a tile).
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
@@ -589,7 +623,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -622,17 +656,34 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
-// grid: min(tiles, SMs) persistent blocks of kWThreads. Warpgroup 0
-// produces, 1 and 2 consume (rows 0-63 and 64-127 of each tile) and store
-// through y's tensor map.
-__global__ void __launch_bounds__(kWThreads, 1)
-    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
-                     const __grid_constant__ CUtensorMap tmw,
-                     const __grid_constant__ CUtensorMap tmy, int E, int C,
-                     int D, int F) {
+// the products the wgmma kernel body computes, by what it reads: y = x w
+// (the forward), dx = dy w^T and dw = x^T dy
+enum GmmMode : int { kGmmFwd = 0, kGmmDx = 1, kGmmDw = 2 };
+
+// One persistent block of kWThreads computing out (E, M, N) = a (E, M, K) .
+// b (E, K, N) on min(tiles, SMs) blocks. Warpgroup 0 produces, 1 and 2
+// consume (rows 0-63 and 64-127 of each tile) and store through out's
+// tensor map {N, M, E}. The maps and the operands' majors by kMode:
+//   kGmmFwd: a = x {D, C, E} K-major, one 64 x 128 box a stage; b = w
+//            {F, D, E} MN-major, four 64 x 64 boxes;
+//   kGmmDx:  a = dy {F, C, E} K-major, as the forward's x; b = w {F, D, E}
+//            K-major, one 64 x 256 box;
+//   kGmmDw:  a = x {D, C, E} MN-major, two 64 x 64 boxes; b = dy {F, C, E}
+//            MN-major, as the forward's w.
+template <int kMode>
+__device__ __forceinline__ void gmm_wgmma_body(const CUtensorMap* tma,
+                                               const CUtensorMap* tmb,
+                                               const CUtensorMap* tmy, int E,
+                                               int M, int N, int K) {
+  constexpr bool kAMn = kMode == kGmmDw;    // a read MN-major (trans-a)
+  constexpr bool kBMn = kMode != kGmmDx;    // b read MN-major (trans-b)
+  constexpr uint32_t kALead = kAMn ? kDescMnLead : kDescKLead;
+  constexpr uint32_t kBLead = kBMn ? kDescMnLead : kDescKLead;
+  constexpr uint32_t kAStep = kAMn ? kStepMn : kStepK;
+  constexpr uint32_t kBStep = kBMn ? kStepMn : kStepK;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
   unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -642,9 +693,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(so + 4 * kWOutBytes);
   uint64_t* empty = full + kWStages;
 
-  const int n_ct = (C + kWM - 1) / kWM, n_ft = (F + kWN - 1) / kWN;
+  const int n_ct = (M + kWM - 1) / kWM, n_ft = (N + kWN - 1) / kWN;
   const long long per_e = (long long)n_ct * n_ft, tiles = per_e * E;
-  const int k_tiles = (D + kWK - 1) / kWK;
+  const int k_tiles = (K + kWK - 1) / kWK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWStages; ++s) {
@@ -661,10 +712,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 0) {
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&tmx))
+                       reinterpret_cast<uint64_t>(tma))
                    : "memory");
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&tmw))
+                       reinterpret_cast<uint64_t>(tmb))
                    : "memory");
       int stage = 0;
       uint32_t phase = 0;
@@ -674,12 +725,24 @@ __global__ void __launch_bounds__(kWThreads, 1)
         for (int kt = 0; kt < k_tiles; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], kWStageBytes);
-          tma_load_3d(sa + stage * kWTileA, &tmx, &full[stage], kt * kWK, m0,
-                      e);
+          unsigned char* ta = sa + stage * kWTileA;
+          unsigned char* tb = sb + stage * kWTileB;
+          if (kAMn) {
 #pragma unroll
-          for (int j = 0; j < kWN / kWBoxN; ++j)
-            tma_load_3d(sb + stage * kWTileB + j * kWBoxB, &tmw, &full[stage],
-                        n0 + j * kWBoxN, kt * kWK, e);
+            for (int j = 0; j < kWM / kWBoxN; ++j)
+              tma_load_3d(ta + j * kWBoxB, tma, &full[stage], m0 + j * kWBoxN,
+                          kt * kWK, e);
+          } else {
+            tma_load_3d(ta, tma, &full[stage], kt * kWK, m0, e);
+          }
+          if (kBMn) {
+#pragma unroll
+            for (int j = 0; j < kWN / kWBoxN; ++j)
+              tma_load_3d(tb + j * kWBoxB, tmb, &full[stage], n0 + j * kWBoxN,
+                          kt * kWK, e);
+          } else {
+            tma_load_3d(tb, tmb, &full[stage], kt * kWK, n0, e);
+          }
           if (++stage == kWStages) {
             stage = 0;
             phase ^= 1;
@@ -699,14 +762,17 @@ __global__ void __launch_bounds__(kWThreads, 1)
       const int m0 = (r % n_ct) * kWM, n0 = (r / n_ct) * kWN;
       for (int kt = 0; kt < k_tiles; ++kt) {
         mbar_wait(&full[stage], phase);
+        // rows cw * 64: 64 rows of 128 bytes on (K-major), or the cw-th
+        // 64-column box (MN-major); 8 KB in either layout
         const uint64_t da = gmma_desc(sa + stage * kWTileA + cw * 64 * 128,
-                                      kDescALead, kDescAStride);
-        const uint64_t db = gmma_desc(sb + stage * kWTileB, kDescBLead,
-                                      kDescBStride);
+                                      kALead, kDescStride);
+        const uint64_t db = gmma_desc(sb + stage * kWTileB, kBLead,
+                                      kDescStride);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kWK / 16; ++kk)   // a: +32 B, b: +16 rows
-          wgmma_m64n256k16(acc, da + kk * 2, db + kk * 128, (kt | kk) != 0);
+        for (int kk = 0; kk < kWK / 16; ++kk)
+          wgmma_m64n256k16<kAMn, kBMn>(acc, da + kk * kAStep, db + kk * kBStep,
+                                       (kt | kk) != 0);
         wgmma_commit();
         if (kt > 0) {   // the previous stage's wgmmas are done: release it
           wgmma_wait<1>();
@@ -727,7 +793,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       // it goes out in four 64 x 64 boxes through two shared buffers in
       // turn, laid out with the map's 128-byte swizzle (16-byte chunk c of
       // row r at chunk c ^ (r % 8): no bank conflicts); the map drops rows
-      // past C and columns past F, and the stores run on under the next
+      // past M and columns past N, and the stores run on under the next
       // tile's products.
       const int r0 = warp * 16 + (lane >> 2);
 #pragma unroll
@@ -750,7 +816,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         warpgroup_sync(1 + cw);
         if (tid == 0)
-          tma_store_3d(&tmy, buf, n0 + q * kWOutBox, m0 + cw * 64, e);
+          tma_store_3d(tmy, buf, n0 + q * kWOutBox, m0 + cw * 64, e);
       }
     }
     if (tid == 0)   // the buffers stay until the last stores have read them
@@ -758,69 +824,125 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
 }
 
+// y (E, C, F) = x (E, C, D) . w (E, D, F): M C, N F, K D
+__global__ void __launch_bounds__(kWThreads, 1)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                     const __grid_constant__ CUtensorMap tmw,
+                     const __grid_constant__ CUtensorMap tmy, int E, int C,
+                     int D, int F) {
+  gmm_wgmma_body<kGmmFwd>(&tmx, &tmw, &tmy, E, C, F, D);
+}
+
+// dx (E, C, D) = dy (E, C, F) . w (E, D, F)^T: M C, N D, K F
+__global__ void __launch_bounds__(kWThreads, 1)
+    gmm_wgmma_dx_kernel(const __grid_constant__ CUtensorMap tmdy,
+                        const __grid_constant__ CUtensorMap tmw,
+                        const __grid_constant__ CUtensorMap tmdx, int E, int C,
+                        int D, int F) {
+  gmm_wgmma_body<kGmmDx>(&tmdy, &tmw, &tmdx, E, C, D, F);
+}
+
+// dw (E, D, F) = x (E, C, D)^T . dy (E, C, F): M D, N F, K C
+__global__ void __launch_bounds__(kWThreads, 1)
+    gmm_wgmma_dw_kernel(const __grid_constant__ CUtensorMap tmx,
+                        const __grid_constant__ CUtensorMap tmdy,
+                        const __grid_constant__ CUtensorMap tmdw, int E, int C,
+                        int D, int F) {
+  gmm_wgmma_body<kGmmDw>(&tmx, &tmdy, &tmdw, E, D, F, C);
+}
+
 // ---------------------------------------------------------------------------
-// float32: CUDA-core FMAs (no TF32)
+// the CUDA cores, for all three products: float32 (no TF32), and the bf16
+// backward the wgmma route does not take (C <= 16, a base off 16 bytes, D or
+// F not a multiple of 8)
 // ---------------------------------------------------------------------------
 
 constexpr int kFM = 64, kFN = 64, kFK = 16;
 constexpr int kFThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
 
-// grid: x = ceil(C / kFM), y = ceil(F / kFN), z = E. Thread (ty, tx) owns
-// rows ty + 16 i and columns tx + 16 j, so a warp's shared-memory reads of a
-// k step are broadcasts (x) and 16 consecutive words (w).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// out (E, M, N) contiguous = a . b with a[e, m, k] at a + e sae + m sam +
+// k sak and b[e, k, n] at b + e sbe + k sbk + n sbn: the forward reads x
+// (k = d contiguous) and w (n = f contiguous), dx reads dy (k = f
+// contiguous) and w (k = f contiguous), dw reads x (m = d contiguous) and
+// dy (n = f contiguous). 64 x 64 output tiles, K in steps of 16 through
+// shared memory; each operand's tile is loaded with neighbouring threads
+// along its contiguous axis. Thread (ty, tx) owns rows ty + 16 i and
+// columns tx + 16 j, so a warp's shared-memory reads of a k step are
+// broadcasts (a) and 16 consecutive words (b). Products of bf16 values are
+// exact in float32; fmaf sums them in float32.
+// grid: x = ceil(M / kFM), y = ceil(N / kFN), z = E.
+template <typename T>
 __global__ void __launch_bounds__(kFThreads)
-    gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   float* __restrict__ y, int C, int D, int F) {
-  __shared__ float sa[kFK][kFM + 4];   // x's tile, transposed
+    gmm_fma_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                   T* __restrict__ out, int M, int N, int K,
+                   long long sae, long long sam, long long sak,
+                   long long sbe, long long sbk, long long sbn) {
+  __shared__ float sa[kFK][kFM + 4];
   __shared__ float sb[kFK][kFN + 4];
   const int e = blockIdx.z;
   const int m0 = blockIdx.x * kFM, n0 = blockIdx.y * kFN;
-  const float* xe = x + (size_t)e * C * D;
-  const float* we = w + (size_t)e * D * F;
+  const T* ae = a + e * sae;
+  const T* be = b + e * sbe;
+  const bool a_k = sak == 1, b_k = sbk == 1;   // k the contiguous axis
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
   float acc[4][4] = {};
-  for (int k0 = 0; k0 < D; k0 += kFK) {
+  for (int k0 = 0; k0 < K; k0 += kFK) {
 #pragma unroll
     for (int i = 0; i < (kFM * kFK) / kFThreads; ++i) {   // 4 each
       const int q = tid + i * kFThreads;
-      const int r = q / kFK, c = q % kFK;                  // x: row r, k c
-      const int gm = m0 + r, gk = k0 + c;
-      sa[c][r] = (gm < C && gk < D) ? xe[(size_t)gm * D + gk] : 0.f;
-      const int rb = q / kFN, cb = q % kFN;                // w: k rb, col cb
-      const int gkb = k0 + rb, gn = n0 + cb;
-      sb[rb][cb] = (gkb < D && gn < F) ? we[(size_t)gkb * F + gn] : 0.f;
+      const int ra = a_k ? q / kFK : q % kFM, ca = a_k ? q % kFK : q / kFM;
+      const int gm = m0 + ra, gka = k0 + ca;
+      sa[ca][ra] = (gm < M && gka < K)
+                       ? to_f32(ae[gm * sam + gka * sak]) : 0.f;
+      const int rb = b_k ? q / kFK : q % kFN, cb = b_k ? q % kFK : q / kFN;
+      const int gn = n0 + rb, gkb = k0 + cb;
+      sb[cb][rb] = (gn < N && gkb < K)
+                       ? to_f32(be[gkb * sbk + gn * sbn]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < kFK; ++k) {
-      float a[4], b[4];
+      float av[4], bv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sa[k][ty + 16 * i];
+      for (int i = 0; i < 4; ++i) av[i] = sa[k][ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sb[k][tx + 16 * j];
+      for (int j = 0; j < 4; ++j) bv[j] = sb[k][tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();
   }
-  float* ye = y + (size_t)e * C * F;
+  T* oe = out + (size_t)e * M * N;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty + 16 * i;
-    if (row >= C) continue;
+    if (row >= M) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx + 16 * j;
-      if (col < F) ye[(size_t)row * F + col] = acc[i][j];
+      if (col < N) store_as(oe + (size_t)row * N + col, acc[i][j]);
     }
   }
 }
 
 // the C entry's routes; the Python wrapper's `plan` names them
-enum Route : int { kRouteF32 = 0, kRouteMma = 1, kRouteWgmma = 2, kRouteSplitD = 3 };
+enum Route : int {
+  kRouteF32 = 0,      // float32, CUDA cores (forward and backward)
+  kRouteMma = 1,      // bf16 forward, mma.sync
+  kRouteWgmma = 2,    // bf16, wgmma + TMA (forward and backward)
+  kRouteSplitD = 3,   // bf16 forward at C <= 16, D split over blocks
+  kRouteBf16 = 4,     // bf16 backward, CUDA cores
+};
 constexpr int kBadArgs = -1, kNoTensorMap = -2;
 
 bool aligned16(const void* p) {
@@ -882,24 +1004,51 @@ int sm_count() {
   return counts[dev];
 }
 
-int launch_wgmma(const void* x, const void* w, void* y, int E, int C, int D,
-                 int F, cudaStream_t s) {
-  CUtensorMap tmx, tmw, tmy;
-  if (!encode_3d(&tmx, x, D, C, E, kWK, kWM) ||
-      !encode_3d(&tmw, w, F, D, E, kWBoxN, kWK) ||
-      !encode_3d(&tmy, y, F, C, E, kWOutBox, kWOutBox))
-    return kNoTensorMap;
+// the forward (mode kGmmFwd: a = x, b = w, out = y), dx (kGmmDx: a = dy,
+// b = w, out = dx) or dw (kGmmDw: a = x, b = dy, out = dw) on the wgmma
+// route: each operand's tensor map with the boxes its mode reads
+int launch_wgmma(int mode, const void* a, const void* b, void* out, int E,
+                 int C, int D, int F, cudaStream_t s) {
+  CUtensorMap tma, tmb, tmo;
+  bool ok;
+  long long m, n;
+  const void* kern;
+  if (mode == kGmmFwd) {
+    ok = encode_3d(&tma, a, D, C, E, kWK, kWM) &&
+         encode_3d(&tmb, b, F, D, E, kWBoxN, kWK) &&
+         encode_3d(&tmo, out, F, C, E, kWOutBox, kWOutBox);
+    m = C, n = F, kern = (const void*)gmm_wgmma_kernel;
+  } else if (mode == kGmmDx) {
+    ok = encode_3d(&tma, a, F, C, E, kWK, kWM) &&
+         encode_3d(&tmb, b, F, D, E, kWK, kWN) &&
+         encode_3d(&tmo, out, D, C, E, kWOutBox, kWOutBox);
+    m = C, n = D, kern = (const void*)gmm_wgmma_dx_kernel;
+  } else if (mode == kGmmDw) {
+    ok = encode_3d(&tma, a, D, C, E, kWBoxN, kWK) &&
+         encode_3d(&tmb, b, F, C, E, kWBoxN, kWK) &&
+         encode_3d(&tmo, out, F, D, E, kWOutBox, kWOutBox);
+    m = D, n = F, kern = (const void*)gmm_wgmma_dw_kernel;
+  } else {
+    return kBadArgs;
+  }
+  if (!ok) return kNoTensorMap;
   cudaError_t err = cudaFuncSetAttribute(
-      gmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kWSmemBytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (long long)E * ((C + kWM - 1) / kWM) *
-                          ((F + kWN - 1) / kWN);
+  const long long tiles = (long long)E * ((m + kWM - 1) / kWM) *
+                          ((n + kWN - 1) / kWN);
   const int sms = sm_count();
   if (sms < 1) return static_cast<int>(cudaGetLastError());
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  gmm_wgmma_kernel<<<grid, kWThreads, kWSmemBytes, s>>>(
-      tmx, tmw, tmy, E, C, D, F);
+  if (mode == kGmmFwd)
+    gmm_wgmma_kernel<<<grid, kWThreads, kWSmemBytes, s>>>(tma, tmb, tmo, E, C,
+                                                          D, F);
+  else if (mode == kGmmDx)
+    gmm_wgmma_dx_kernel<<<grid, kWThreads, kWSmemBytes, s>>>(tma, tmb, tmo, E,
+                                                             C, D, F);
+  else
+    gmm_wgmma_dw_kernel<<<grid, kWThreads, kWSmemBytes, s>>>(tma, tmb, tmo, E,
+                                                             C, D, F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -934,6 +1083,39 @@ int launch_splitd(const void* x, const void* w, void* y, void* ws, int E,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the forward (kGmmFwd: a = x, b = w, out = y), dx (kGmmDx: a = dy, b = w,
+// out = dx) or dw (kGmmDw: a = x, b = dy, out = dw) on the CUDA cores
+template <typename T>
+int launch_fma(int mode, const void* a, const void* b, void* out, int E,
+               int C, int D, int F, cudaStream_t s) {
+  // forward: M C, N F, K D; a = x (E, C, D), b = w (E, D, F)
+  // dx: M C, N D, K F; a = dy (E, C, F), b[e, k, n] = w[e, n, k]
+  // dw: M D, N F, K C; a[e, m, k] = x[e, k, m], b = dy (E, C, F)
+  int M, N, K;
+  long long sae, sam, sak, sbe, sbk, sbn;
+  if (mode == kGmmFwd) {
+    M = C, N = F, K = D;
+    sae = (long long)C * D, sam = D, sak = 1;
+    sbe = (long long)D * F, sbk = F, sbn = 1;
+  } else if (mode == kGmmDx) {
+    M = C, N = D, K = F;
+    sae = (long long)C * F, sam = F, sak = 1;
+    sbe = (long long)D * F, sbk = 1, sbn = F;
+  } else if (mode == kGmmDw) {
+    M = D, N = F, K = C;
+    sae = (long long)C * D, sam = 1, sak = D;
+    sbe = (long long)C * F, sbk = F, sbn = 1;
+  } else {
+    return kBadArgs;
+  }
+  const long long gx = (M + kFM - 1) / kFM, gy = (N + kFN - 1) / kFN;
+  if (gy > 65535) return kBadArgs;
+  gmm_fma_kernel<T><<<dim3(gx, gy, E), kFThreads, 0, s>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out),
+      M, N, K, sae, sam, sak, sbe, sbk, sbn);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x: (E, C, D), w: (E, D, F), y: (E, C, F), all contiguous and of one dtype
@@ -955,7 +1137,7 @@ extern "C" int grouped_matmul(const void* x, const void* w, void* y, void* ws,
   switch (route) {
     case kRouteWgmma:
       if (!tma_ok) return kBadArgs;
-      err = launch_wgmma(x, w, y, E, C, D, F, s);
+      err = launch_wgmma(kGmmFwd, x, w, y, E, C, D, F, s);
       break;
     case kRouteSplitD:
       if (!tma_ok) return kBadArgs;
@@ -976,15 +1158,45 @@ extern "C" int grouped_matmul(const void* x, const void* w, void* y, void* ws,
       err = static_cast<int>(cudaGetLastError());
       break;
     }
-    case kRouteF32: {
-      const long long gx = (C + kFM - 1) / kFM, gy = (F + kFN - 1) / kFN;
-      if (gy > 65535) return kBadArgs;
-      gmm_f32_kernel<<<dim3(gx, gy, E), kFThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<const float*>(w),
-          static_cast<float*>(y), C, D, F);
-      err = static_cast<int>(cudaGetLastError());
+    case kRouteF32:
+      err = launch_fma<float>(kGmmFwd, x, w, y, E, C, D, F, s);
       break;
-    }
+    default:
+      return kBadArgs;
+  }
+  if (err == 0) *ran = route;
+  return err;
+}
+
+// The backward's two products, each into a new contiguous tensor of the
+// operands' dtype:
+//   mode 1, dx (E, C, D) = dy (E, C, F) . w (E, D, F)^T: a = dy, b = w;
+//   mode 2, dw (E, D, F) = x (E, C, D)^T . dy (E, C, F): a = x, b = dy.
+// route: 0 float32 on the CUDA cores, 4 bf16 on the CUDA cores, 2 bf16
+// wgmma + TMA (a and b 16-byte aligned, D and F multiples of 8). Sets *ran
+// to the route it launched. Returns 0 on success, a cudaError_t from the
+// launch, -1 for arguments the route does not take (the Python wrapper's
+// plan_bwd checks these first) or -2 when a tensor map cannot be encoded.
+extern "C" int grouped_matmul_bwd(const void* a, const void* b, void* out,
+                                  int mode, int route, int E, int C, int D,
+                                  int F, void* stream, int* ran) {
+  if (E < 1 || E > 65535 || C < 1 || D < 1 || F < 1 ||
+      (mode != kGmmDx && mode != kGmmDw))
+    return kBadArgs;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  switch (route) {
+    case kRouteWgmma:
+      if (!(aligned16(a) && aligned16(b) && D % 8 == 0 && F % 8 == 0))
+        return kBadArgs;
+      err = launch_wgmma(mode, a, b, out, E, C, D, F, s);
+      break;
+    case kRouteF32:
+      err = launch_fma<float>(mode, a, b, out, E, C, D, F, s);
+      break;
+    case kRouteBf16:
+      err = launch_fma<bf16>(mode, a, b, out, E, C, D, F, s);
+      break;
     default:
       return kBadArgs;
   }

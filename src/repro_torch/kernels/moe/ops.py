@@ -11,6 +11,14 @@ There is no fallback from the kernels to the plain version. :func:`moe_ffn`
 makes its three products (gate, up, down) through it, so on the card an
 expert FFN is three calls of the kernel.
 
+It is differentiable on both devices (:class:`_GroupedMatmul`, as the
+reference's einsums are under ``jax.grad``): the forward saves x and w;
+the backward computes only the gradients asked for, dx = dy w^T and dw =
+x^T dy, through the backward kernels on the card
+(``grouped_matmul_dx_cuda``, ``grouped_matmul_dw_cuda``) and the plain
+versions on the CPU. On the card an expert FFN's backward is six kernel
+calls: dx and dw for each of gate, up and down.
+
 The ``SPEC`` keeps the reference's op name, ports (one slave port for the
 routing configuration, master ports for the tokens and the three expert
 weights, each with its logical axes) and power domain ``acc_moe``, and
@@ -28,14 +36,37 @@ from repro_torch.sharding import axes as lx
 from repro_torch.sharding.params import Axes
 
 
+class _GroupedMatmul(torch.autograd.Function):
+    """y = x w per expert; the backward's two grouped products by device."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.device.type == "cuda":
+            return kernel.grouped_matmul_cuda(x, w)
+        return ref.grouped_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        cuda = dy.device.type == "cuda"
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (kernel.grouped_matmul_dx_cuda(dy, w) if cuda
+                  else ref.grouped_matmul_dx(dy, w))
+        if ctx.needs_input_grad[1]:
+            dw = (kernel.grouped_matmul_dw_cuda(x, dy) if cuda
+                  else ref.grouped_matmul_dw(x, dy))
+        return dx, dw
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, D) @ w (E, D, F) -> (E, C, F) in x's dtype, summed in
-    float32."""
-    if x.device.type == "cuda":
-        return kernel.grouped_matmul_cuda(x, w)
-    if x.device.type == "cpu":
-        return ref.grouped_matmul(x, w)
-    raise ValueError(f"grouped_matmul runs on cuda or cpu, not {x.device}")
+    float32; differentiable in x and w."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"grouped_matmul runs on cuda or cpu, not {x.device}")
+    return _GroupedMatmul.apply(x, w)
 
 
 def moe_ffn(xg: torch.Tensor, p: dict[str, torch.Tensor],

@@ -2,9 +2,13 @@
 
 Port of ``src/repro/kernels/moe/ref.py``, with the Pallas kernel's own
 arithmetic (``src/repro/kernels/moe/kernel.py:21-35``): float32 products, a
-float32 sum over D and one rounding to x's dtype. They take any C, D and F
-(the Pallas wrapper asserts its block sizes divide them) and run on any
-device; the tests and ``chip_smoke.py`` hold the CUDA kernel to them.
+float32 sum over D and one rounding to x's dtype. The backward's two
+products, :func:`grouped_matmul_dx` and :func:`grouped_matmul_dw` (the
+gradient of ``jnp.einsum("ecd,edf->ecf")``, which the reference takes
+with ``jax.grad``), have the same arithmetic; float64 inputs stay float64
+throughout, for ``gradcheck``. They take any C, D and F (the Pallas
+wrapper asserts its block sizes divide them) and run on any device; the
+tests and ``chip_smoke.py`` hold the CUDA kernels to them.
 :func:`expert_ffn` takes the matmul as an argument, so ``ops.moe_ffn``
 runs the same FFN through the kernel; :func:`silu` is also mamba2's.
 """
@@ -34,10 +38,30 @@ def expert_ffn(xg: torch.Tensor, p: dict[str, torch.Tensor], kind: str,
     return matmul(act * up, p["w_down"])
 
 
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The sum's dtype: float32, or float64 for float64 inputs (gradcheck)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, D) @ w (E, D, F) -> (E, C, F) in x's dtype, summed in
     float32."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    acc = _acc(x)
+    return torch.einsum("ecd,edf->ecf", x.to(acc), w.to(acc)).to(x.dtype)
+
+
+def grouped_matmul_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The backward's dx: dy (E, C, F) . w (E, D, F)^T -> (E, C, D) in dy's
+    dtype, summed over F in float32, one rounding (the kernels' contract)."""
+    acc = _acc(dy)
+    return torch.einsum("ecf,edf->ecd", dy.to(acc), w.to(acc)).to(dy.dtype)
+
+
+def grouped_matmul_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The backward's dw: x (E, C, D)^T . dy (E, C, F) -> (E, D, F) in x's
+    dtype, summed over the C rows in float32, one rounding."""
+    acc = _acc(x)
+    return torch.einsum("ecd,ecf->edf", x.to(acc), dy.to(acc)).to(x.dtype)
 
 
 def moe_ffn(xg: torch.Tensor, p: dict[str, torch.Tensor],

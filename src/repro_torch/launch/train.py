@@ -6,6 +6,8 @@
       --steps 20 --global-batch 8 --seq 64 --ckpt ckpt/run --ckpt-every 10
   python -m repro_torch.launch.train --arch musicgen-large --init true-fan-in \\
       --steps 4 --global-batch 8 --accum 2 --seq 2048
+  python -m repro_torch.launch.train --arch grok-1-314b --smoke --device cpu \\
+      --steps 20 --global-batch 8 --seq 32 --optimizer adafactor
 
 Port of ``src/repro/launch/train.py`` (``:43-101``) without the mesh (the
 tensor-parallel slice of the port). Runs on the card unless ``--device
@@ -16,7 +18,10 @@ VLM stubs, musicgen-large and internvl2-76b, whose inputs are
 embeddings); prints one line per step with the loss, the gradient norm
 and the step time, and raises when either is not finite. Each step
 reports a heartbeat and its time to an ``FTController`` of one worker and
-ticks it. Every family but MoE trains. ``--ckpt DIR`` saves the params
+ticks it. Every family trains; the MoE family's loss adds its layers'
+load-balance loss (``TrainConfig.aux_weight`` x aux, as the reference's),
+and its expert products run through the grouped-matmul kernels, forward
+and backward. ``--ckpt DIR`` saves the params
 under ``DIR`` (on a thread, after a copy to the host) and the optimizer
 state under ``DIR/opt`` every ``--ckpt-every`` steps
 (:mod:`repro_torch.ckpt.checkpoint`); ``--resume`` restores both from the

@@ -1,7 +1,8 @@
 """Shared neural layers, as plain functions on tensors.
 
 Port of ``src/repro/models/layers.py`` for the dense decode and training
-paths, the hybrid family's serving and the MoE family's serving: norms,
+paths, the hybrid family's serving and the MoE family's serving and
+training: norms,
 positional encodings, the multi-token attention entry, the four MLP kinds,
 the mixture of experts (capacity-grouped dispatch, the expert FFN through
 the grouped-matmul op, the dense oracle), the depthwise causal conv, the
@@ -248,6 +249,14 @@ def moe(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
     loss is Switch's load-balance term ``E * sum_e f_e * p_e``. Only
     ``impl="chunked"``'s arithmetic exists here; the op is the kernel on
     the card, the plain version on the CPU.
+
+    Differentiable end to end, as the reference is under ``jax.grad``:
+    through the float32 router and softmax, the gates :func:`route` picks
+    (a sort's values), their renormalisation, the gather into (E, C, d),
+    the expert FFN (the grouped matmul's autograd function: its backward
+    kernels on the card), the float32 combine, the aux loss's mean
+    probabilities (the load ``ce`` is a count, with no gradient, as the
+    reference's) and the shared expert.
     """
     b, s, d = x.shape
     t = b * s
@@ -283,8 +292,12 @@ def moe(x: torch.Tensor, p: dict, *, n_exp: int, top_k: int,
 
     slot_out = hg.reshape(n_exp * cap, d)[torch.where(keep, dest, 0)]
     w = (slot_g[order] * keep).to(F32)[:, None]
-    # at most top_k addends a token, each into zero: the sum is the same in
-    # any order, so index_add_'s atomics on the card stay exact for k <= 2
+    # at most top_k addends a token, each into zero (a dropped slot adds an
+    # exact 0): the sum is the same in any order, so index_add_'s atomics
+    # on the card stay exact for k <= 2. Its backward is a gather; the
+    # backwards of the two gathers above add into zeros likewise: a token's
+    # row receives at most top_k gradients, hg's slot 0 its own and the
+    # dropped slots' zeros
     out = torch.zeros((t, d), dtype=F32, device=dev).index_add_(
         0, tok, slot_out.to(F32) * w)
     out = out.to(x.dtype).reshape(b, s, d)

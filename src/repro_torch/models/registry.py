@@ -10,8 +10,7 @@ audio and VLM families on its paged backend (``decode_step_paged``) or on
 lanes, the MoE, hybrid and SSM families on lanes only (``supports_paged``
 is False for them), through ``decode_step`` over a lane cache
 (``cache_init(..., lanes=True)``, :func:`lane_read`, :func:`lane_write`).
-Training (``forward``) runs every family but MoE, which raises naming its
-ROADMAP item.
+Training (``forward``) runs every family.
 """
 
 from __future__ import annotations
@@ -48,25 +47,12 @@ def decls(cfg: ModelConfig):
     return _mod(cfg).decls(cfg)
 
 
-# the families the training forward does not run yet, and the ROADMAP.md
-# items ("Still to port") that bring them
-_LATER_TRAIN = {
-    "moe": "MoE training, after tensor parallelism (one grok-1 layer's "
-           "experts with AdamW's state take 77 GB)",
-}
-
-
 def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
             positions=None):
     """Training forward ``(logits, aux)`` from ``tokens`` (B, S) or
-    ``embeds`` (B, S, d_model); see :func:`transformer.forward`,
-    :func:`griffin.forward` and :func:`mamba2.forward`. Every family but
-    MoE, which raises ``NotImplementedError`` naming its ROADMAP item."""
-    if cfg.family in _LATER_TRAIN:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the training forward is not yet "
-            f"ported for this family (ROADMAP.md, still to port: "
-            f"{_LATER_TRAIN[cfg.family]})")
+    ``embeds`` (B, S, d_model), every family; see
+    :func:`transformer.forward` (``aux`` the MoE layers' load-balance
+    loss), :func:`griffin.forward` and :func:`mamba2.forward`."""
     return _mod(cfg).forward(params, cfg, tokens=tokens, positions=positions,
                              embeds=embeds)
 

@@ -2,7 +2,7 @@
 prefill and decode, and paged decode.
 
 Port of ``src/repro/models/transformer.py`` (``decls`` with dense and MoE
-superblocks, ``forward`` for the dense family, ``KVCache``, ``prefill`` and
+superblocks, ``forward`` for the dense and MoE families, ``KVCache``, ``prefill`` and
 ``decode_step`` for the dense and MoE families, ``remat`` (the training
 forward's remat point, shared with griffin and mamba2), ``supports_paged``,
 ``paged_pool_init``, ``decode_step_paged`` on one device or head-sharded
@@ -175,25 +175,33 @@ def _project_qkv(h, p, cfg: ModelConfig, rope_cs=None):
     return q, k, v
 
 
-def _ffn(x, lp, cfg: ModelConfig, is_moe: bool = False, lanes: bool = False):
-    """The residual FFN of one layer: the MLP, or for an MoE layer
+def _ffn_aux(x, lp, cfg: ModelConfig, is_moe: bool = False):
+    """The residual FFN of one layer and its MoE aux loss
+    (``transformer.py:146-153``): the MLP (aux None), or for an MoE layer
     :func:`layers.moe` on weights cast to x's dtype (the router is lifted
-    back to float32 inside, as the reference's is), or with ``lanes``
-    :func:`layers.moe_lanes` (each row routed on its own). The MoE aux
-    loss is dropped: the serving paths discard it, as the reference's
-    prefill and decode do, and MoE training is not yet ported."""
+    back to float32 inside, as the reference's is) and its Switch
+    load-balance loss, float32."""
     h = L.rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
+    if is_moe:
+        o, aux = L.moe(h, _cast(lp["moe"], x.dtype),
+                       n_exp=cfg.moe_experts, top_k=cfg.moe_top_k,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       kind=cfg.mlp_type, impl=cfg.moe_impl)
+        return x + o, aux
+    return x + L.mlp(h, _cast(lp["mlp"], x.dtype), cfg.mlp_type), None
+
+
+def _ffn(x, lp, cfg: ModelConfig, is_moe: bool = False, lanes: bool = False):
+    """The residual FFN of one layer on the serving paths, which discard
+    the MoE aux loss as the reference's prefill and decode do:
+    :func:`_ffn_aux`'s output, or with ``lanes`` :func:`layers.moe_lanes`
+    (each row routed on its own)."""
     if is_moe and lanes:
+        h = L.rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
         return x + L.moe_lanes(h, _cast(lp["moe"], x.dtype),
                                n_exp=cfg.moe_experts, top_k=cfg.moe_top_k,
                                kind=cfg.mlp_type, impl=cfg.moe_impl)
-    if is_moe:
-        o, _aux = L.moe(h, _cast(lp["moe"], x.dtype),
-                        n_exp=cfg.moe_experts, top_k=cfg.moe_top_k,
-                        capacity_factor=cfg.moe_capacity_factor,
-                        kind=cfg.mlp_type, impl=cfg.moe_impl)
-        return x + o
-    return x + L.mlp(h, _cast(lp["mlp"], x.dtype), cfg.mlp_type)
+    return _ffn_aux(x, lp, cfg, is_moe)[0]
 
 
 def _act_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -259,7 +267,10 @@ def remat(fn, cfg: ModelConfig, *args):
     forward, kernels included, runs again in the backward); ``"dots"``
     (``checkpoint_dots_with_no_batch_dims``) keeps the outputs of matrix
     products without batch dimensions and recomputes the rest, through
-    PyTorch's selective checkpointing."""
+    PyTorch's selective checkpointing. The grouped matmul's products have
+    an expert batch dimension, as the reference's einsums do, so they are
+    recomputed: on the CPU as batched ``bmm``s, on the card as the
+    kernel's autograd function, whose launch no policy sees."""
     if cfg.remat == "none":
         return fn(*args)
     if cfg.remat == "full":
@@ -280,9 +291,12 @@ def _attn_train(x, p, cfg: ModelConfig, rope_cs):
     return _attn_out(x, o, p["wo"])
 
 
-def _layer_train(x, lp, cfg: ModelConfig, rope_cs):
+def _layer_train(x, lp, cfg: ModelConfig, rope_cs, is_moe: bool = False):
+    """One layer of the training forward: x, or ``(x, aux)`` for an MoE
+    layer."""
     x = _attn_train(x, _cast(lp["attn"], x.dtype), cfg, rope_cs)
-    return _ffn(x, lp, cfg)
+    x, aux = _ffn_aux(x, lp, cfg, is_moe)
+    return (x, aux) if is_moe else x
 
 
 def _inputs(params, tokens, embeds):
@@ -301,14 +315,17 @@ def _inputs(params, tokens, embeds):
 def forward(params, cfg: ModelConfig, tokens=None, positions=None,
             embeds=None):
     """Training/prefill forward: tokens (B, S) or embeds (B, S, d_model) ->
-    ``(logits (B, S, V), aux)``, ``aux`` being the MoE load-balance loss (0
-    for dense layers).
+    ``(logits (B, S, V), aux)``, ``aux`` being the MoE load-balance loss
+    summed over the MoE layers in order from a float32 zero, as the
+    reference's scan carries it (0 for dense layers).
 
     Runs where the params are. Every attention call goes through
     :func:`repro_torch.models.layers.attention` under ``cfg.attn_impl``
-    (the CUDA flash kernels on the card). Each layer runs under
-    ``cfg.remat`` (:func:`remat`). ``params["blocks"]`` may be stacked or a
-    list of per-superblock trees (:func:`superblocks`).
+    (the CUDA flash kernels on the card), every expert FFN through
+    :func:`repro_torch.models.layers.moe` (the grouped-matmul kernels,
+    forward and backward). Each layer runs under ``cfg.remat``
+    (:func:`remat`). ``params["blocks"]`` may be stacked or a list of
+    per-superblock trees (:func:`superblocks`).
     """
     dev = params["embed"].device
     tokens, embeds, s = _inputs(params, tokens, embeds)
@@ -318,13 +335,17 @@ def forward(params, cfg: ModelConfig, tokens=None, positions=None,
     x = _embed(params, cfg, tokens, positions, embeds)
     rope_cs = _rope(cfg, positions)
     il = _interleave(cfg)
+    aux = torch.zeros((), dtype=L.F32, device=dev)
     for blk in superblocks(params["blocks"], cfg.n_layers // il):
         for j in range(il):
             if _is_moe_layer(cfg, j):
-                raise NotImplementedError("MoE training is not yet ported")
-            x = remat(_layer_train, cfg, x, blk[f"l{j}"], cfg, rope_cs)
+                x, a = remat(_layer_train, cfg, x, blk[f"l{j}"], cfg, rope_cs,
+                             True)
+                aux = aux + a
+            else:
+                x = remat(_layer_train, cfg, x, blk[f"l{j}"], cfg, rope_cs)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    return L.lm_head(x, params, cfg), torch.zeros((), device=dev)
+    return L.lm_head(x, params, cfg), aux
 
 
 # ---------------------------------------------------------------------------

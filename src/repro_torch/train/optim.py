@@ -12,7 +12,12 @@ Unlike the reference, which returns new trees, ``update`` works **in
 place**: it writes the new moments and master into the state's tensors and
 the new values into the parameter tensors, and returns those same trees.
 :func:`clip_by_global_norm` scales the gradient tensors in place too. Trees
-are nested dicts; leaves are visited in sorted-key order.
+are nested dicts; leaves are visited in sorted-key order. Each leaf of
+three or more dims is updated, normed and clipped a slice of whole
+matrices at a time (:func:`_slices`), so that a float32 temporary holds one
+slice, not the leaf: the elementwise arithmetic is the reference's bit for
+bit; sums over a leaf (the global norm, Adafactor's update RMS) add the
+slices' float32 sums, which differs from one sum by float32 rounding.
 """
 
 from __future__ import annotations
@@ -28,11 +33,39 @@ from repro_torch.sharding.params import Axes, tree_leaves, tree_map
 F32 = torch.float32
 
 
-def _rows(t: torch.Tensor) -> list[torch.Tensor]:
-    """Views of ``t`` along its first axis when it has three or more: an
-    elementwise update runs on one layer's slice of a stacked leaf at a
-    time, which bounds its float32 temporaries."""
-    return list(t.unbind(0)) if t.dim() >= 3 else [t]
+# elements of a slice of a leaf (a float32 temporary of 256 MB) where its
+# matrices are small enough to be grouped
+_SLICE_ELEMS = 1 << 26
+
+
+def _split(t: torch.Tensor, keep: int, per: int,
+           grouped: bool) -> list[torch.Tensor]:
+    """Views of ``t`` down to its trailing ``keep`` dims, in order: ``per``
+    of them to a view where ``grouped`` (``t`` contiguous), else one."""
+    if grouped:
+        return list(t.view(-1, *t.shape[t.dim() - keep:]).split(per))
+    if t.dim() == keep:
+        return [t]
+    return [v for s in t.unbind(0) for v in _split(s, keep, per, False)]
+
+
+def _slices(leaves: list, keeps: list | None = None) -> list[tuple]:
+    """Views that cut tensors stacked alike (a leaf and its optimizer
+    state, or its factored moments with ``keeps`` 1) the same way, zipped:
+    ``[tuple(leaves)]`` when the first has fewer than three dims, else
+    slices of its trailing 2-d matrices, consecutive ones grouped while a
+    slice holds at most ``_SLICE_ELEMS`` elements (one a slice past that,
+    or where a tensor is not contiguous). An update runs on one slice at a
+    time, which bounds its float32 temporaries: a stacked (1, 8, 6144,
+    32768) expert leaf goes one (6144, 32768) matrix at a time."""
+    t = leaves[0]
+    if t.dim() < 3:
+        return [tuple(leaves)]
+    r, c = t.shape[-2:]
+    per = max(1, _SLICE_ELEMS // max(1, r * c))
+    grouped = all(x.is_contiguous() for x in leaves)
+    return list(zip(*(_split(x, k, per, grouped)
+                      for x, k in zip(leaves, keeps or [2] * len(leaves)))))
 
 
 def _f32(x: float) -> float:
@@ -45,7 +78,8 @@ def global_norm(tree) -> torch.Tensor:
     on the leaves' device)."""
     total = None
     for leaf in tree_leaves(tree):
-        sq = sum(torch.sum(torch.square(r.to(F32))) for r in _rows(leaf))
+        sq = sum(torch.sum(torch.square(r.to(F32)))
+                 for r, in _slices([leaf]))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -57,7 +91,7 @@ def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
-        for r in _rows(g):
+        for r, in _slices([g]):
             r.copy_(r.to(F32) * scale)
     return grads, norm
 
@@ -107,7 +141,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         for g, m, v, master, p in zip(
                 *(tree_leaves(x) for x in (grads, state["m"], state["v"],
                                            state["master"], params))):
-            for gr, mr, vr, wr, pr in zip(*map(_rows, (g, m, v, master, p))):
+            for gr, mr, vr, wr, pr in _slices([g, m, v, master, p]):
                 gr = gr.to(F32)
                 mr.mul_(b1).add_(gr, alpha=1 - b1)
                 vr.mul_(b2).addcmul_(gr, gr, value=1 - b2)
@@ -150,6 +184,15 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0,
             st["master"] = tree_map(_master, params)
         return st
 
+    def direction(g, vr, vc, factored: bool):
+        """The unclipped update u of one slice from its updated moments."""
+        if factored:
+            rfac = torch.rsqrt(vr / torch.clamp(vr.mean(-1, keepdim=True),
+                                                min=eps))
+            cfac = torch.rsqrt(vc)
+            return g * rfac[..., None] * cfac[..., None, :]
+        return g * torch.rsqrt(vr)
+
     @torch.no_grad()
     def update(grads, state, params, lr):
         state["step"] += 1
@@ -162,26 +205,39 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0,
                                       tree_leaves(state["vr"]),
                                       tree_leaves(state["vc"]),
                                       tree_leaves(params), masters):
-            g = g.to(F32)
-            g2 = g * g + eps
-            if _factored(g.shape):
-                vr.mul_(beta).add_(g2.mean(-1), alpha=1 - beta)
-                vc.mul_(beta).add_(g2.mean(-2), alpha=1 - beta)
-                rfac = torch.rsqrt(vr / torch.clamp(vr.mean(-1, keepdim=True),
-                                                    min=eps))
-                cfac = torch.rsqrt(vc)
-                u = g * rfac[..., None] * cfac[..., None, :]
-            else:
-                vr.mul_(beta).add_(g2, alpha=1 - beta)
-                u = g * torch.rsqrt(vr)
+            # one slice at a time (:func:`_slices`); the factored moments
+            # are per matrix, the update-clipping RMS per leaf, so a first
+            # pass updates the moments and sums u * u over the slices in
+            # float32, a second recomputes u and applies it
+            factored = _factored(g.shape)
+            leaves = [g, vr, vc, p] + ([] if mstr is None else [mstr])
+            slices = (_slices(leaves, [2, 1, 1, 2, 2]) if factored
+                      else [tuple(leaves)])
+            if mstr is None:
+                slices = [s + (None,) for s in slices]
+            sq = None
+            for gs, vrs, vcs, _, _ in slices:
+                gs = gs.to(F32)
+                g2 = gs * gs + eps
+                if factored:
+                    vrs.mul_(beta).add_(g2.mean(-1), alpha=1 - beta)
+                    vcs.mul_(beta).add_(g2.mean(-2), alpha=1 - beta)
+                else:
+                    vrs.mul_(beta).add_(g2, alpha=1 - beta)
+                del g2
+                u = direction(gs, vrs, vcs, factored)
+                part = torch.sum(u * u)
+                sq = part if sq is None else sq + part
             # update clipping (RMS <= clip_thresh)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
-            u = u / torch.clamp(rms / clip_thresh, min=1.0)
-            base = mstr if mstr is not None else p.to(F32)
-            new = base - lr * (u + weight_decay * base)
-            if mstr is not None:
-                mstr.copy_(new)
-            p.copy_(new)
+            rms = torch.sqrt(sq / g.numel() + 1e-30)
+            denom = torch.clamp(rms / clip_thresh, min=1.0)
+            for gs, vrs, vcs, ps, ms in slices:
+                u = direction(gs.to(F32), vrs, vcs, factored) / denom
+                base = ms if ms is not None else ps.to(F32)
+                new = base - lr * (u + weight_decay * base)
+                if ms is not None:
+                    ms.copy_(new)
+                ps.copy_(new)
         return params, state, {"grad_norm": global_norm(grads)}
 
     def axes(param_axes):
@@ -221,7 +277,7 @@ def lion(b1: float = 0.9, b2: float = 0.99, weight_decay: float = 0.1,
         for g, m, master, p in zip(
                 *(tree_leaves(x) for x in (grads, state["m"],
                                            state["master"], params))):
-            for gr, mr, wr, pr in zip(*map(_rows, (g, m, master, p))):
+            for gr, mr, wr, pr in _slices([g, m, master, p]):
                 gr = gr.to(F32)
                 u = torch.sign(b1 * mr + (1 - b1) * gr)
                 mr.mul_(b2).add_(gr, alpha=1 - b2)

@@ -125,8 +125,11 @@ def make_grad_fn(cfg: ModelConfig, tc: TrainConfig):
     def grad_fn(params, batch):
         if tc.accum == 1:
             loss, metrics, (top, per_leaf) = microbatch(params, batch, 0)
-            return loss, metrics, _rebuild(params, key, top,
-                                           [torch.stack(gs) for gs in per_leaf])
+            # one layer's gradient is its stack as a view: no copy of the
+            # largest tensors a one-layer run holds
+            return loss, metrics, _rebuild(params, key, top, [
+                gs[0].unsqueeze(0) if len(gs) == 1 else torch.stack(gs)
+                for gs in per_leaf])
         top_acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
                    for k in sorted(params) if k != key
                    for p in tree_leaves(params[k])]

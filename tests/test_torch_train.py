@@ -218,14 +218,18 @@ def test_remat_full_gives_the_same_logits_and_grads():
 
 
 def test_unported_paths_raise():
-    """MoE training still raises. Embeds inputs and the audio family train
-    (``tests/test_torch_embeds.py`` holds them to the JAX package); passing
-    tokens and embeds together raises (remat "dots" is ported:
+    """Passing tokens and embeds together raises. MoE training is ported
+    (``tests/test_torch_moe_train.py`` holds it to the JAX package): the
+    grok smoke config's forward gives logits and a positive aux loss.
+    Embeds inputs and the audio family train (``tests/test_torch_embeds.py``
+    holds them to the JAX package; remat "dots" is ported:
     tests/test_torch_train_recurrent.py holds it)."""
     _, cfg, _, params = _models("granite_3_2b", "float32")
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        registry.forward(params, configs.smoke("grok_1_314b"), tokens)
+    _, moe, _, moe_params = _models("grok_1_314b", "float32")
+    logits, aux = registry.forward(moe_params, moe, tokens)
+    assert tuple(logits.shape) == (1, 4, moe.padded_vocab)
+    assert aux.dtype == torch.float32 and aux.item() > 0
     logits, _ = registry.forward(params, cfg, embeds=torch.zeros(1, 4, 64))
     assert tuple(logits.shape) == (1, 4, cfg.padded_vocab)
     with pytest.raises(ValueError, match="exactly one"):
